@@ -1,0 +1,610 @@
+"""Schedule-driven level-batched executor: the stream pool of the paper.
+
+A :class:`repro_torch.core.scheduler.Schedule` compiles into a static plan:
+
+  for each level (ASAP antichain, or <= n_streams wavefront wave):
+      group the level's tasks by op        # POTRF / TRSM / TRAIL / ...
+      for each round-robin chunk of <= n_streams tasks:
+          gather operand tiles (precomputed index arrays)
+          ONE batched launch over the (G, m, m) stack
+          scatter the results back into the buffer
+
+Plans (gather/scatter index arrays per level) are pure functions of the
+tile geometry and ``n_streams`` and are lru-cached.  The tile ops come from
+:mod:`repro_torch.kernels.ops`: on CUDA tensors they launch the port's
+hand-written kernels, on CPU tensors their plain versions.  The solve and
+head ops (TRSV, GEMV, XGEMV, VINIT, VTRSV, VGEMV, GRAM) are plain torch
+(``solve_triangular``, ``einsum``), as the JAX package leaves them to XLA.
+
+The buffers of a run are updated in place (``index_copy_`` /
+``index_add_``) where the JAX executor used functional ``.at[].set`` /
+``.at[].add``; every entry point works on its own copies of its inputs.
+This slice is single-problem: the problem-batch axis, the mesh and the
+telemetry hooks of the JAX executor come with later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import kernels_math as km
+from repro_torch.core import scheduler as sch
+from repro_torch.core import tiling
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+
+
+# ---------------------------------------------------------------------------
+# Compiled plans: per level, per op, per stream-chunk gather/scatter indices.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Batch:
+    """One batched launch: gather operands, compute, scatter ``out``.
+
+    Index semantics by op (numpy int64 arrays, length = batch size):
+      POTRF: a = diagonal slots;                       out = a
+      TRSM:  a = L_JJ slots, b = panel slots;          out = b
+      SYRK:  a = target (i,i) slots, b = panel slots;  out = a
+      GEMM:  a = target slots, b/c = panel slots;      out = a
+      TRSV:  a = diagonal slots;                       out = rhs tile-rows
+      GEMV:  a = L tile slots, b = source tile-rows;   out = dest tile-rows
+    """
+
+    op: str
+    tasks: Tuple[sch.Task, ...]
+    out: np.ndarray
+    a: np.ndarray
+    b: Optional[np.ndarray] = None
+    c: Optional[np.ndarray] = None
+
+    @property
+    def size(self) -> int:
+        return len(self.tasks)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Plan:
+    """A schedule compiled to batched gather/compute/scatter launches."""
+
+    kind: str
+    m_tiles: int
+    n_streams: Optional[int]
+    levels: Tuple[Tuple[Batch, ...], ...]
+
+    @property
+    def n_batches(self) -> int:
+        return sum(len(l) for l in self.levels)
+
+    def level_task_counts(self) -> List[int]:
+        """Tasks per level — must match ``len(level)`` of the source Schedule."""
+        return [sum(b.size for b in level) for level in self.levels]
+
+    def flat_tasks(self) -> List[sch.Task]:
+        """Tasks in issue order (level-major, batch order within a level)."""
+        return [t for level in self.levels for b in level for t in b.tasks]
+
+    def launches_by_op(self) -> Dict[str, int]:
+        """Batched launches per op (dispatch group) in one run of the plan."""
+        counts: Dict[str, int] = {}
+        for level in self.levels:
+            for bt in level:
+                counts[bt.op] = counts.get(bt.op, 0) + 1
+        return counts
+
+
+def _arr(xs: Sequence[int]) -> np.ndarray:
+    return np.asarray(xs, np.int64)
+
+
+def plan_wave_stats(plan: Plan) -> dict:
+    """Static per-Plan wave digest: waves, launches, tasks by op family,
+    bulk-op ride-alongs, and mean stream-pool occupancy (pool tasks per
+    pool-bearing wave over ``n_streams``; 1.0 for an unbounded pool)."""
+    by_op: dict = {}
+    bulk_tasks = pool_tasks = pool_waves = 0
+    for level in plan.levels:
+        level_pool = 0
+        for bt in level:
+            by_op[bt.op] = by_op.get(bt.op, 0) + bt.size
+            if bt.op in sch.BULK_OPS:
+                bulk_tasks += bt.size
+            else:
+                level_pool += bt.size
+        if level_pool:
+            pool_waves += 1
+            pool_tasks += level_pool
+    if plan.n_streams and pool_waves:
+        occupancy = pool_tasks / (pool_waves * plan.n_streams)
+    else:
+        occupancy = 1.0 if pool_tasks else 0.0
+    return {
+        "plan": plan.kind,
+        "waves": len(plan.levels),
+        "launches": plan.n_batches,
+        "tasks": bulk_tasks + pool_tasks,
+        "bulk_tasks": bulk_tasks,
+        "pool_tasks": pool_tasks,
+        "n_streams": plan.n_streams,
+        "occupancy": occupancy,
+        "by_op": by_op,
+    }
+
+
+def _cholesky_batch(op: str, tasks: Sequence[sch.Task], m: int) -> Batch:
+    slot = tiling.packed_index
+    tasks = tuple(tasks)
+    if op == sch.POTRF:
+        d = _arr([slot(j, j, m) for _, _, j, _ in tasks])
+        return Batch(op, tasks, out=d, a=d)
+    if op == sch.TRSM:
+        diag = _arr([slot(j, j, m) for _, _, j, _ in tasks])
+        tgt = _arr([slot(i, j, m) for _, i, j, _ in tasks])
+        return Batch(op, tasks, out=tgt, a=diag, b=tgt)
+    if op == sch.SYRK:
+        tgt = _arr([slot(i, i, m) for _, i, _, _ in tasks])
+        panel = _arr([slot(i, j, m) for _, i, j, _ in tasks])
+        return Batch(op, tasks, out=tgt, a=tgt, b=panel)
+    if op == sch.GEMM:
+        tgt = _arr([slot(i, k, m) for _, i, _, k in tasks])
+        pa = _arr([slot(i, j, m) for _, i, j, _ in tasks])
+        pb = _arr([slot(k, j, m) for _, _, j, k in tasks])
+        return Batch(op, tasks, out=tgt, a=tgt, b=pa, c=pb)
+    raise ValueError(op)
+
+
+def _solve_batch(op: str, tasks: Sequence[sch.Task], m: int, lower: bool) -> Batch:
+    slot = tiling.packed_index
+    tasks = tuple(tasks)
+    if op == sch.TRSV:
+        rows = _arr([i for _, i, _, _ in tasks])
+        diag = _arr([slot(i, i, m) for _, i, _, _ in tasks])
+        return Batch(op, tasks, out=rows, a=diag)
+    if op == sch.GEMV:
+        dst = _arr([i for _, i, _, _ in tasks])
+        src = _arr([j for _, _, j, _ in tasks])
+        tiles = _arr(
+            [slot(i, j, m) if lower else slot(j, i, m) for _, i, j, _ in tasks]
+        )
+        return Batch(op, tasks, out=dst, a=tiles, b=src)
+    raise ValueError(op)
+
+
+def _compile(schedule: sch.Schedule, n_streams: Optional[int], batch_fn) -> Plan:
+    levels = []
+    for level in schedule.levels:
+        batches = []
+        for op, tasks in sch.split_by_op(level).items():
+            for chunk in sch.chunk_tasks(tasks, n_streams):
+                batches.append(batch_fn(op, chunk, schedule.m_tiles))
+        levels.append(tuple(batches))
+    return Plan(schedule.kind, schedule.m_tiles, n_streams, tuple(levels))
+
+
+@functools.lru_cache(maxsize=None)
+def cholesky_plan(m_tiles: int, n_streams: Optional[int] = None) -> Plan:
+    """``None``: whole-ASAP-level batches.  Finite: the wavefront schedule."""
+    if n_streams is None:
+        schedule = sch.build_schedule(m_tiles)
+    else:
+        schedule = sch.build_wavefront_schedule(m_tiles, n_streams, kind="cholesky")
+    return _compile(schedule, n_streams, _cholesky_batch)
+
+
+@functools.lru_cache(maxsize=None)
+def solve_plan(
+    m_tiles: int, *, lower: bool = True, n_streams: Optional[int] = None
+) -> Plan:
+    kind = "forward" if lower else "backward"
+    if n_streams is None:
+        schedule = sch.build_solve_schedule(m_tiles, lower=lower)
+    else:
+        schedule = sch.build_wavefront_schedule(m_tiles, n_streams, kind=kind)
+    return _compile(
+        schedule, n_streams, functools.partial(_solve_batch, lower=lower)
+    )
+
+
+# ---------------------------------------------------------------------------
+# Execution.
+# ---------------------------------------------------------------------------
+
+# Device copies of a plan's index arrays, keyed by (id(array), device).  Plans
+# are lru-cached for the life of the process, so the ids stay valid and each
+# index array crosses to the device once.
+_device_index: Dict[Tuple[int, str], Tuple[np.ndarray, torch.Tensor]] = {}
+
+
+def _idx(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    key = (id(arr), str(device))
+    hit = _device_index.get(key)
+    if hit is None or hit[0] is not arr:
+        hit = (arr, torch.from_numpy(arr).to(device))
+        _device_index[key] = hit
+    return hit[1]
+
+
+def m_tiles_of_packed(packed: torch.Tensor) -> int:
+    """Tile count M of a packed (T, m, m) store, validating T = M(M+1)/2."""
+    t = packed.shape[-3]
+    m_tiles = int((np.sqrt(8 * t + 1) - 1) // 2)
+    if tiling.num_packed_tiles(m_tiles) != t:
+        raise ValueError(f"{t} is not a triangular number of tiles")
+    return m_tiles
+
+
+def _env_ops(device: torch.device):
+    """(take, put, add) accessors on axis 0 with plan index arrays."""
+
+    def take(buf, idx):
+        return buf.index_select(0, _idx(idx, device))
+
+    def put(buf, idx, val):
+        buf.index_copy_(0, _idx(idx, device), val)
+
+    def add(buf, idx, val):
+        buf.index_add_(0, _idx(idx, device), val)
+
+    return take, put, add
+
+
+def run_cholesky(
+    packed: torch.Tensor,
+    *,
+    n_streams: Optional[int] = None,
+    update_dtype=None,
+    device="cuda",
+) -> torch.Tensor:
+    """Factor a packed (T, m, m) store K -> L by walking the level schedule.
+
+    Each Batch is one gather, one batched kernel launch and one scatter;
+    tasks inside a level are independent, so batches may mix columns.
+    Returns a new tensor; ``packed`` itself is not modified.
+    """
+    dev = resolve_device(device)
+    packed = torch.as_tensor(packed, device=dev).clone()
+    take, put, _ = _env_ops(dev)
+    plan = cholesky_plan(m_tiles_of_packed(packed), n_streams)
+    for level in plan.levels:
+        for bt in level:
+            if bt.op == sch.POTRF:
+                put(packed, bt.out, ops.potrf(take(packed, bt.a)))
+            elif bt.op == sch.TRSM:
+                put(packed, bt.out, ops.trsm(take(packed, bt.a), take(packed, bt.b)))
+            elif bt.op == sch.SYRK:
+                pb = take(packed, bt.b)
+                put(packed, bt.out, ops.trail(take(packed, bt.a), pb, pb, update_dtype))
+            else:
+                put(
+                    packed,
+                    bt.out,
+                    ops.trail(
+                        take(packed, bt.a), take(packed, bt.b), take(packed, bt.c),
+                        update_dtype,
+                    ),
+                )
+    return packed
+
+
+def _trsv_batch(lii: torch.Tensor, x: torch.Tensor, transpose: bool) -> torch.Tensor:
+    """Batched diagonal-tile solve L x = rhs (or L^T x = rhs).
+
+    lii (G, m, m); x (G, m) vector chunks or (G, Q, m, mq) matrix tile-rows.
+    """
+    if transpose:
+        lii, upper = lii.transpose(-1, -2), True
+    else:
+        upper = False
+    if x.ndim == lii.ndim - 1:  # vector rhs chunks
+        return torch.linalg.solve_triangular(lii, x[..., None], upper=upper)[..., 0]
+    return torch.linalg.solve_triangular(lii[:, None], x, upper=upper)
+
+
+# ---------------------------------------------------------------------------
+# Whole-pipeline program execution.
+#
+# The named buffer environment:
+#
+#   "packed"  (T, m, m)       covariance tiles -> Cholesky factor (in place)
+#   "y"       (M, m)          y chunks -> beta (forward substitution)
+#   "alpha"   (M, m)          beta -> alpha (backward substitution)
+#   "cross"   (Q*M, m, m)     cross-covariance tile grid K_{X̂,X} (flat)
+#   "mean"    (Q, m)          predictive-mean chunks
+#   "v"       (M, Q, m, m)    uncertainty workspace V = L^{-1} K_{X,X̂}
+#   "prior"   (Q*Q, m, m)     prior test tiles -> posterior covariance tiles
+#
+# plus the read-only feature blocks xc (M, m, D) / xtc (Q, m, D).  SYRK and
+# GEMM tasks of a level are dispatched as one fused trailing-update launch
+# (TRAIL).
+# ---------------------------------------------------------------------------
+
+TRAIL = sch.TRAIL_GROUP  # fused SYRK+GEMM dispatch group (program plans only)
+
+
+def _program_batch(
+    op: str, tasks: Sequence[sch.Task], m: int, q_tiles: int
+) -> Batch:
+    """Gather/scatter indices of one program batch (buffer roles fixed by op)."""
+    slot = tiling.packed_index
+    tasks = tuple(tasks)
+    if op in (sch.POTRF, sch.TRSM):
+        return _cholesky_batch(op, tasks, m)
+    if op == TRAIL:
+        tgt, pa, pb = [], [], []
+        for t in tasks:
+            _, i, j, k = t
+            if t[0] == sch.SYRK:
+                tgt.append(slot(i, i, m))
+                pa.append(slot(i, j, m))
+                pb.append(slot(i, j, m))
+            else:
+                tgt.append(slot(i, k, m))
+                pa.append(slot(i, j, m))
+                pb.append(slot(k, j, m))
+        return Batch(op, tasks, out=_arr(tgt), a=_arr(tgt), b=_arr(pa), c=_arr(pb))
+    if op in (sch.TRSV, sch.GEMV):
+        return _solve_batch(op, tasks, m, lower=True)
+    if op in (sch.TRSV_B, sch.GEMV_B):
+        base = _solve_batch(
+            sch.TRSV if op == sch.TRSV_B else sch.GEMV, tasks, m, lower=False
+        )
+        return dataclasses.replace(base, op=op, tasks=tasks)
+    if op == sch.ASSEMBLE:
+        rows = _arr([i for _, i, _, _ in tasks])
+        cols = _arr([j for _, _, j, _ in tasks])
+        slots = _arr([slot(i, j, m) for _, i, j, _ in tasks])
+        return Batch(op, tasks, out=slots, a=rows, b=cols)
+    if op == sch.CROSS:
+        p = _arr([i for _, i, _, _ in tasks])
+        q = _arr([j for _, _, j, _ in tasks])
+        return Batch(op, tasks, out=_arr([i * m + j for _, i, j, _ in tasks]), a=p, b=q)
+    if op == sch.PRIOR:
+        p = _arr([i for _, i, _, _ in tasks])
+        q = _arr([j for _, _, j, _ in tasks])
+        return Batch(
+            op, tasks, out=_arr([i * q_tiles + j for _, i, j, _ in tasks]), a=p, b=q
+        )
+    if op in (sch.XGEMV, sch.VINIT):
+        rows = _arr([i for _, i, _, _ in tasks])
+        return Batch(op, tasks, out=rows, a=rows)
+    if op in (sch.VTRSV, sch.VGEMV):
+        base = _solve_batch(
+            sch.TRSV if op == sch.VTRSV else sch.GEMV, tasks, m, lower=True
+        )
+        return dataclasses.replace(base, op=op, tasks=tasks)
+    if op == sch.GRAM:
+        return Batch(op, tasks, out=_arr([]), a=_arr([]))
+    raise ValueError(op)
+
+
+@functools.lru_cache(maxsize=None)
+def program_plan(
+    m_tiles: int,
+    q_tiles: int,
+    uncertainty: bool = False,
+    n_streams: Optional[int] = None,
+) -> Plan:
+    """Compile the fused prediction program into batched launches.
+
+    ``None``: ASAP levels of the whole-pipeline DAG.  Finite: the
+    cross-stage wavefront schedule.  BULK ops are never chunked.
+    """
+    if n_streams is None:
+        schedule = sch.build_program_schedule(
+            m_tiles, q_tiles, uncertainty=uncertainty
+        )
+    else:
+        schedule = sch.build_wavefront_schedule(
+            m_tiles,
+            n_streams,
+            kind="program",
+            q_tiles=q_tiles,
+            uncertainty=uncertainty,
+        )
+    levels = []
+    for level in schedule.levels:
+        groups: dict = {}
+        for t in level:
+            groups.setdefault(sch.dispatch_group(t[0]), []).append(t)
+        batches = []
+        for gop, tasks in groups.items():
+            width = None if gop in sch.BULK_OPS else n_streams
+            for chunk in sch.chunk_tasks(tasks, width):
+                batches.append(_program_batch(gop, chunk, m_tiles, q_tiles))
+        levels.append(tuple(batches))
+    return Plan("program", m_tiles, n_streams, tuple(levels))
+
+
+def staged_launch_count(
+    m_tiles: int, *, uncertainty: bool = False, n_streams: Optional[int] = None
+) -> int:
+    """Batched launches the *staged* pipeline issues end-to-end.
+
+    One covariance assembly + the factorization plan + both vector-solve
+    plans + cross assembly + mean matvec; with uncertainty also the prior
+    assembly, the transpose pack, the matrix forward-solve plan, the gram
+    and the prior - W subtraction.
+    """
+    n = 1 + cholesky_plan(m_tiles, n_streams).n_batches
+    n += solve_plan(m_tiles, lower=True, n_streams=n_streams).n_batches
+    n += solve_plan(m_tiles, lower=False, n_streams=n_streams).n_batches
+    n += 1 + 1  # cross assembly, mean matvec
+    if uncertainty:
+        n += 1 + 1  # prior assembly, transpose pack
+        n += solve_plan(m_tiles, lower=True, n_streams=n_streams).n_batches
+        n += 1 + 1  # gram, prior - W subtraction
+    return n
+
+
+def _cov_batch_fn(params, nvr: int, nvc: int, symmetric: bool, kernel):
+    """Batched covariance-tile assembly (G,m,D) x (G,m,D) -> (G,m,m)."""
+
+    def fn(xa, xb, row0, col0):
+        return ops.cov_tiles(
+            xa, xb, row0, col0, nvr, nvc, params, symmetric=symmetric, kernel=kernel
+        )
+
+    return fn
+
+
+def run_program(
+    xc: torch.Tensor,
+    yc: torch.Tensor,
+    xtc: torch.Tensor,
+    params,
+    n_valid: int,
+    nt_valid: int,
+    *,
+    uncertainty: bool = False,
+    n_streams: Optional[int] = None,
+    update_dtype=None,
+    kernel=None,
+    device="cuda",
+) -> Dict[str, torch.Tensor]:
+    """Execute the fused prediction pipeline as one multi-stage program.
+
+    xc (M, m, D) / yc (M, m) / xtc (Q, m, D) are the padded feature and
+    target blocks (moved to ``device``); ``n_valid`` / ``nt_valid`` the
+    unpadded row counts.  Returns the final buffer environment (see the
+    section comment above): ``env["mean"]`` holds the predictive-mean
+    chunks, ``env["prior"]`` the posterior-covariance tiles (uncertainty
+    only), and ``env["packed"]`` / ``env["alpha"]`` / ``env["y"]`` the
+    factor, weights and forward-solve chunks a PosteriorState caches.
+    """
+    dev = resolve_device(device)
+    kernel = km.resolve_kernel(kernel)
+    xc, xtc = torch.as_tensor(xc, device=dev), torch.as_tensor(xtc, device=dev)
+    m_tiles, m = xc.shape[-3], xc.shape[-2]
+    q_tiles = xtc.shape[-3]
+    plan = program_plan(m_tiles, q_tiles, uncertainty, n_streams)
+    dtype = xc.dtype
+    take, put, add = _env_ops(dev)
+
+    asm = _cov_batch_fn(params, n_valid, n_valid, True, kernel)
+    crossf = _cov_batch_fn(params, nt_valid, n_valid, False, kernel)
+    priorf = _cov_batch_fn(params, nt_valid, nt_valid, False, kernel)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    env = {
+        "packed": zeros(tiling.num_packed_tiles(m_tiles), m, m),
+        "y": torch.as_tensor(yc, device=dev).to(dtype, copy=True),
+        "alpha": zeros(m_tiles, m),
+        "cross": zeros(q_tiles * m_tiles, m, m),
+        "mean": zeros(q_tiles, m),
+    }
+    if uncertainty:
+        env["v"] = zeros(m_tiles, q_tiles, m, m)
+        env["prior"] = zeros(q_tiles * q_tiles, m, m)
+
+    def off(idx):  # tile index -> global row/col offset
+        return _idx(idx, dev) * m
+
+    def cross_grid():  # cross buffer viewed as the (Q, M, m, m) tile grid
+        return env["cross"].view(q_tiles, m_tiles, m, m)
+
+    packed = env["packed"]
+    for level in plan.levels:
+        for bt in level:
+            op = bt.op
+            if op == sch.ASSEMBLE:
+                put(packed, bt.out, asm(take(xc, bt.a), take(xc, bt.b), off(bt.a), off(bt.b)))
+            elif op == sch.CROSS:
+                tiles = crossf(take(xtc, bt.a), take(xc, bt.b), off(bt.a), off(bt.b))
+                put(env["cross"], bt.out, tiles)
+            elif op == sch.PRIOR:
+                tiles = priorf(take(xtc, bt.a), take(xtc, bt.b), off(bt.a), off(bt.b))
+                put(env["prior"], bt.out, tiles)
+            elif op == sch.POTRF:
+                put(packed, bt.out, ops.potrf(take(packed, bt.a)))
+            elif op == sch.TRSM:
+                put(packed, bt.out, ops.trsm(take(packed, bt.a), take(packed, bt.b)))
+            elif op == TRAIL:
+                put(
+                    packed,
+                    bt.out,
+                    ops.trail(
+                        take(packed, bt.a), take(packed, bt.b), take(packed, bt.c),
+                        update_dtype,
+                    ),
+                )
+            elif op == sch.TRSV:
+                sol = _trsv_batch(take(packed, bt.a), take(env["y"], bt.out), False)
+                put(env["y"], bt.out, sol)
+                # publish the solved row into the backward pass's buffer
+                put(env["alpha"], bt.out, sol)
+            elif op == sch.GEMV:
+                upd = torch.einsum("gab,gb->ga", take(packed, bt.a), take(env["y"], bt.b))
+                add(env["y"], bt.out, -upd)
+            elif op == sch.TRSV_B:
+                sol = _trsv_batch(take(packed, bt.a), take(env["alpha"], bt.out), True)
+                put(env["alpha"], bt.out, sol)
+            elif op == sch.GEMV_B:
+                upd = torch.einsum("gba,gb->ga", take(packed, bt.a), take(env["alpha"], bt.b))
+                add(env["alpha"], bt.out, -upd)
+            elif op == sch.XGEMV:
+                rows = take(cross_grid(), bt.out)
+                put(env["mean"], bt.out, torch.einsum("gqab,qb->ga", rows, env["alpha"]))
+            elif op == sch.VINIT:
+                cols = cross_grid()[:, _idx(bt.out, dev)]          # (Q, G, m, m)
+                put(env["v"], bt.out, cols.permute(1, 0, 3, 2))    # (G, Q, m, m)
+            elif op == sch.VTRSV:
+                sol = _trsv_batch(take(packed, bt.a), take(env["v"], bt.out), False)
+                put(env["v"], bt.out, sol)
+            elif op == sch.VGEMV:
+                upd = torch.einsum(
+                    "gab,gqbc->gqac", take(packed, bt.a), take(env["v"], bt.b)
+                )
+                add(env["v"], bt.out, -upd)
+            elif op == sch.GRAM:
+                w = torch.einsum("ipab,iqac->pqbc", env["v"], env["v"])
+                env["prior"] -= w.reshape(q_tiles * q_tiles, m, m)
+            else:
+                raise ValueError(op)
+    return env
+
+
+def run_solve(
+    lpacked: torch.Tensor,
+    rhs: torch.Tensor,
+    *,
+    lower: bool = True,
+    n_streams: Optional[int] = None,
+    device="cuda",
+) -> torch.Tensor:
+    """Level-batched triangular solve on the packed factor.
+
+    rhs: (M, m) vector chunks or (M, Q, m, mq) matrix tile rows; solved on a
+    copy.  ``lower=True`` solves L x = rhs, else L^T x = rhs (reading the
+    stored lower tiles transposed).
+    """
+    dev = resolve_device(device)
+    lpacked = torch.as_tensor(lpacked, device=dev)
+    rhs = torch.as_tensor(rhs, device=dev).clone()
+    take, put, add = _env_ops(dev)
+    m_tiles = rhs.shape[0]
+    if tiling.num_packed_tiles(m_tiles) != lpacked.shape[-3]:
+        raise ValueError(
+            f"rhs rows {m_tiles} inconsistent with packed store {tuple(lpacked.shape)}"
+        )
+    plan = solve_plan(m_tiles, lower=lower, n_streams=n_streams)
+    transpose = not lower
+    matrix = rhs.ndim == 4
+    if matrix:
+        ein = "gba,gqbc->gqac" if transpose else "gab,gqbc->gqac"
+    else:
+        ein = "gba,gb->ga" if transpose else "gab,gb->ga"
+    for level in plan.levels:
+        for bt in level:
+            if bt.op == sch.TRSV:
+                put(rhs, bt.out, _trsv_batch(take(lpacked, bt.a), take(rhs, bt.out), transpose))
+            else:
+                add(rhs, bt.out, -torch.einsum(ein, take(lpacked, bt.a), take(rhs, bt.b)))
+    return rhs

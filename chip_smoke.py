@@ -4,10 +4,10 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 1. env      the card's name and power limit, torch, CUDA and nvcc versions;
-2. build    compiles the four kernels from src/repro_torch/kernels/csrc/ with
-            nvcc for sm_90a (into build/repro_torch/, git-ignored);
+2. build    compiles the five kernels from src/repro_torch/kernels/csrc/ with
+            nvcc for sm_90a, in parallel (into build/repro_torch/, git-ignored);
 3. kernel   one phase per kernel: its wrapper against its plain PyTorch
-            version on the main path's own tiles (gp_16k, m = 512, D = 16,
+            version on its path's own tiles (gp_16k, m = 512, D = 16,
             float32), plus float64 and ragged-edge cases; times the kernel,
             the plain version and one PyTorch call of the same function;
 4. main     the gp_16k configuration (n_train = n_test = 16384, tile 512):
@@ -15,10 +15,18 @@ Run from the root of a checkout:  python3 chip_smoke.py
             ``predict_with_uncertainty`` and a warm ``predict``, with every
             kernel launch counted against the executor's plan, and mean and
             variance held against a float64 dense solve on the card;
-5. timing   repeated cold and warm tiled predictions beside the dense
-            ``torch.linalg.cholesky`` (cuSOLVER) pipeline;
-6. profile  device time by kernel and the device's idle share in one cold
-            ``predict`` (``torch.profiler``).
+5. update   the sliding-window path at gp_16k width: a window of 16384
+            rows, two steps of ``update(512)`` (append one tile-row, evict
+            the oldest tile) each followed by warm predictions, with the
+            launches counted against the update plans and the predictions
+            held against a float64 dense solve of the kept window; and a
+            non-PD ``downdate_factor`` that must raise on the card;
+6. timing   repeated cold and warm tiled predictions beside the dense
+            ``torch.linalg.cholesky`` (cuSOLVER) pipeline, and one
+            sliding-window step (append, evict) beside a cold
+            refactorization of the same window;
+7. profile  device time by kernel and the device's idle share in one cold
+            ``predict`` and in one sliding-window step (``torch.profiler``).
 
 Every phase prints one JSON line.  The kernels' summary, the nvidia-smi line
 and, last, ``{"ok": true, "device": {...}}`` follow.  Any failed check exits
@@ -45,6 +53,13 @@ N_TRAIN = N_TEST = 16384
 TILE = 512
 N_FEATURES = 16
 SEED = 0
+
+# kernels of the main path (cold/warm prediction) and of the update path
+MAIN_KERNELS = ("cov_tiles", "potrf", "trsm", "trail")
+UPDATE_KERNELS = MAIN_KERNELS + ("carry_update",)
+NO_LAUNCHES = {k: 0 for k in UPDATE_KERNELS}
+# the sliding-window path: a window of N_TRAIN rows, UPDATE_STEPS steps of one tile
+UPDATE_STEPS = 2
 
 # Published peaks of one H100 SXM (dense, at the 700 W limit): FP32 on the
 # CUDA cores and HBM3 bandwidth.
@@ -339,9 +354,46 @@ def kernel_phases(x_train: np.ndarray, dev: torch.device):
     return rows
 
 
+def dense_reference(x_train, y_train, x_test, dev):
+    """(mean, variance) of a float64 dense solve on the card (a check, not a path of the port)."""
+    from repro_torch.core import kernels_math as km
+
+    x64 = torch.as_tensor(x_train, device=dev).double()
+    xt64 = torch.as_tensor(x_test, device=dev).double()
+    y64 = torch.as_tensor(y_train, device=dev).double()
+    p = km.SEKernelParams.paper_defaults()
+    k64 = km.assemble_covariance(x64, p)
+    l64 = torch.linalg.cholesky(k64)
+    del k64
+    alpha64 = torch.cholesky_solve(y64[:, None], l64)[:, 0]
+    ks64 = km.assemble_cross_covariance(xt64, x64, p)
+    mean_ref = ks64 @ alpha64
+    v64 = torch.linalg.solve_triangular(l64, ks64.mT, upper=False)
+    del ks64, l64
+    var_ref = p.vertical - (v64 * v64).sum(0)
+    return mean_ref, var_ref
+
+
+def accuracy_bounds(mean_ref, var_ref, mean_dense, var_dense):
+    """The main phase's accuracy rule: errors and bounds against the float64 reference."""
+
+    def e(a, b):
+        return float((a.double() - b).abs().max())
+
+    dense = {"mean_err_dense_f32": e(mean_dense, mean_ref), "var_err_dense_f32": e(var_dense, var_ref),
+             "max_abs_mean_ref": float(mean_ref.abs().max()), "max_abs_var_ref": float(var_ref.abs().max())}
+    mean_bound = 2 * dense["mean_err_dense_f32"] + 1e-4 * dense["max_abs_mean_ref"]
+    var_bound = 2 * dense["var_err_dense_f32"] + 1e-4 * dense["max_abs_var_ref"]
+    return e, dense, mean_bound, var_bound
+
+
+BOUND_RULE = ("tiled f32 error <= 2 x dense f32 torch.linalg.cholesky error + 1e-4 max|ref|, "
+              "both against a float64 dense solve on the card")
+
+
 def phase_main(x_train, y_train, x_test, y_test, dev):
     """The gp_16k main path, cold and warm, with launch counts checked."""
-    from repro_torch.core import GaussianProcess, executor, kernels_math as km
+    from repro_torch.core import GaussianProcess, executor
     from repro_torch.kernels import ops
 
     m_tiles = N_TRAIN // TILE
@@ -354,6 +406,7 @@ def phase_main(x_train, y_train, x_test, y_test, dev):
             "potrf": by_op.get("potrf", 0),
             "trsm": by_op.get("trsm", 0),
             "trail": by_op.get(executor.TRAIL, 0),
+            "carry_update": 0,
         }
 
     def delta(before, after):
@@ -371,55 +424,31 @@ def phase_main(x_train, y_train, x_test, y_test, dev):
     c3 = ops.launch_counts()
     launches = delta(c0, c3)
 
-    want = [expected(False), expected(True), {"cov_tiles": 1, "potrf": 0, "trsm": 0, "trail": 0}]
+    want = [expected(False), expected(True), {**NO_LAUNCHES, "cov_tiles": 1}]
     got = [delta(c0, c1), delta(c1, c2), delta(c2, c3)]
     emit("main.launches", calls=["predict (cold, fused)", "predict_with_uncertainty (cold, fused)",
                                  "predict (warm)"], launches=got, plan=want, total=launches)
     check(got == want, f"kernel launches {got} differ from the plan's {want}")
-    check(all(v > 0 for v in launches.values()), f"a kernel of the path never launched: {launches}")
+    check(all(launches[k] > 0 for k in MAIN_KERNELS), f"a kernel of the path never launched: {launches}")
 
-    # float64 dense reference on the card (a check only, not a path of the port)
-    x64 = torch.from_numpy(x_train).to(dev).double()
-    xt64 = torch.from_numpy(x_test).to(dev).double()
-    y64 = torch.from_numpy(y_train).to(dev).double()
-    p = km.SEKernelParams.paper_defaults()
-    k64 = km.assemble_covariance(x64, p)
-    l64 = torch.linalg.cholesky(k64)
-    del k64
-    alpha64 = torch.cholesky_solve(y64[:, None], l64)[:, 0]
-    ks64 = km.assemble_cross_covariance(xt64, x64, p)
-    mean_ref = ks64 @ alpha64
-    v64 = torch.linalg.solve_triangular(l64, ks64.mT, upper=False)
-    del ks64, l64
-    var_ref = p.vertical - (v64 * v64).sum(0)
-    del v64
-
+    mean_ref, var_ref = dense_reference(x_train, y_train, x_test, dev)
     mono = GaussianProcess(x_train, y_train, pipeline="monolithic", device=dev)
     mean_d, t_mono = wall_s(lambda: mono.predict(x_test))
     (mean_du, var_d), t_mono_u = wall_s(lambda: mono.predict_with_uncertainty(x_test))
-
-    def e(a, b):
-        return float((a.double() - b).abs().max())
-
+    e, dense, mean_bound, var_bound = accuracy_bounds(mean_ref, var_ref, mean_d, var_d)
     res = {
         "mean_err_tiled": e(mean, mean_ref),
         "mean_err_tiled_uncertainty_call": e(mean_u, mean_ref),
         "mean_err_warm": e(mean_w, mean_ref),
-        "mean_err_dense_f32": e(mean_d, mean_ref),
         "var_err_tiled": e(var_u, var_ref),
-        "var_err_dense_f32": e(var_d, var_ref),
-        "max_abs_mean_ref": float(mean_ref.abs().max()),
-        "max_abs_var_ref": float(var_ref.abs().max()),
+        **dense,
         "min_var_tiled": float(var_u.min()),
         "test_rmse_tiled": float(((mean.double() - torch.from_numpy(y_test).to(dev)) ** 2).mean().sqrt()),
     }
-    mean_bound = 2 * res["mean_err_dense_f32"] + 1e-4 * res["max_abs_mean_ref"]
-    var_bound = 2 * res["var_err_dense_f32"] + 1e-4 * res["max_abs_var_ref"]
     finite = all(bool(torch.isfinite(t).all()) for t in (mean, mean_u, var_u, mean_w))
     shapes = [tuple(t.shape) for t in (mean, mean_u, var_u, mean_w)]
     emit("main.correctness", **res, mean_bound=mean_bound, var_bound=var_bound, finite=finite,
-         shapes=shapes, bound_rule="tiled f32 error <= 2 x dense f32 torch.linalg.cholesky "
-         "error + 1e-4 max|ref|, both against a float64 dense solve on the card")
+         shapes=shapes, bound_rule=BOUND_RULE)
     check(finite and shapes == [(N_TEST,)] * 4, f"non-finite or misshapen outputs: {shapes}")
     for name in ("mean_err_tiled", "mean_err_tiled_uncertainty_call", "mean_err_warm"):
         check(res[name] <= mean_bound, f"{name} {res[name]} above {mean_bound}")
@@ -431,8 +460,225 @@ def phase_main(x_train, y_train, x_test, y_test, dev):
     return launches
 
 
-def phase_profile(x_train, y_train, x_test, dev):
-    """Device time by kernel, and the device's idle share, in one cold predict.
+def carry_phase(x_win, y_win, dev):
+    """The carry kernel at the eviction's first UCARRY launch (G = 31, m = 512).
+
+    The operands are those of a real eviction: the 33-tile factor of the
+    window plus one appended tile, its leading tile-column dropped as
+    ``update.shrink_state`` drops it, and the sweep's first two levels
+    (UPREP of column 0, UPROW of its panel) run with the executor's own ops.
+    """
+    from repro_torch.core import executor, kernels_math as km, predict as pred
+    from repro_torch.core import scheduler as sch, tiling
+    from repro_torch.kernels import carry_update, ops, potrf_tile
+
+    m = TILE
+    n = N_TRAIN + TILE
+    state = pred.posterior_state(x_win[:n], y_win[:n], km.SEKernelParams.paper_defaults(), m, device=dev)
+    m_tiles = n // m
+    trailing, evicted = (torch.from_numpy(a).to(dev) for a in tiling.shrink_packed_indices(m_tiles))
+    lp, w = state.lpacked[trailing], state.lpacked[evicted]
+    del state
+    plan = executor.update_rank_plan(m_tiles - 1)
+    (prep,), (prow,), (carry,) = plan.levels[:3]
+    check((prep.op, prow.op, carry.op) == (sch.UPREP, sch.UPROW, sch.UCARRY),
+          f"unexpected first levels of the rank plan: {prep.op}, {prow.op}, {carry.op}")
+    uprep, uprow, _ = executor.get_update_ops(1.0)
+
+    def ix(a):
+        return torch.from_numpy(a).to(dev)
+
+    _, x, y, c = uprep(lp[ix(prep.a)], w[ix(prep.out)])
+    g = carry.size
+    lrow = uprow(lp[ix(prow.a)], w[ix(prow.b)], x.expand(g, m, m), y.expand(g, m, m))
+    check(bool((ix(prow.out) == ix(carry.a)).all()), "UPROW and UCARRY tiles differ in order")
+    wc, lc = w[ix(carry.b)].contiguous(), lrow.contiguous()
+    yc, cc = y.expand(g, m, m).contiguous(), c.expand(g, m, m).contiguous()
+    del lp, w
+
+    out = ops.carry_update(wc, lc, yc, cc)
+    torch.cuda.synchronize()
+    ref = carry_update.carry_update_plain(wc, lc, yc, cc)
+    scale = max(1.0, float(ref.abs().max()))
+    err = max_err(out, ref)
+    tol = 1e-3 * scale
+    d64 = [t.double() for t in (wc, lc, yc, cc)]
+    ref64 = carry_update.carry_update_plain(*d64)
+    err64 = max_err(ops.carry_update(*d64), ref64)
+    tol64 = 1e-9 * max(1.0, float(ref64.abs().max()))
+    cdiag = torch.diagonal(c[0])
+    # random well-conditioned cases at ragged m (masked edges), both types
+    gen = torch.Generator().manual_seed(SEED)
+    edge = {}
+    for dt, mm, g_e, tol_e in ((torch.float32, 100, 5, 1e-3), (torch.float32, 77, 3, 1e-3),
+                               (torch.float64, 100, 5, 1e-10), (torch.float64, 77, 3, 1e-10)):
+        ws, ls, ys, rs = (torch.randn(g_e, mm, mm, generator=gen, dtype=dt) / mm**0.5 for _ in range(4))
+        cs = potrf_tile.potrf_plain(torch.eye(mm, dtype=dt) + rs @ rs.mT)
+        ws, ls, ys, cs = (t.to(dev) for t in (ws, ls, ys, cs))
+        key = f"{str(dt).split('.')[-1]}_m{mm}"
+        edge[key] = max_err(ops.carry_update(ws, ls, ys, cs), carry_update.carry_update_plain(ws, ls, ys, cs))
+        check(edge[key] <= tol_e, f"carry_update {key}: kernel disagrees with its plain version: {edge[key]}")
+    nbytes = 5 * wc.numel() * 4
+    bnd = bound_ms(nbytes, 3 * g * m**3)
+    row = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/carry_update.cu",
+        replaces="src/repro/kernels/downdate_tile.py:29", max_abs_err=max(err, err64, *edge.values()),
+        ms=cuda_ms(lambda: ops.carry_update(wc, lc, yc, cc), 10),
+        plain_ms=cuda_ms(lambda: carry_update.carry_update_plain(wc, lc, yc, cc), 2),
+        bound_ms=bnd[0], bound_by=bnd[1],
+        library_ms=cuda_ms(
+            lambda: torch.linalg.solve_triangular(cc.mT, wc - torch.bmm(lc, yc), upper=True, left=False), 10
+        ),
+    )
+    emit("kernel.carry_update", shape=list(wc.shape), max_abs_err=err, tol=tol, f64_max_abs_err=err64,
+         f64_tol=tol64, edge_errors=edge, edge_tol="1e-3 (float32), 1e-10 (float64)",
+         max_abs_plain=scale, c_diag_min=float(cdiag.min()), c_diag_max=float(cdiag.max()),
+         tol_reason="float32: 1e-3 max(1, max|plain|), the trsm tolerance scaled to the carry's size; "
+         "the product (K = 512) and the solve sum in another order; float64 on the same operands: "
+         "1e-9 max(1, max|plain|)",
+         library_call="two calls: torch.bmm, then torch.linalg.solve_triangular(C^T, left=False)",
+         f64_ms=cuda_ms(lambda: ops.carry_update(*d64), 5),
+         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    check(err <= tol, f"carry_update disagrees with its plain version: {err} > {tol}")
+    check(err64 <= tol64, f"carry_update (float64) disagrees with its plain version: {err64} > {tol64}")
+    torch.cuda.synchronize()
+    return row
+
+
+def update_launches_per_step():
+    """Kernel launches of one step at gp_16k: append one tile-row to M tiles, evict one tile."""
+    from repro_torch.core import executor
+
+    m_tiles = N_TRAIN // TILE
+    ap = executor.update_append_plan(m_tiles, m_tiles).launches_by_op()
+    rp = executor.update_rank_plan(m_tiles).launches_by_op()
+    return {
+        "cov_tiles": ap["uasm"] + ap["uasmd"],
+        "potrf": ap["upotrf"] + 2 * rp["uprep"],  # UPREP factors two tiles
+        "trsm": ap["utrsm"],
+        "trail": ap["ugemm"] + ap["usyrk"],
+        "carry_update": rp["ucarry"],
+    }
+
+
+def phase_update(x_win, y_win, x_test, dev):
+    """The sliding-window path at gp_16k width, with launches and accuracy checked."""
+    from repro_torch.core import GaussianProcess, update
+    from repro_torch.kernels import ops
+
+    def counted(fn):
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, ops.launch_counts()
+
+    per_step = update_launches_per_step()
+    check(per_step["carry_update"] == 31 and per_step["potrf"] == 65,
+          f"unexpected update plans at gp_16k: {per_step}")
+    gp = GaussianProcess(x_win[:N_TRAIN], y_win[:N_TRAIN], tile_size=TILE, sliding_window=N_TRAIN,
+                         device=dev)
+    _, t_cold = wall_s(lambda: gp.predict(x_test))
+    total = dict(NO_LAUNCHES)
+    steps = []
+    for step in range(1, UPDATE_STEPS + 1):
+        lo, hi = step * TILE, N_TRAIN + step * TILE
+        # the path: the step, then warm predictions, each with its counts set to 0 before
+        (_, t_update), c_update = counted(lambda: wall_s(lambda: gp.update(x_win[hi - TILE:hi],
+                                                                          y_win[hi - TILE:hi])))
+        warm = gp._cache_warm()
+        (mean, t_warm), c_warm = counted(lambda: wall_s(lambda: gp.predict(x_test)))
+        ((mean_u, var_u), t_warm_u), c_warm_u = counted(
+            lambda: wall_s(lambda: gp.predict_with_uncertainty(x_test)))
+        for c in (c_update, c_warm, c_warm_u):
+            total = {k: total[k] + c[k] for k in total}
+        # the kept window against a float64 dense solve and the dense float32 pipeline
+        mean_ref, var_ref = dense_reference(x_win[lo:hi], y_win[lo:hi], x_test, dev)
+        mono = GaussianProcess(x_win[lo:hi], y_win[lo:hi], pipeline="monolithic", device=dev)
+        mean_d, var_d = mono.predict_with_uncertainty(x_test)
+        e, dense, mean_bound, var_bound = accuracy_bounds(mean_ref, var_ref, mean_d, var_d)
+        res = dict(step=step, window=[lo, hi], n=int(gp.y_train.shape[0]), cache_warm=warm,
+                   launches_update=c_update, plan=per_step, launches_warm_predict=c_warm,
+                   launches_warm_predict_with_uncertainty=c_warm_u,
+                   seconds={"update": t_update, "warm_predict": t_warm,
+                            "warm_predict_with_uncertainty": t_warm_u},
+                   mean_err=e(mean, mean_ref), mean_err_uncertainty_call=e(mean_u, mean_ref),
+                   var_err=e(var_u, var_ref), **dense, mean_bound=mean_bound, var_bound=var_bound,
+                   finite=all(bool(torch.isfinite(t).all()) for t in (mean, mean_u, var_u)),
+                   shapes=[tuple(t.shape) for t in (mean, mean_u, var_u)])
+        steps.append(res)
+        emit("update.step", **res, bound_rule=BOUND_RULE)
+        check(warm and res["n"] == N_TRAIN, f"step {step}: cache cold or window {res['n']} != {N_TRAIN}")
+        check(c_update == per_step, f"step {step}: launches {c_update} differ from the plans' {per_step}")
+        check(c_warm == {**NO_LAUNCHES, "cov_tiles": 1}, f"step {step}: warm predict launched {c_warm}")
+        check(c_warm_u == {**NO_LAUNCHES, "cov_tiles": 2},
+              f"step {step}: warm predict_with_uncertainty launched {c_warm_u}")
+        check(res["finite"] and res["shapes"] == [(N_TEST,)] * 3, f"step {step}: outputs {res['shapes']}")
+        for name in ("mean_err", "mean_err_uncertainty_call"):
+            check(res[name] <= mean_bound, f"step {step}: {name} {res[name]} above {mean_bound}")
+        check(res["var_err"] <= var_bound, f"step {step}: variance error {res['var_err']} above {var_bound}")
+    check(all(total[k] > 0 for k in UPDATE_KERNELS), f"a kernel of the update path never launched: {total}")
+
+    # a non-PD downdate must surface as NaN from the POTRF kernel, then raise
+    rng = np.random.default_rng(SEED)
+    n_small, m_small = 48, 16
+    a = rng.standard_normal((n_small, n_small))
+    lfac = torch.linalg.cholesky(torch.from_numpy(a @ a.T + n_small * np.eye(n_small)).float())
+    from repro_torch.core import tiling
+
+    lp = tiling.pack_lower(lfac, m_small).to(dev)
+    w = torch.from_numpy(rng.standard_normal((n_small // m_small, m_small, m_small)) * 100.0).float().to(dev)
+    ops.reset_launch_counts()
+    try:
+        update.downdate_factor(lp, w, device=dev)
+        raised = False
+    except update.CholeskyUpdateError:
+        raised = True
+    nonpd = ops.launch_counts()
+    emit("update.nonpd_downdate", raised=raised, launches=nonpd)
+    check(raised and nonpd["potrf"] > 0, f"a non-PD downdate did not raise on the card: {nonpd}")
+    emit("update", steps=UPDATE_STEPS, cold_predict_seconds=t_cold, launches=total)
+    return total
+
+
+def phase_update_timing(x_win, y_win, x_test, dev):
+    """One sliding-window step beside a cold refactorization of the same window, in turns.
+
+    A step is ``PosteriorState.extend`` (append one tile-row) then
+    ``shrink`` (evict the oldest tile) of the window's cached state, timed
+    apart; it leaves the cached state as it was, so every turn does the
+    same work.  ``cold`` is a tiled ``predict`` on a new GP of the window
+    after the step, ``dense`` the ``torch.linalg.cholesky`` pipeline on it.
+    """
+    from repro_torch.core import GaussianProcess, predict as pred
+
+    base = GaussianProcess(x_win[:N_TRAIN], y_win[:N_TRAIN], tile_size=TILE, device=dev)
+    base.predict(x_test)
+    state = base._posterior
+    new = slice(N_TRAIN, N_TRAIN + TILE)
+    kept = slice(TILE, N_TRAIN + TILE)
+    times = {"append": [], "evict": [], "warm_predict": [], "tiled_cold": [], "dense": []}
+    for order in ("step", "cold", "dense", "dense", "cold", "step"):
+        if order == "step":
+            grown, t_a = wall_s(lambda: state.extend(x_win[new], y_win[new]))
+            kept_state, t_e = wall_s(lambda: grown.shrink(TILE))
+            del grown
+            times["append"].append(t_a)
+            times["evict"].append(t_e)
+            times["warm_predict"].append(wall_s(lambda: pred.predict_from_state(kept_state, x_test))[1])
+            del kept_state
+        elif order == "cold":
+            gp = GaussianProcess(x_win[kept], y_win[kept], tile_size=TILE, device=dev)
+            times["tiled_cold"].append(wall_s(lambda: gp.predict(x_test))[1])
+        else:
+            mono = GaussianProcess(x_win[kept], y_win[kept], pipeline="monolithic", device=dev)
+            times["dense"].append(wall_s(lambda: mono.predict(x_test))[1])
+    emit("timing.update", seconds=times, order="step, cold, dense, dense, cold, step",
+         note="host clock around calls ending in torch.cuda.synchronize(); "
+         "a step is append (extend) + evict (shrink) of the cached window state")
+
+
+def profile_call(phase: str, call: str, fn) -> None:
+    """Device time by kernel, and the device's idle share, over one call of ``fn``.
 
     ``torch.profiler`` traces the card through CUPTI; the run is one stream,
     so the sum of device times is the busy time.  Profiling slows the host,
@@ -440,12 +686,9 @@ def phase_profile(x_train, y_train, x_test, dev):
     """
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import GaussianProcess
-
-    gp = GaussianProcess(x_train, y_train, tile_size=TILE, device=dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = wall_s(lambda: gp.predict(x_test))
+        _, wall = wall_s(fn)
     # device-side events only: a CPU op's self device time repeats its kernels'
     rows = sorted(
         ((e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
@@ -453,10 +696,29 @@ def phase_profile(x_train, y_train, x_test, dev):
         key=lambda r: -r[2],
     )
     busy_ms = sum(r[2] for r in rows)
-    emit("profile", call="predict (cold, fused), gp_16k", wall_ms=wall * 1e3,
+    emit(phase, call=call, wall_ms=wall * 1e3,
          device_busy_ms=busy_ms if rows else "not measured",
          device_idle_share=1.0 - busy_ms / (wall * 1e3) if rows else "not measured",
-         top=[{"name": k[:100], "count": c, "device_ms": ms} for k, c, ms in rows[:12]])
+         top=[{"name": k[:100], "count": c, "device_ms": ms} for k, c, ms in rows[:14]])
+
+
+def phase_profile(x_train, y_train, x_test, x_win, y_win, dev):
+    """One cold predict, and one sliding-window step (update + warm predict)."""
+    from repro_torch.core import GaussianProcess
+
+    gp = GaussianProcess(x_train, y_train, tile_size=TILE, device=dev)
+    profile_call("profile", "predict (cold, fused), gp_16k", lambda: gp.predict(x_test))
+    win = GaussianProcess(x_win[:N_TRAIN], y_win[:N_TRAIN], tile_size=TILE,
+                          sliding_window=N_TRAIN, device=dev)
+    win.predict(x_test)
+    new = slice(N_TRAIN, N_TRAIN + TILE)
+
+    def step():
+        win.update(x_win[new], y_win[new])
+        return win.predict(x_test)
+
+    profile_call("profile.update", "update(512) + predict (warm), gp_16k sliding window", step)
+    check(win._cache_warm(), "the profiled sliding-window step fell back to a refactorization")
 
 
 def phase_timing(x_train, y_train, x_test, dev):
@@ -492,7 +754,12 @@ def main() -> None:
     x_train, y_train, x_test, y_test = make_data(N_TRAIN, N_TEST, N_FEATURES, SEED)
     emit("data", n_train=N_TRAIN, n_test=N_TEST, features=N_FEATURES, tile_size=TILE, seed=SEED,
          config="gp_16k (src/repro/configs/gp_msd.py:11)")
+    # the sliding-window path: N_TRAIN + UPDATE_STEPS tiles of consecutive NFIR rows of one series
+    x_win, y_win, _, _ = make_data(N_TRAIN + UPDATE_STEPS * TILE, TILE, N_FEATURES, SEED)
+    emit("data.update", rows=N_TRAIN + UPDATE_STEPS * TILE, window=N_TRAIN, steps=UPDATE_STEPS,
+         step_rows=TILE, seed=SEED, test_points="the main phase's x_test")
     rows = kernel_phases(x_train, dev)
+    rows["carry_update"] = carry_phase(x_win, y_win, dev)
     # warm the libraries and allocator on a small problem before timing
     from repro_torch.core import GaussianProcess
 
@@ -502,10 +769,20 @@ def main() -> None:
     torch.cuda.synchronize()
 
     launches = phase_main(x_train, y_train, x_test, y_test, dev)
+    launches_update = phase_update(x_win, y_win, x_test, dev)
     phase_timing(x_train, y_train, x_test, dev)
-    phase_profile(x_train, y_train, x_test, dev)
+    phase_update_timing(x_win, y_win, x_test, dev)
+    phase_profile(x_train, y_train, x_test, x_win, y_win, dev)
 
-    kernels = [{"name": name, "launches": launches[name], **row} for name, row in rows.items()]
+    # launches: the main path's count, and the update path's for the kernel it adds
+    path_of = {name: "main" for name in MAIN_KERNELS}
+    path_of["carry_update"] = "update"
+    by_path = {"main": launches, "update": launches_update}
+    kernels = [
+        {"name": name, "launches": by_path[path_of[name]][name], **row,
+         "launches_by_path": {"main": launches[name], "update": launches_update[name]}}
+        for name, row in rows.items()
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

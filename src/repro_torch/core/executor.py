@@ -16,10 +16,15 @@ hand-written kernels, on CPU tensors their plain versions.  The solve and
 head ops (TRSV, GEMV, XGEMV, VINIT, VTRSV, VGEMV, GRAM) are plain torch
 (``solve_triangular``, ``einsum``), as the JAX package leaves them to XLA.
 
+The streaming updates run two more plan families over the same store:
+``run_append`` (one appended tile-row, UASM/UASMD/UTRSM/UGEMM/USYRK/UPOTRF)
+and ``run_rank_update`` (the blocked cholupdate sweep, UPREP/UPROW/UCARRY,
+whose UCARRY step is the port's ``carry_update`` kernel).
+
 The buffers of a run are updated in place (``index_copy_`` /
 ``index_add_``) where the JAX executor used functional ``.at[].set`` /
 ``.at[].add``; every entry point works on its own copies of its inputs.
-This slice is single-problem: the problem-batch axis, the mesh and the
+The port is single-problem so far: the problem-batch axis, the mesh and the
 telemetry hooks of the JAX executor come with later slices.
 """
 
@@ -608,3 +613,263 @@ def run_solve(
             else:
                 add(rhs, bt.out, -torch.einsum(ein, take(lpacked, bt.a), take(rhs, bt.b)))
     return rhs
+
+
+# ---------------------------------------------------------------------------
+# Streaming updates: block Cholesky append / rank update.
+#
+# The append plan's buffer environment:
+#   the packed store (T_store, m, m)  the frozen existing factor (read-only)
+#   "row"  (R + 1, m, m)              the appended tile-row; slot R is the corner
+# plus the read-only feature chunks xc and the new row chunk x_row.  The
+# rank-update plan's environment:
+#   the packed store (T', m, m)       the factor, rewritten column by column
+#   "w"    (M', m, m)                 the rank-b carry blocks
+#   "xaux/yaux/caux" (M', m, m)       per-column X / Y / C auxiliaries
+# Single problem only: the problem-batch axis comes with the fleets.
+# ---------------------------------------------------------------------------
+
+
+def _append_batch(op: str, tasks: Sequence[sch.Task], r_tiles: int, m_store: int) -> Batch:
+    """Gather/scatter indices of one append batch.
+
+    The packed store may hold ``m_store`` tile-rows with ``m_store >
+    r_tiles`` (refilling a partially padded trailing row reads only the
+    frozen prefix rows < R but indexes slots of the full store).
+    """
+    slot = tiling.packed_index
+    tasks = tuple(tasks)
+    if op in (sch.UASM, sch.UASMD):
+        cols = _arr([i for _, i, _, _ in tasks])
+        return Batch(op, tasks, out=cols, a=cols)
+    if op == sch.UTRSM:
+        rows = _arr([i for _, i, _, _ in tasks])
+        diag = _arr([slot(i, i, m_store) for _, i, _, _ in tasks])
+        return Batch(op, tasks, out=rows, a=diag, b=rows)
+    if op == sch.UGEMM:  # row_i -= row_j L(i,j)^T
+        tgt = _arr([i for _, i, _, _ in tasks])
+        src = _arr([j for _, _, j, _ in tasks])
+        til = _arr([slot(i, j, m_store) for _, i, j, _ in tasks])
+        return Batch(op, tasks, out=tgt, a=tgt, b=src, c=til)
+    if op == sch.USYRK:  # corner -= row_i row_i^T
+        tgt = _arr([r_tiles] * len(tasks))
+        panel = _arr([i for _, i, _, _ in tasks])
+        return Batch(op, tasks, out=tgt, a=tgt, b=panel)
+    if op == sch.UPOTRF:
+        d = _arr([r_tiles])
+        return Batch(op, tasks, out=d, a=d)
+    raise ValueError(op)
+
+
+@functools.lru_cache(maxsize=None)
+def update_append_plan(r_tiles: int, m_store: int, n_streams: Optional[int] = None) -> Plan:
+    """Compile the one-tile-row append DAG into batched launches."""
+    if n_streams is None:
+        schedule = sch.build_update_schedule(r_tiles, kind="update_append")
+    else:
+        schedule = sch.build_wavefront_schedule(r_tiles, n_streams, kind="update_append")
+    levels = []
+    for level in schedule.levels:
+        batches = []
+        for op, tasks in sch.split_by_op(level).items():
+            width = None if op in sch.BULK_OPS else n_streams
+            for chunk in sch.chunk_tasks(tasks, width):
+                batches.append(_append_batch(op, chunk, r_tiles, m_store))
+        levels.append(tuple(batches))
+    return Plan("update_append", r_tiles, n_streams, tuple(levels))
+
+
+def run_append(
+    lpacked: torch.Tensor,
+    xc: torch.Tensor,
+    x_row: torch.Tensor,
+    params,
+    r_tiles: int,
+    n_valid_new: int,
+    *,
+    n_streams: Optional[int] = None,
+    update_dtype=None,
+    kernel=None,
+    device="cuda",
+) -> torch.Tensor:
+    """Solve one appended tile-row against the frozen factor.
+
+    lpacked: the existing packed factor (T_store, m, m); xc the matching
+    padded feature chunks (M_store, m, D); x_row (m, D) the padded chunk of
+    the appended row; ``r_tiles`` the number of frozen prefix rows the new
+    row is solved against (``r_tiles == M_store`` grows the factor,
+    ``r_tiles < M_store`` recomputes tile-row ``r_tiles`` of the store: the
+    trailing partially padded row).  ``n_valid_new`` is the valid
+    observation count after the append; both axes of the row's covariance
+    tiles are masked with it.
+
+    Returns the row buffer (R + 1, m, m): the R solved off-diagonal tiles
+    followed by the factored corner.  The inputs are only read; the caller
+    scatters the row into a grown or refilled copy of the store
+    (``tiling.grow_packed_indices`` / ``tiling.replace_row_indices``).
+    """
+    dev = resolve_device(device)
+    kernel = km.resolve_kernel(kernel)
+    lpacked = torch.as_tensor(lpacked, device=dev)
+    xc = torch.as_tensor(xc, device=dev)
+    x_row = torch.as_tensor(x_row, device=dev)
+    m_store, m = xc.shape[-3], xc.shape[-2]
+    if not 0 <= r_tiles <= m_store:
+        raise ValueError(
+            f"r_tiles must be in [0, m_store] = [0, {m_store}] "
+            f"(m_store grows, less refills a row in place); got {r_tiles}"
+        )
+    if tiling.num_packed_tiles(m_store) != lpacked.shape[-3]:
+        raise ValueError(
+            f"feature chunks ({m_store} tiles) inconsistent with packed store {tuple(lpacked.shape)}"
+        )
+    plan = update_append_plan(r_tiles, m_store, n_streams)
+    take, put, _ = _env_ops(dev)
+    crossf = _cov_batch_fn(params, n_valid_new, n_valid_new, False, kernel)
+    diagf = _cov_batch_fn(params, n_valid_new, n_valid_new, True, kernel)
+    row = torch.zeros((r_tiles + 1, m, m), dtype=lpacked.dtype, device=dev)
+    row0 = r_tiles * m
+
+    def bcast_row(g):  # the row chunk, repeated for each gathered tile
+        return x_row.expand(g, *x_row.shape).contiguous()
+
+    for level in plan.levels:
+        for bt in level:
+            if bt.op == sch.UASM:
+                tiles = crossf(bcast_row(bt.size), take(xc, bt.a), row0, _idx(bt.a, dev) * m)
+                put(row, bt.out, tiles)
+            elif bt.op == sch.UASMD:
+                put(row, bt.out, diagf(bcast_row(1), bcast_row(1), row0, row0))
+            elif bt.op == sch.UTRSM:
+                put(row, bt.out, ops.trsm(take(lpacked, bt.a), take(row, bt.b)))
+            elif bt.op == sch.UGEMM:
+                put(
+                    row,
+                    bt.out,
+                    ops.trail(take(row, bt.a), take(row, bt.b), take(lpacked, bt.c), update_dtype),
+                )
+            elif bt.op == sch.USYRK:
+                pb = take(row, bt.b)
+                put(row, bt.out, ops.trail(take(row, bt.a), pb, pb, update_dtype))
+            elif bt.op == sch.UPOTRF:
+                put(row, bt.out, ops.potrf(take(row, bt.a)))
+            else:
+                raise ValueError(bt.op)
+    return row
+
+
+# -- rank-b up/downdate ------------------------------------------------------
+
+
+def _rank_batch(op: str, tasks: Sequence[sch.Task], m: int) -> Batch:
+    """Gather/scatter indices of one rank-update batch."""
+    slot = tiling.packed_index
+    tasks = tuple(tasks)
+    if op == sch.UPREP:
+        rows = _arr([i for _, i, _, _ in tasks])
+        diag = _arr([slot(i, i, m) for _, i, _, _ in tasks])
+        return Batch(op, tasks, out=rows, a=diag)
+    if op == sch.UPROW:  # L'(i,j) = L(i,j) X_j^T + s W_i Y_j^T
+        tgt = _arr([slot(i, j, m) for _, i, j, _ in tasks])
+        wrows = _arr([i for _, i, _, _ in tasks])
+        cols = _arr([j for _, _, j, _ in tasks])
+        return Batch(op, tasks, out=tgt, a=tgt, b=wrows, c=cols)
+    if op == sch.UCARRY:  # W_i <- (W_i - L'(i,j) Y_j) C_j^{-T}
+        wrows = _arr([i for _, i, _, _ in tasks])
+        til = _arr([slot(i, j, m) for _, i, j, _ in tasks])
+        cols = _arr([j for _, _, j, _ in tasks])
+        return Batch(op, tasks, out=wrows, a=til, b=wrows, c=cols)
+    raise ValueError(op)
+
+
+@functools.lru_cache(maxsize=None)
+def update_rank_plan(m_tiles: int, n_streams: Optional[int] = None) -> Plan:
+    """Compile the blocked cholupdate sweep into batched launches."""
+    if n_streams is None:
+        schedule = sch.build_update_schedule(m_tiles, kind="update_rank")
+    else:
+        schedule = sch.build_wavefront_schedule(m_tiles, n_streams, kind="update_rank")
+    return _compile(schedule, n_streams, _rank_batch)
+
+
+def get_update_ops(sign: float):
+    """(uprep, uprow, ucarry) stack ops of the rank-update sweep.
+
+    ``sign=+1.0``: L' L'^T = L L^T + W W^T (eviction of a leading window is
+    a positive update of the trailing factor).  ``sign=-1.0``: the true
+    hyperbolic downdate L L^T - W W^T; its Cholesky heads go NaN when the
+    downdated matrix is not positive definite (callers check, see
+    :mod:`repro_torch.core.update`).  Both factorizations of UPREP go to
+    ``ops.potrf`` and UCARRY to ``ops.carry_update``; the triangular solves
+    and products around them are plain torch.
+    """
+
+    def uprep(ljj, wj):
+        d = ljj @ ljj.mT + sign * (wj @ wj.mT)
+        lnew = ops.potrf(d)
+        x = torch.linalg.solve_triangular(lnew, ljj, upper=False)
+        y = torch.linalg.solve_triangular(lnew, wj, upper=False)
+        eye = torch.eye(ljj.shape[-1], dtype=ljj.dtype, device=ljj.device)
+        c = ops.potrf(eye - sign * (y.mT @ y))
+        return lnew, x, y, c
+
+    def uprow(lij, wi, xj, yj):
+        return (lij @ xj.mT + sign * (wi @ yj.mT)).to(lij.dtype)
+
+    return uprep, uprow, ops.carry_update
+
+
+def run_rank_update(
+    lpacked: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    sign: float = 1.0,
+    n_streams: Optional[int] = None,
+    device="cuda",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blocked rank-b up/downdate: L' L'^T = L L^T + sign * W W^T.
+
+    lpacked (T, m, m) packed factor; w (M, m, m) carry blocks (one per
+    tile-row; unused trailing columns of a rank-b < m carry must be zero).
+    Works on copies of both and returns (new factor, final carry).  NaNs in
+    the new factor signal a failed (non-PD) downdate.
+    """
+    dev = resolve_device(device)
+    lpacked = torch.as_tensor(lpacked, device=dev).clone()
+    w = torch.as_tensor(w, device=dev).clone()
+    m_tiles = w.shape[0]
+    if tiling.num_packed_tiles(m_tiles) != lpacked.shape[-3]:
+        raise ValueError(
+            f"carry rows {m_tiles} inconsistent with packed store {tuple(lpacked.shape)}"
+        )
+    take, put, _ = _env_ops(dev)
+    plan = update_rank_plan(m_tiles, n_streams)
+    uprep, uprow, ucarry = get_update_ops(sign)
+    xaux = torch.zeros((m_tiles,) + lpacked.shape[1:], dtype=lpacked.dtype, device=dev)
+    yaux = torch.zeros_like(xaux)
+    caux = torch.zeros_like(xaux)
+    for level in plan.levels:
+        for bt in level:
+            if bt.op == sch.UPREP:
+                lnew, x, y, c = uprep(take(lpacked, bt.a), take(w, bt.out))
+                put(lpacked, bt.a, lnew)
+                put(xaux, bt.out, x)
+                put(yaux, bt.out, y)
+                put(caux, bt.out, c)
+            elif bt.op == sch.UPROW:
+                put(
+                    lpacked,
+                    bt.out,
+                    uprow(take(lpacked, bt.a), take(w, bt.b), take(xaux, bt.c), take(yaux, bt.c)),
+                )
+            elif bt.op == sch.UCARRY:
+                put(
+                    w,
+                    bt.out,
+                    ucarry(
+                        take(w, bt.b), take(lpacked, bt.a), take(yaux, bt.c), take(caux, bt.c)
+                    ).to(w.dtype),
+                )
+            else:
+                raise ValueError(bt.op)
+    return lpacked, w

@@ -18,6 +18,12 @@ The tiled pipeline caches its :class:`repro_torch.core.predict.PosteriorState`
 buffers) across ``predict`` calls.  The cache key holds the identity and
 the in-place version counter of the training tensors, the hyperparameters
 and every pipeline knob, so a change to any of them rebuilds the factor.
+
+``update`` / ``forget`` / ``sliding_window`` keep the training set moving:
+on a warm cache they extend or shrink the cached state in O(n^2 b) instead
+of refactorizing; a cold cache, an unaligned ``forget`` or a numerical
+failure (:class:`repro_torch.core.update.CholeskyUpdateError`) invalidates
+the cache so that the next prediction refactorizes.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 
 from repro_torch.core import kernels_math as km
 from repro_torch.core import predict as pred
+from repro_torch.core import update as upd
 from repro_torch.device import resolve_device
 
 
@@ -62,6 +69,7 @@ class GaussianProcess:
     update_dtype: Optional[torch.dtype] = None
     dtype: torch.dtype = torch.float32
     fused: bool = True
+    sliding_window: Optional[int] = None  # keep at most n_max observations
     # covariance family: None / registry name / Kernel instance
     kernel: Optional[object] = None
     # approximation tier; only "exact" is ported so far
@@ -83,6 +91,8 @@ class GaussianProcess:
             raise ValueError(
                 f"pipeline must be 'tiled' or 'monolithic', got {self.pipeline!r}"
             )
+        if self.sliding_window is not None and self.sliding_window < 1:
+            raise ValueError(f"sliding_window must be >= 1, got {self.sliding_window}")
         # own copies: torch.as_tensor shares memory with a numpy array or tensor
         x = torch.as_tensor(self.x_train, device=self.device).to(self.dtype, copy=True)
         if x.ndim == 1:  # (n,) convenience for 1-D problems
@@ -142,6 +152,78 @@ class GaussianProcess:
     def invalidate_cache(self) -> None:
         self._posterior = None
         self._posterior_key = None
+
+    # -- streaming updates --------------------------------------------------
+
+    def update(self, x_new, y_new) -> "GaussianProcess":
+        """Absorb new observations online in O(n^2 b), with no refactorization.
+
+        Appends ``(x_new, y_new)`` to the training set.  On a warm cache the
+        cached state is extended by the tiled block Cholesky append, so the
+        next ``predict`` goes straight to the warm tail.  A cold cache, or a
+        numerically failed append, invalidates the cache and the next
+        prediction refactorizes.  With ``sliding_window=n_max`` the oldest
+        observations are evicted (:meth:`forget`) once n exceeds n_max, in
+        whole tiles, so that the eviction stays on the O(n^2) path.
+        """
+        x_new = self._prep(x_new)
+        y_new = torch.as_tensor(y_new, device=self.device).to(self.dtype).reshape(-1)
+        if x_new.shape[0] != y_new.shape[0]:
+            raise ValueError(
+                f"update needs matching x_new (b, D) and y_new (b,); got "
+                f"{tuple(x_new.shape)} and {tuple(y_new.shape)}"
+            )
+        if x_new.shape[0] == 0:
+            return self
+        warm = self.pipeline == "tiled" and self._cache_warm()
+        state = self._posterior
+        self.x_train = torch.cat([self.x_train, x_new])
+        self.y_train = torch.cat([self.y_train, y_new])
+        if warm:
+            try:
+                self._posterior = state.extend(
+                    x_new, y_new, n_streams=self.n_streams, update_dtype=self.update_dtype
+                )
+                self._posterior_key = self._cache_key()
+            except upd.CholeskyUpdateError:
+                self.invalidate_cache()  # the next predict refactorizes
+        else:
+            self.invalidate_cache()
+        if self.sliding_window is not None:
+            excess = self.y_train.shape[0] - self.sliding_window
+            if excess > 0:
+                # evict whole tiles: round the overflow up to a tile multiple
+                # (n stays <= n_max); a window under one tile evicts exactly
+                m = self.tile_size
+                self.forget(min(-(-excess // m) * m, self.y_train.shape[0] - 1))
+        return self
+
+    def forget(self, k: int) -> "GaussianProcess":
+        """Evict the k oldest observations (sliding-window downdate).
+
+        A tile-aligned k on a warm cache runs the O(n^2 k) rank-update sweep
+        (``PosteriorState.shrink``); anything else (unaligned k, cold cache,
+        numerical failure) invalidates the cache, so the next prediction
+        refactorizes the kept window.
+        """
+        n = self.y_train.shape[0]
+        if not 0 <= k < n:
+            raise ValueError(f"forget(k) needs 0 <= k < n = {n}; got {k}")
+        if k == 0:
+            return self
+        warm = self.pipeline == "tiled" and self._cache_warm()
+        state = self._posterior
+        self.x_train = self.x_train[k:]
+        self.y_train = self.y_train[k:]
+        if warm and k % self.tile_size == 0:
+            try:
+                self._posterior = state.shrink(k, n_streams=self.n_streams)
+                self._posterior_key = self._cache_key()
+            except upd.CholeskyUpdateError:
+                self.invalidate_cache()
+        else:
+            self.invalidate_cache()
+        return self
 
     # -- prediction ---------------------------------------------------------
 

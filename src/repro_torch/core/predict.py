@@ -117,6 +117,12 @@ class PosteriorState:
     Everything a repeated ``predict`` needs that does not depend on x_test;
     re-using it skips assembly, the factorization and both substitutions
     (the O(n^3) part).  All tensors live on one device.
+
+    The state is live: :meth:`extend` absorbs new observations in O(n^2 b)
+    by a block Cholesky append and :meth:`shrink` evicts the oldest ones by
+    tiled rank updates, each returning a new state and leaving this one
+    unchanged.  ``beta``/``y_chunks`` carry what the incremental maintenance
+    needs; a state without them gets them from the factor on demand.
     """
 
     lpacked: torch.Tensor    # (T, m, m) packed Cholesky factor of K
@@ -134,6 +140,28 @@ class PosteriorState:
     @property
     def device(self) -> torch.device:
         return self.lpacked.device
+
+    def extend(self, x_new, y_new, **kwargs) -> "PosteriorState":
+        """Absorb new observations in O(n^2 b) (block Cholesky append).
+
+        Keyword arguments go to :func:`repro_torch.core.update.extend_state`
+        (``n_streams``, ``update_dtype``).  Raises
+        :class:`repro_torch.core.update.CholeskyUpdateError` on numerical
+        failure; callers fall back to a fresh :func:`posterior_state`.
+        """
+        from repro_torch.core import update as upd  # update imports this module
+
+        return upd.extend_state(self, x_new, y_new, **kwargs)
+
+    def shrink(self, k: int, **kwargs) -> "PosteriorState":
+        """Evict the k oldest observations in O(n^2 k) (tiled rank update).
+
+        ``k`` must be a multiple of the tile size (whole leading
+        tile-columns); see :func:`repro_torch.core.update.shrink_state`.
+        """
+        from repro_torch.core import update as upd
+
+        return upd.shrink_state(self, k, **kwargs)
 
 
 def posterior_state(

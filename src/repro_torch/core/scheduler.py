@@ -1,10 +1,10 @@
 """Tile-task DAG scheduler: the static analogue of HPX ``hpx::dataflow``.
 
-A copy of the Cholesky, triangular-solve and whole-pipeline program DAGs of
-``repro/core/scheduler.py`` (that module is pure Python, but importing it
-runs ``repro/core/__init__.py``, which imports JAX, so the port keeps its
-own copy).  The streaming-update, rank-update and low-rank DAG families
-arrive with the slices that port those paths.
+A copy of the Cholesky, triangular-solve, whole-pipeline program and
+streaming-update (append, rank update) DAGs of ``repro/core/scheduler.py``
+(that module is pure Python, but importing it runs
+``repro/core/__init__.py``, which imports JAX, so the port keeps its own
+copy).  The low-rank DAG family arrives with the slice that ports that tier.
 
 The paper expresses the tiled Cholesky as a dataflow graph: each tile is
 wrapped in an ``hpx::shared_future`` and POTRF/TRSM/SYRK/GEMM tasks fire as
@@ -54,13 +54,37 @@ VTRSV = "vtrsv"          # matrix forward solve, diagonal tile of row i
 VGEMV = "vgemv"          # matrix forward propagation V_i -= L_ij V_j
 GRAM = "gram"            # Sigma = prior - V^T V (single closing task)
 
+# Streaming-update ops (block Cholesky append / rank update).
+#
+# *Append* ("update_append"): grow the factor by one tile-row R of new
+# observations against the frozen existing factor L (R tile-rows):
+#   row_j = K(R, j) L(j,j)^{-T} after  row_j -= sum_{k<j} row_k L(j,k)^T
+#   corner = chol(K(R, R) - sum_j row_j row_j^T)
+#
+# *Rank update* ("update_rank"): L' L'^T = L L^T + s W W^T for a tile-column
+# carry W, as the blocked cholupdate recurrence (per column j):
+#   L'(j,j) = chol(L(j,j) L(j,j)^T + s W_j W_j^T)
+#   X_j = L'(j,j)^{-1} L(j,j);  Y_j = L'(j,j)^{-1} W_j
+#   C_j = chol(I - s Y_j^T Y_j)
+#   L'(i,j) = L(i,j) X_j^T + s W_i Y_j^T                          (i > j)
+#   W_i    <- (W_i - L'(i,j) Y_j) C_j^{-T}                        (i > j)
+UASM = "uasm"            # assemble cross tile K(x_row, x_j) of the new row
+UASMD = "uasmd"          # assemble the new diagonal (corner) tile
+UTRSM = "utrsm"          # row_j <- row_j L(j,j)^{-T}
+UGEMM = "ugemm"          # row_j -= row_k L(j,k)^T
+USYRK = "usyrk"          # corner -= row_j row_j^T
+UPOTRF = "upotrf"        # corner <- chol(corner)
+UPREP = "uprep"          # column head: L'(j,j) + the X/Y/C auxiliaries
+UPROW = "uprow"          # L'(i,j) = L(i,j) X_j^T + s W_i Y_j^T
+UCARRY = "ucarry"        # W_i <- (W_i - L'(i,j) Y_j) C_j^{-T}
+
 Task = Tuple[str, int, int, int]
 
 # Ops that the wavefront scheduler does NOT count against the stream pool:
 # the pool models per-stream tile BLAS handles, whereas these are single
 # batched launches in the executor no matter how many tiles they cover.
 # They still enter waves as soon as their dependencies resolve.
-BULK_OPS = frozenset({ASSEMBLE, CROSS, PRIOR, VINIT, XGEMV, GRAM})
+BULK_OPS = frozenset({ASSEMBLE, CROSS, PRIOR, VINIT, XGEMV, GRAM, UASM, UASMD})
 
 # SYRK is GEMM with both panels equal, so the executor fuses both into one
 # trailing-update launch per level (executor.TRAIL).
@@ -120,7 +144,8 @@ def all_tasks(m_tiles: int) -> List[Task]:
 class Schedule:
     m_tiles: int
     levels: Tuple[Tuple[Task, ...], ...]
-    kind: str = "cholesky"  # "cholesky" | "forward" | "backward" | "program"
+    # "cholesky" | "forward" | "backward" | "program" | "update_append" | "update_rank"
+    kind: str = "cholesky"
     q_tiles: int = 0        # test tile count (program schedules only)
     uncertainty: bool = False  # program includes the full-covariance tail
 
@@ -336,6 +361,116 @@ def build_program_schedule(
     )
 
 
+# ---------------------------------------------------------------------------
+# Streaming-update DAGs: block Cholesky append / rank update.
+# ---------------------------------------------------------------------------
+
+
+def append_tasks(r_tiles: int) -> List[Task]:
+    """Every task of a one-tile-row block-Cholesky append, in program order.
+
+    ``r_tiles`` is the number of existing factor tile-rows the new row is
+    solved against (the new row gets index R = r_tiles).  ``r_tiles=0``
+    degenerates to assembling and factoring a single corner tile.
+    """
+    r = r_tiles
+    tasks: List[Task] = []
+    for j in range(r):
+        tasks.append((UASM, j, -1, -1))
+    tasks.append((UASMD, r, -1, -1))
+    for j in range(r):
+        for k in range(j):
+            tasks.append((UGEMM, j, k, -1))
+        tasks.append((UTRSM, j, -1, -1))
+        tasks.append((USYRK, j, -1, -1))
+    tasks.append((UPOTRF, r, -1, -1))
+    return tasks
+
+
+def append_deps(task: Task, r_tiles: int) -> List[Task]:
+    """Direct dependencies of an append task.
+
+    The existing factor is a frozen input, so edges only run between the
+    new row's own tasks: UGEMM corrections chain before each diagonal
+    solve, and the corner accumulates USYRK contributions in program order.
+    """
+    op, i, j, _ = task
+    r = r_tiles
+    if op in (UASM, UASMD):
+        return []
+    if op == UTRSM:  # row_i <- row_i L(i,i)^{-T} after all corrections
+        return [(UGEMM, i, i - 1, -1) if i > 0 else (UASM, i, -1, -1)]
+    if op == UGEMM:  # row_i -= row_j L(i,j)^T; reads solved row_j
+        deps = [(UTRSM, j, -1, -1)]
+        deps.append((UGEMM, i, j - 1, -1) if j > 0 else (UASM, i, -1, -1))
+        return deps
+    if op == USYRK:  # corner -= row_i row_i^T (accumulation chain)
+        return [
+            (UTRSM, i, -1, -1),
+            (USYRK, i - 1, -1, -1) if i > 0 else (UASMD, r, -1, -1),
+        ]
+    if op == UPOTRF:
+        return [(USYRK, r - 1, -1, -1) if r > 0 else (UASMD, r, -1, -1)]
+    raise ValueError(op)
+
+
+def rank_update_tasks(m_tiles: int) -> List[Task]:
+    """Every task of a tiled rank-b up/downdate, in program order."""
+    tasks: List[Task] = []
+    for j in range(m_tiles):
+        tasks.append((UPREP, j, -1, -1))
+        for i in range(j + 1, m_tiles):
+            tasks.append((UPROW, i, j, -1))
+        for i in range(j + 1, m_tiles):
+            tasks.append((UCARRY, i, j, -1))
+    return tasks
+
+
+def rank_update_deps(task: Task, m_tiles: int) -> List[Task]:
+    """Direct dependencies of a rank-update task (blocked cholupdate).
+
+    Row i's carry W_i evolves once per column, so every column-j task on
+    row i waits for UCARRY(i, j-1), the last writer of W_i.  UPREP(j)
+    writes the new diagonal and the X/Y/C auxiliaries its column reads;
+    UPROW(i, j) overwrites L(i, j) in place.
+    """
+    op, i, j, _ = task
+    if op == UPREP:  # reads L(j,j) and the settled carry W_j
+        return [(UCARRY, i, i - 1, -1)] if i > 0 else []
+    if op == UPROW:
+        deps = [(UPREP, j, -1, -1)]
+        if j > 0:
+            deps.append((UCARRY, i, j - 1, -1))
+        return deps
+    if op == UCARRY:
+        return [(UPROW, i, j, -1), (UPREP, j, -1, -1)]
+    raise ValueError(op)
+
+
+def build_update_schedule(m_tiles: int, *, kind: str = "update_append") -> Schedule:
+    """ASAP level schedule of an update DAG.
+
+    ``kind="update_append"``: ``m_tiles`` is the existing row count R the
+    appended row solves against.  ``kind="update_rank"``: ``m_tiles`` is the
+    size of the factor being up/downdated.
+    """
+    tasks, deps_fn = _dag(m_tiles, kind)
+    return Schedule(m_tiles=m_tiles, levels=_asap_levels(tasks, deps_fn), kind=kind)
+
+
+def task_deps(task: Task, schedule: Schedule) -> List[Task]:
+    """Dependencies of ``task`` under the DAG family of ``schedule.kind``."""
+    if schedule.kind == "cholesky":
+        return _deps(task, schedule.m_tiles)
+    if schedule.kind == "program":
+        return program_deps(task, schedule.m_tiles, schedule.q_tiles)
+    if schedule.kind == "update_append":
+        return append_deps(task, schedule.m_tiles)
+    if schedule.kind == "update_rank":
+        return rank_update_deps(task, schedule.m_tiles)
+    return solve_deps(task, schedule.m_tiles, lower=schedule.kind == "forward")
+
+
 def _dag(m_tiles: int, kind: str, q_tiles: int = 0, uncertainty: bool = False):
     """(tasks in topological order, deps_fn) for a DAG family."""
     if kind == "cholesky":
@@ -351,6 +486,10 @@ def _dag(m_tiles: int, kind: str, q_tiles: int = 0, uncertainty: bool = False):
             program_tasks(m_tiles, q_tiles, uncertainty=uncertainty),
             lambda t: program_deps(t, m_tiles, q_tiles),
         )
+    if kind == "update_append":
+        return append_tasks(m_tiles), lambda t: append_deps(t, m_tiles)
+    if kind == "update_rank":
+        return rank_update_tasks(m_tiles), lambda t: rank_update_deps(t, m_tiles)
     raise ValueError(kind)
 
 

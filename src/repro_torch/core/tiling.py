@@ -13,12 +13,15 @@ Packing order (column-major over tile columns):
     off(J) = J*M - J*(J-1)//2
     tile (I, J) with I >= J lives at  off(J) + (I - J)
 
-The index helpers are plain Python/numpy and device-free; the tensor
-helpers keep the device and dtype of their input (``dtype=`` casts).
+The index helpers are plain Python/numpy and device-free (the maps of the
+streaming updates, ``grow``/``replace_row``/``shrink``, are lru-cached int64
+arrays); the tensor helpers keep the device and dtype of their input
+(``dtype=`` casts).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -127,3 +130,63 @@ def unpack_lower(packed: torch.Tensor, *, fill: str = "lower") -> torch.Tensor:
     if fill == "lower":
         full = torch.tril(full)  # zero the upper triangle inside diagonal tiles
     return full
+
+
+# ---------------------------------------------------------------------------
+# Index maps of the streaming updates (lru-cached numpy gather/scatter maps).
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def grow_packed_indices(m_tiles_old: int) -> np.ndarray:
+    """Gather indices that append one tile-row to a packed store.
+
+    Let ``cat = concat(old_packed (T_old), row_buffer (M_old + 1))`` where
+    the row buffer holds the new row's tiles (R, 0..R-1) plus the corner
+    (R, R), R = M_old.  Then ``cat[grow_packed_indices(M_old)]`` is the
+    packed store of the grown (M_old + 1)-tile factor: the column-major
+    packing interleaves the new row's tile at the end of every column.
+    """
+    m_old, m_new = m_tiles_old, m_tiles_old + 1
+    t_old = num_packed_tiles(m_old)
+    idx = np.empty(num_packed_tiles(m_new), np.int64)
+    for j in range(m_new):
+        for i in range(j, m_new):
+            idx[packed_index(i, j, m_new)] = (
+                t_old + j if i == m_old else packed_index(i, j, m_old)
+            )
+    return idx
+
+
+@functools.lru_cache(maxsize=None)
+def replace_row_indices(row: int, m_tiles: int) -> np.ndarray:
+    """Packed slots of tile-row ``row``: (row, 0..row), corner last.
+
+    Scattering a row buffer (row + 1 tiles, corner last) into these slots
+    overwrites one tile-row of an existing packed store: the append path
+    that refills a partially padded trailing tile.
+    """
+    return np.array([packed_index(row, j, m_tiles) for j in range(row + 1)], np.int64)
+
+
+def replace_last_row_indices(m_tiles: int) -> np.ndarray:
+    """Packed slots of the last tile-row (R, 0..R), R = m_tiles - 1."""
+    return replace_row_indices(m_tiles - 1, m_tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def shrink_packed_indices(m_tiles_old: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(trailing, evicted) gather indices that drop the leading tile-column.
+
+    ``old_packed[trailing]`` is the packed store of the trailing
+    (M_old - 1)-tile block (tiles (i, j) with i, j >= 1);
+    ``old_packed[evicted]`` is the evicted column's sub-diagonal panel
+    (tiles (1.., 0)): the rank-m carry W of the eviction update.
+    """
+    m_old, m_new = m_tiles_old, m_tiles_old - 1
+    trailing = np.empty(num_packed_tiles(m_new), np.int64)
+    for j in range(m_new):
+        for i in range(j, m_new):
+            trailing[packed_index(i, j, m_new)] = packed_index(i + 1, j + 1, m_old)
+    evicted = np.array([packed_index(i, 0, m_old) for i in range(1, m_old)], np.int64)
+    return trailing, evicted

@@ -23,7 +23,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("cov_assembly", "potrf_tile", "trsm_tile", "trailing_update")
+SOURCES = ("cov_assembly", "potrf_tile", "trsm_tile", "trailing_update", "carry_update")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -119,6 +119,7 @@ _SIGNATURES = {
     "potrf": [_P, _P, _I, _I, _I, _P],
     "trsm": [_P, _P, _P, _I, _I, _I, _P],
     "trail": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "carry_update": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

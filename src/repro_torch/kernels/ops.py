@@ -6,7 +6,10 @@ executor vmaps a per-tile op; here the batch axis is written out):
 * ``potrf(a)``             — lower Cholesky factors;
 * ``trsm(l, b)``           — X L^T = B with a per-task L;
 * ``trail(c, a, b)``       — C - A B^T, the fused SYRK + GEMM launch;
-* ``cov_tiles(...)``       — masked covariance tiles (ASSEMBLE/CROSS/PRIOR).
+* ``cov_tiles(...)``       — masked covariance tiles (ASSEMBLE/CROSS/PRIOR,
+  and UASM/UASMD of the append);
+* ``carry_update(w, l, y, c)`` — (W - L Y) C^{-T}, the UCARRY step of the
+  rank update.
 
 On a CUDA tensor an op launches its hand-written kernel or raises; on a CPU
 tensor it runs the kernel's plain version.  No ``try`` falls back from one
@@ -21,6 +24,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import carry_update as _carry
 from repro_torch.kernels import cov_assembly as _cov
 from repro_torch.kernels import potrf_tile as _potrf
 from repro_torch.kernels import trailing_update as _trail
@@ -88,7 +92,19 @@ def cov_tiles(
     return out
 
 
-KERNEL_OPS = {"cov_tiles": cov_tiles, "potrf": potrf, "trsm": trsm, "trail": trail}
+def carry_update(w: torch.Tensor, l: torch.Tensor, y: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """(W - L Y) C^{-T} for (G, m, m) stacks (the fused UCARRY step)."""
+    if not _on_cuda(w, "carry_update"):
+        return _carry.carry_update_plain(w, l, y, c)
+    out = _carry.carry_update_cuda(w, l, y, c)
+    carry_update.launches += 1
+    return out
+
+
+KERNEL_OPS = {
+    "cov_tiles": cov_tiles, "potrf": potrf, "trsm": trsm, "trail": trail,
+    "carry_update": carry_update,
+}
 for _op in KERNEL_OPS.values():
     _op.launches = 0
 

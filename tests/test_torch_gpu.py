@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.core import GaussianProcess
 from repro_torch.core import kernels_math as km
-from repro_torch.kernels import cov_assembly, ops, potrf_tile, trailing_update, trsm_tile
+from repro_torch.kernels import carry_update, cov_assembly, ops, potrf_tile, trailing_update, trsm_tile
 
 pytestmark = pytest.mark.gpu
 
@@ -43,7 +43,26 @@ def test_kernels_match_plain(cuda, dtype, m, tol):
         want = cov_assembly.cov_tiles_plain(x, x, 0, 0, m - 5, m - 9, p, symmetric=sym)
         assert (got - want).abs().max() <= tol
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"cov_tiles": 2, "potrf": 1, "trsm": 1, "trail": 1}
+    assert ops.launch_counts() == {"cov_tiles": 2, "potrf": 1, "trsm": 1, "trail": 1, "carry_update": 0}
+
+
+@pytest.mark.parametrize(
+    "dtype,g,m,tol",
+    [(torch.float32, 3, 512, 1e-3), (torch.float32, 4, 100, 1e-3), (torch.float64, 3, 77, 1e-10),
+     (torch.float64, 2, 512, 1e-10)],
+)
+def test_carry_update_matches_plain(cuda, dtype, g, m, tol):
+    """(W - L Y) C^{-T}: the kernel against its plain version, C = chol(I + R R^T / m)."""
+    gen = torch.Generator().manual_seed(3)
+    w, l, y, r = (torch.randn(g, m, m, generator=gen, dtype=dtype) / m**0.5 for _ in range(4))
+    c = potrf_tile.potrf_plain(torch.eye(m, dtype=dtype) + r @ r.mT)
+    w, l, y, c = (t.to(cuda) for t in (w, l, y, c))
+    ops.reset_launch_counts()
+    got = ops.carry_update(w, l, y, c)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["carry_update"] == 1
+    assert got.dtype == dtype and got.shape == (g, m, m)
+    assert (got - carry_update.carry_update_plain(w, l, y, c)).abs().max() <= tol
 
 
 def test_trail_bf16_operands(cuda):

@@ -4,7 +4,7 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 1. env      the card's name and power limit, torch, CUDA and nvcc versions;
-2. build    compiles the five kernels from src/repro_torch/kernels/csrc/ with
+2. build    compiles the six kernels from src/repro_torch/kernels/csrc/ with
             nvcc for sm_90a, in parallel (into build/repro_torch/, git-ignored);
 3. kernel   one phase per kernel: its wrapper against its plain PyTorch
             version on its path's own tiles (gp_16k, m = 512, D = 16,
@@ -26,7 +26,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
             sliding-window step (append, evict) beside a cold
             refactorization of the same window;
 7. profile  device time by kernel and the device's idle share in one cold
-            ``predict`` and in one sliding-window step (``torch.profiler``).
+            ``predict`` and in one sliding-window step (``torch.profiler``);
+8. kernel.lrgemm  the low-rank tier's kernel at the gp_256k build's shape
+            (G = 2048 tiles of 512 x 512, float32) against its plain version,
+            plus float64, odd G and mb != m; times it beside ``torch.bmm``;
+9. lowrank  gp_256k_lowrank (n_train = 262144, n_test = 16384, tile 512,
+            m_inducing = 2048): a cold ``predict``, a cold
+            ``predict_with_uncertainty`` and a warm ``predict`` of
+            ``GaussianProcess(method="lowrank")``, then two sliding-window
+            steps (``update(512)`` + an exact eviction of 512 rows) on a
+            pinned inducing set, with the launches counted against the plans
+            and mean and variance held against a float64 dense DTC;
+10. timing.lowrank  the cold low-rank call against the float32 dense DTC,
+            warm calls, a step against a cold rebuild of the window, and the
+            low-rank tier against the exact tier at gp_16k;
+11. profile.lowrank  device time by kernel and idle share of a cold build
+            and of one step.
 
 Every phase prints one JSON line.  The kernels' summary, the nvidia-smi line
 and, last, ``{"ok": true, "device": {...}}`` follow.  Any failed check exits
@@ -54,12 +69,19 @@ TILE = 512
 N_FEATURES = 16
 SEED = 0
 
-# kernels of the main path (cold/warm prediction) and of the update path
+# kernels of the main path (cold/warm prediction), the update path and the low-rank path
 MAIN_KERNELS = ("cov_tiles", "potrf", "trsm", "trail")
 UPDATE_KERNELS = MAIN_KERNELS + ("carry_update",)
-NO_LAUNCHES = {k: 0 for k in UPDATE_KERNELS}
+LOWRANK_KERNELS = MAIN_KERNELS + ("lrgemm",)
+NO_LAUNCHES = {k: 0 for k in UPDATE_KERNELS + ("lrgemm",)}
 # the sliding-window path: a window of N_TRAIN rows, UPDATE_STEPS steps of one tile
 UPDATE_STEPS = 2
+# gp_256k_lowrank: gp_256k's sizes (src/repro/configs/gp_msd.py:19) on the
+# Nystrom tier, m_inducing = 2048 (4 tiles), subset inducing points, jitter 1e-4
+LR_N_TRAIN = 262144
+LR_N_TEST = 16384
+LR_M_INDUCING = 2048
+LR_STEPS = 2
 
 # Published peaks of one H100 SXM (dense, at the 700 W limit): FP32 on the
 # CUDA cores and HBM3 bandwidth.
@@ -407,6 +429,7 @@ def phase_main(x_train, y_train, x_test, y_test, dev):
             "trsm": by_op.get("trsm", 0),
             "trail": by_op.get(executor.TRAIL, 0),
             "carry_update": 0,
+            "lrgemm": 0,
         }
 
     def delta(before, after):
@@ -558,6 +581,7 @@ def update_launches_per_step():
         "trsm": ap["utrsm"],
         "trail": ap["ugemm"] + ap["usyrk"],
         "carry_update": rp["ucarry"],
+        "lrgemm": 0,
     }
 
 
@@ -738,6 +762,333 @@ def phase_timing(x_train, y_train, x_test, dev):
          note="host clock around calls ending in torch.cuda.synchronize()")
 
 
+def lrgemm_phase(x_lr, y_lr, dev):
+    """The LRGEMM kernel at the cold build's launch: G = 2048 tiles of K_un (m = mb = 512)."""
+    from repro_torch.core import executor, kernels_math as km, lowrank, predict as pred, tiling
+    from repro_torch.kernels import lrgemm_tile, ops
+
+    m, n = TILE, LR_N_TRAIN
+    params = km.SEKernelParams.paper_defaults()
+    x = torch.from_numpy(x_lr).to(dev)
+    u, _ = lowrank.select_inducing(x, LR_M_INDUCING)
+    uc, xc = tiling.pad_features(u, m), tiling.pad_features(x, m)
+    kun = pred.assemble_cross_tiles(uc, xc, params, LR_M_INDUCING, n)  # (4, 512, 512, 512)
+    mu_tiles, n_tiles = kun.shape[:2]
+    kflat = kun.reshape(mu_tiles * n_tiles, m, m)
+    yc = tiling.pad_vector(torch.from_numpy(y_lr).to(dev), m)
+    (bt,), = executor.lowrank_plan(mu_tiles, n_tiles).levels
+    a, b = (torch.from_numpy(i).to(dev) for i in (bt.a, bt.b))
+    g = a.shape[0]
+
+    def kern():
+        return ops.lrgemm(kflat, yc, a, b)
+
+    def plain():
+        return lrgemm_tile.lrgemm_plain(kflat, yc, a, b)
+
+    out = kern()
+    torch.cuda.synchronize()
+    ref = plain()
+    scale = max(1.0, float(ref.abs().max()))
+    err, tol = max_err(out, ref), 1e-4 * scale
+    k64, y64 = kflat.double(), yc.double()
+    ref64 = lrgemm_tile.lrgemm_plain(k64, y64, a, b)
+    err64 = max_err(ops.lrgemm(k64, y64, a, b), ref64)
+    tol64 = 1e-12 * max(1.0, float(ref64.abs().max()))
+    f64_ms = cuda_ms(lambda: ops.lrgemm(k64, y64, a, b), 5)
+    del k64, y64, ref64
+    # odd G, mb != m (vector path), and an odd mb (the scalar path), both types
+    gen = torch.Generator().manual_seed(SEED)
+    edge = {}
+    for dt, g_e, m_e, mb_e, tol_e in ((torch.float32, 7, 512, 384, 1e-4), (torch.float32, 5, 100, 45, 1e-4),
+                                       (torch.float64, 7, 512, 384, 1e-12), (torch.float64, 5, 100, 45, 1e-12)):
+        ks = torch.randn(g_e + 2, m_e, mb_e, generator=gen, dtype=dt).to(dev)
+        vs = torch.randn(3, mb_e, generator=gen, dtype=dt).to(dev)
+        ai = torch.randperm(g_e + 2, generator=gen)[:g_e].to(dev)
+        bi = torch.randint(0, 3, (g_e,), generator=gen).to(dev)
+        want = lrgemm_tile.lrgemm_plain(ks, vs, ai, bi)
+        key = f"{str(dt).split('.')[-1]}_G{g_e}_m{m_e}_mb{mb_e}"
+        edge[key] = max_err(ops.lrgemm(ks, vs, ai, bi), want)
+        check(edge[key] <= tol_e * max(1.0, float(want.abs().max())),
+              f"lrgemm {key}: kernel disagrees with its plain version: {edge[key]}")
+    vstack = yc.index_select(0, b)[:, :, None]  # one gathered chunk per tile, for torch.bmm
+    nbytes = (kflat.numel() + yc.numel() + out.numel()) * 4 + 2 * g * 8
+    bnd = bound_ms(nbytes, 2 * g * m * m)
+    row = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/lrgemm_tile.cu",
+        replaces="src/repro/kernels/lrgemm_tile.py:18", max_abs_err=max(err, err64, *edge.values()),
+        ms=cuda_ms(kern, 20), plain_ms=cuda_ms(plain, 3), bound_ms=bnd[0], bound_by=bnd[1],
+        library_ms=cuda_ms(lambda: torch.bmm(kflat, vstack), 20),
+    )
+    emit("kernel.lrgemm", shape=[g, m, m], max_abs_err=err, tol=tol, f64_max_abs_err=err64, f64_tol=tol64,
+         edge_errors=edge, edge_tol="1e-4 (float32), 1e-12 (float64), times max(1, max|plain|)",
+         max_abs_plain=scale, f64_ms=f64_ms, achieved_tb_per_s=nbytes / row["ms"] / 1e9,
+         tol_reason="float32: sums of 512 products in another order, 1e-4 max(1, max|plain|); "
+         "float64 on the same operands: 1e-12 max(1, max|plain|)",
+         library_call="torch.bmm(K_un tiles, gathered y chunks) (cuBLAS), the gather not timed",
+         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    check(err <= tol, f"lrgemm disagrees with its plain version: {err} > {tol}")
+    check(err64 <= tol64, f"lrgemm (float64) disagrees with its plain version: {err64} > {tol64}")
+    del kun, kflat, out, ref, vstack
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return row
+
+
+def dense_dtc(x, y, x_test, u, dtype, dev, *, with_var=True, jax_formulas=False):
+    """(mean, variance) of the dense DTC in whitened (SGPR) form, plain torch on the card.
+
+    K_uu is retuned as the tiled build retunes it: the diagonal pinned to
+    v + sigma^2, then shifted by jitter - sigma^2, each rounded to ``dtype``.
+    The mean is sigma^-2 (L_B^-1 L_uu^-1 K_u*)^T L_B^-1 W y; with
+    ``jax_formulas`` it is the JAX package's sigma^-2 K_*u gamma, gamma =
+    L_uu^-T B^-1 L_uu^-1 c from c = K_un y.  A check and a yardstick, not a
+    path of the port.
+    """
+    from repro_torch.core import kernels_math as km
+    from repro_torch.core.lowrank import DEFAULT_JITTER
+
+    def solve(l, b, upper=False):
+        return torch.linalg.solve_triangular(l, b, upper=upper)
+
+    p = km.SEKernelParams.paper_defaults()
+    x, y, xt, u = (torch.as_tensor(a, device=dev).to(dtype) for a in (x, y, x_test, u))
+    kuu = km.assemble_covariance(u, p)
+    kuu.diagonal().add_(torch.tensor(DEFAULT_JITTER, dtype=dtype, device=dev) - p.noise)
+    luu = torch.linalg.cholesky(kuu)
+    kun = km.assemble_cross_covariance(u, x, p)
+    c = kun @ y[:, None]
+    w = solve(luu, kun)
+    del kun
+    lb = torch.linalg.cholesky(torch.eye(u.shape[0], dtype=dtype, device=dev) + (w @ w.mT) / p.noise)
+    wy = w @ y[:, None]
+    del w
+    kus = km.assemble_cross_covariance(u, xt, p)
+    v1 = solve(luu, kus)
+    v2 = solve(lb, v1)
+    if jax_formulas:
+        gamma = solve(luu.mT, solve(lb.mT, solve(lb, solve(luu, c)), upper=True), upper=True)
+        mean = (kus.mT @ gamma)[:, 0] / p.noise
+    else:
+        mean = (v2.mT @ solve(lb, wy))[:, 0] / p.noise
+    if not with_var:
+        return mean
+    return mean, p.vertical - (v1 * v1).sum(0) + (v2 * v2).sum(0)
+
+
+def lowrank_launches():
+    """Kernel launches of the low-rank path's pieces, from the plans (MU = 4 inducing tiles)."""
+    from repro_torch.core import executor
+
+    mu_tiles = LR_M_INDUCING // TILE
+    chol = executor.cholesky_plan(mu_tiles).launches_by_op()
+    one_chol = {"potrf": chol["potrf"], "trsm": chol["trsm"], "trail": chol["syrk"] + chol["gemm"]}
+
+    def pieces(cov, lrgemm, chols):
+        scaled = {k: chols * v for k, v in one_chol.items()}
+        return {**NO_LAUNCHES, "cov_tiles": cov, "lrgemm": lrgemm, **scaled}
+
+    # cold build: K_uu + K_un, c = K_un y and c_w = W y, chol(K_uu) + chol(B);
+    # the head adds CROSS (+ PRIOR); a step (update(512)) is two absorbs, the
+    # new rows in and the 512 oldest out, each K_ub, dc and dc_w, chol(B)
+    return {
+        "cold_predict": pieces(3, 2, 2),
+        "cold_predict_with_uncertainty": pieces(4, 2, 2),
+        "warm_predict": pieces(1, 0, 0),
+        "warm_predict_with_uncertainty": pieces(2, 0, 0),
+        "step": pieces(2, 4, 2),
+    }
+
+
+def lowrank_accuracy(tiled, x, y, x_test, u, dev):
+    """Errors of tiled (mean, var) against the float64 dense DTC, and the bounds of the rule.
+
+    Reference and float32 comparator are the dense DTC in SGPR form.  The
+    float32 mean error of the JAX package's formulas (gamma solved from
+    c = K_un y) is reported beside them.
+    """
+    mean_ref, var_ref = dense_dtc(x, y, x_test, u, torch.float64, dev)
+    mean_d, var_d = dense_dtc(x, y, x_test, u, torch.float32, dev)
+    e, dense, mean_bound, var_bound = accuracy_bounds(mean_ref, var_ref, mean_d, var_d)
+    mean_j = dense_dtc(x, y, x_test, u, torch.float32, dev, with_var=False, jax_formulas=True)
+    dense["mean_err_dense_f32_jax_formulas"] = e(mean_j, mean_ref)
+    errs = {name: e(t, mean_ref if name.startswith("mean") else var_ref) for name, t in tiled.items()}
+    return errs, dense, mean_bound, var_bound
+
+
+def phase_lowrank(x_lr, y_lr, x_lt, x_lw, y_lw, dev):
+    """The gp_256k_lowrank path, cold, warm and two sliding-window steps, launches and accuracy checked."""
+    from repro_torch.core import GaussianProcess, lowrank
+    from repro_torch.kernels import ops
+
+    plan = lowrank_launches()
+    kw = dict(tile_size=TILE, method="lowrank", m_inducing=LR_M_INDUCING, device=dev)
+
+    def counted(fn):
+        ops.reset_launch_counts()
+        out, t = wall_s(fn)
+        return out, t, ops.launch_counts()
+
+    torch.cuda.empty_cache()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gp = GaussianProcess(x_lr, y_lr, **kw)
+    mean, t_cold, c_cold = counted(lambda: gp.predict(x_lt))
+    peak_cold = torch.cuda.max_memory_allocated() - base_mem
+    del gp
+    torch.cuda.reset_peak_memory_stats()
+    gp_u = GaussianProcess(x_lr, y_lr, **kw)
+    (mean_u, var_u), t_cold_u, c_cold_u = counted(lambda: gp_u.predict_with_uncertainty(x_lt))
+    peak_cold_u = torch.cuda.max_memory_allocated() - base_mem
+    mean_w, t_warm, c_warm = counted(lambda: gp_u.predict(x_lt))
+    total = {k: c_cold[k] + c_cold_u[k] + c_warm[k] for k in NO_LAUNCHES}
+    got = [c_cold, c_cold_u, c_warm]
+    want = [plan["cold_predict"], plan["cold_predict_with_uncertainty"], plan["warm_predict"]]
+    emit("lowrank.launches", calls=["predict (cold)", "predict_with_uncertainty (cold)", "predict (warm)"],
+         launches=got, plan=want)
+    check(got == want, f"low-rank launches {got} differ from the plans' {want}")
+
+    u = lowrank.select_inducing(torch.from_numpy(x_lr).to(dev), LR_M_INDUCING)[0]
+    errs, dense, mean_bound, var_bound = lowrank_accuracy(
+        {"mean_err_tiled": mean, "mean_err_tiled_uncertainty_call": mean_u, "mean_err_warm": mean_w,
+         "var_err_tiled": var_u}, x_lr, y_lr, x_lt, u, dev)
+    finite = all(bool(torch.isfinite(t).all()) for t in (mean, mean_u, var_u, mean_w))
+    shapes = [tuple(t.shape) for t in (mean, mean_u, var_u, mean_w)]
+    emit("lowrank.correctness", **errs, **dense, mean_bound=mean_bound, var_bound=var_bound, finite=finite,
+         shapes=shapes, min_var_tiled=float(var_u.min()),
+         bound_rule=BOUND_RULE.replace("a float64 dense solve", "a float64 dense DTC (whitened, same K_uu)"))
+    check(finite and shapes == [(LR_N_TEST,)] * 4, f"low-rank: non-finite or misshapen outputs {shapes}")
+    for name in ("mean_err_tiled", "mean_err_tiled_uncertainty_call", "mean_err_warm"):
+        check(errs[name] <= mean_bound, f"low-rank {name} {errs[name]} above {mean_bound}")
+    check(errs["var_err_tiled"] <= var_bound, f"low-rank variance error {errs['var_err_tiled']} above {var_bound}")
+    del gp_u, mean, mean_u, var_u, mean_w
+
+    # two sliding-window steps on a pinned inducing set (the window's subset)
+    n = LR_N_TRAIN
+    u_pin = lowrank.select_inducing(torch.from_numpy(x_lw[:n]).to(dev), LR_M_INDUCING)[0]
+    win = GaussianProcess(x_lw[:n], y_lw[:n], sliding_window=n, inducing=u_pin, **kw)
+    win.predict(x_lt)
+    for step in range(1, LR_STEPS + 1):
+        lo, hi = step * TILE, n + step * TILE
+        _, t_step, c_step = counted(lambda: win.update(x_lw[hi - TILE:hi], y_lw[hi - TILE:hi]))
+        warm = win._lowrank_warm()
+        mean, t_warm, c_w = counted(lambda: win.predict(x_lt))
+        (mean_u, var_u), t_warm_u, c_wu = counted(lambda: win.predict_with_uncertainty(x_lt))
+        for c in (c_step, c_w, c_wu):
+            total = {k: total[k] + c[k] for k in total}
+        errs, dense, mean_bound, var_bound = lowrank_accuracy(
+            {"mean_err": mean, "mean_err_uncertainty_call": mean_u, "var_err": var_u},
+            x_lw[lo:hi], y_lw[lo:hi], x_lt, u_pin, dev)
+        res = dict(step=step, window=[lo, hi], n=int(win.y_train.shape[0]), state_n=win._lowrank.n,
+                   cache_warm=warm, launches_step=c_step, plan=plan["step"], launches_warm_predict=c_w,
+                   launches_warm_predict_with_uncertainty=c_wu,
+                   seconds={"step": t_step, "warm_predict": t_warm, "warm_predict_with_uncertainty": t_warm_u},
+                   **errs, **dense, mean_bound=mean_bound, var_bound=var_bound,
+                   finite=all(bool(torch.isfinite(t).all()) for t in (mean, mean_u, var_u)))
+        emit("lowrank.step", **res)
+        check(warm and res["n"] == res["state_n"] == n, f"low-rank step {step}: cache cold or window {res['n']}")
+        check(c_step == plan["step"], f"low-rank step {step}: launches {c_step} differ from {plan['step']}")
+        check(c_w == plan["warm_predict"] and c_wu == plan["warm_predict_with_uncertainty"],
+              f"low-rank step {step}: warm predictions launched {c_w}, {c_wu}")
+        check(res["finite"], f"low-rank step {step}: non-finite outputs")
+        for name in ("mean_err", "mean_err_uncertainty_call"):
+            check(errs[name] <= mean_bound, f"low-rank step {step}: {name} {errs[name]} above {mean_bound}")
+        check(errs["var_err"] <= var_bound, f"low-rank step {step}: variance error {errs['var_err']} above {var_bound}")
+    check(all(total[k] > 0 for k in LOWRANK_KERNELS), f"a kernel of the low-rank path never launched: {total}")
+    emit("lowrank", launches=total, cold_predict_seconds=t_cold, cold_predict_with_uncertainty_seconds=t_cold_u,
+         peak_memory_gib={"cold_predict": peak_cold / 2**30, "cold_predict_with_uncertainty": peak_cold_u / 2**30},
+         memory_before_gib=base_mem / 2**30)
+    del win
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_lowrank_timing(x_lr, y_lr, x_lt, y_lt, x_lw, y_lw, data16, dev):
+    """Cold and warm low-rank calls, a step against a cold rebuild, and the two tiers at gp_16k; in turns."""
+    from repro_torch.core import GaussianProcess, lowrank
+
+    kw = dict(tile_size=TILE, method="lowrank", m_inducing=LR_M_INDUCING, device=dev)
+    u = lowrank.select_inducing(torch.from_numpy(x_lr).to(dev), LR_M_INDUCING)[0]
+    times = {"lowrank_cold": [], "lowrank_warm": [], "dense_dtc_f32": []}
+    for order in ("tiled", "dense", "dense", "tiled"):
+        if order == "tiled":
+            gp = GaussianProcess(x_lr, y_lr, **kw)
+            mean, t = wall_s(lambda: gp.predict(x_lt))
+            times["lowrank_cold"].append(t)
+            times["lowrank_warm"].append(wall_s(lambda: gp.predict(x_lt))[1])
+            del gp
+        else:
+            times["dense_dtc_f32"].append(
+                wall_s(lambda: dense_dtc(x_lr, y_lr, x_lt, u, torch.float32, dev, with_var=False))[1])
+    rmse = float(((mean.double() - torch.from_numpy(y_lt).to(dev)) ** 2).mean().sqrt())
+
+    # one sliding-window step on the cached state (absorb 512, forget the 512 oldest) beside a cold rebuild
+    n = LR_N_TRAIN
+    u_pin = lowrank.select_inducing(torch.from_numpy(x_lw[:n]).to(dev), LR_M_INDUCING)[0]
+    base = GaussianProcess(x_lw[:n], y_lw[:n], inducing=u_pin, **kw)
+    base.predict(x_lt)
+    state = base.lowrank_posterior()
+    new, old = slice(n, n + TILE), slice(0, TILE)
+    steps = {"absorb": [], "forget": [], "warm_predict": [], "cold_rebuild": []}
+    for order in ("step", "cold", "cold", "step"):
+        if order == "step":
+            grown, t_a = wall_s(lambda: lowrank.absorb(state, x_lw[new], y_lw[new]))
+            kept, t_f = wall_s(lambda: lowrank.absorb(grown, x_lw[old], y_lw[old], sign=-1))
+            steps["absorb"].append(t_a)
+            steps["forget"].append(t_f)
+            steps["warm_predict"].append(wall_s(lambda: lowrank.predict_from_lowrank_state(kept, x_lt))[1])
+        else:
+            gp = GaussianProcess(x_lw[TILE:n + TILE], y_lw[TILE:n + TILE], inducing=u_pin, **kw)
+            steps["cold_rebuild"].append(wall_s(lambda: gp.predict(x_lt))[1])
+            del gp
+    del base, state, grown, kept
+    emit("timing.lowrank", seconds={**times, **steps}, test_rmse_lowrank=rmse,
+         order="cold: tiled, dense, dense, tiled; step: step, cold, cold, step",
+         note="host clock around calls ending in torch.cuda.synchronize(); dense_dtc_f32 is the whitened "
+         "dense DTC mean in plain torch (cuBLAS, cuSOLVER); a step is absorb(512) + absorb(-512) of the "
+         "window's cached state; cold_rebuild is a new GP's cold predict on the kept window")
+
+    # gp_16k: the low-rank tier (m_inducing 2048) beside the exact tiled tier
+    x_tr, y_tr, x_te, y_te = data16
+    y_te_t = torch.from_numpy(y_te).to(dev)
+    tiers = {"exact_cold": [], "lowrank_cold": []}
+    rmse16 = {}
+    for order in ("exact", "lowrank", "lowrank", "exact"):
+        extra = kw if order == "lowrank" else dict(tile_size=TILE, device=dev)
+        gp = GaussianProcess(x_tr, y_tr, **extra)
+        mean, t = wall_s(lambda: gp.predict(x_te))
+        tiers[f"{order}_cold"].append(t)
+        rmse16[order] = float(((mean.double() - y_te_t) ** 2).mean().sqrt())
+        del gp
+    emit("timing.lowrank_vs_exact_gp16k", seconds=tiers, test_rmse=rmse16, m_inducing=LR_M_INDUCING,
+         order="exact, lowrank, lowrank, exact", note="informative: what the tier trades for its speed")
+    torch.cuda.empty_cache()
+
+
+def phase_lowrank_profile(x_lr, y_lr, x_lt, x_lw, y_lw, dev):
+    """One cold low-rank build (+ head), and one sliding-window step (+ warm predict)."""
+    from repro_torch.core import GaussianProcess, lowrank
+
+    kw = dict(tile_size=TILE, method="lowrank", m_inducing=LR_M_INDUCING, device=dev)
+    gp = GaussianProcess(x_lr, y_lr, **kw)
+    profile_call("profile.lowrank", "predict (cold), gp_256k_lowrank", lambda: gp.predict(x_lt))
+    del gp
+    n = LR_N_TRAIN
+    u_pin = lowrank.select_inducing(torch.from_numpy(x_lw[:n]).to(dev), LR_M_INDUCING)[0]
+    win = GaussianProcess(x_lw[:n], y_lw[:n], sliding_window=n, inducing=u_pin, **kw)
+    win.predict(x_lt)
+    new = slice(n, n + TILE)
+
+    def step():
+        win.update(x_lw[new], y_lw[new])
+        return win.predict(x_lt)
+
+    profile_call("profile.lowrank_step", "update(512) (absorb + exact eviction) + predict (warm), "
+                 "gp_256k_lowrank sliding window", step)
+    check(win._lowrank_warm(), "the profiled low-rank step fell back to a rebuild")
+    del win
+    torch.cuda.empty_cache()
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -773,14 +1124,28 @@ def main() -> None:
     phase_timing(x_train, y_train, x_test, dev)
     phase_update_timing(x_win, y_win, x_test, dev)
     phase_profile(x_train, y_train, x_test, x_win, y_win, dev)
+    del x_win, y_win
 
-    # launches: the main path's count, and the update path's for the kernel it adds
+    # gp_256k_lowrank: the low-rank tier at gp_256k's sizes, and a window of one series for its steps
+    x_lr, y_lr, x_lt, y_lt = make_data(LR_N_TRAIN, LR_N_TEST, N_FEATURES, SEED)
+    x_lw, y_lw, _, _ = make_data(LR_N_TRAIN + LR_STEPS * TILE, TILE, N_FEATURES, SEED)
+    emit("data.lowrank", n_train=LR_N_TRAIN, n_test=LR_N_TEST, features=N_FEATURES, tile_size=TILE,
+         m_inducing=LR_M_INDUCING, strategy="subset", jitter=1e-4, seed=SEED,
+         window_rows=LR_N_TRAIN + LR_STEPS * TILE, steps=LR_STEPS, step_rows=TILE,
+         config="gp_256k_lowrank: gp_256k's sizes (src/repro/configs/gp_msd.py:19) on the Nystrom tier")
+    rows["lrgemm"] = lrgemm_phase(x_lr, y_lr, dev)
+    launches_lowrank = phase_lowrank(x_lr, y_lr, x_lt, x_lw, y_lw, dev)
+    phase_lowrank_timing(x_lr, y_lr, x_lt, y_lt, x_lw, y_lw, (x_train, y_train, x_test, y_test), dev)
+    phase_lowrank_profile(x_lr, y_lr, x_lt, x_lw, y_lw, dev)
+
+    # launches: each kernel's count on the path it came with (main, update, lowrank)
     path_of = {name: "main" for name in MAIN_KERNELS}
     path_of["carry_update"] = "update"
-    by_path = {"main": launches, "update": launches_update}
+    path_of["lrgemm"] = "lowrank"
+    by_path = {"main": launches, "update": launches_update, "lowrank": launches_lowrank}
     kernels = [
         {"name": name, "launches": by_path[path_of[name]][name], **row,
-         "launches_by_path": {"main": launches[name], "update": launches_update[name]}}
+         "launches_by_path": {path: counts[name] for path, counts in by_path.items()}}
         for name, row in rows.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

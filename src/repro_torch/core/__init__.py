@@ -9,10 +9,12 @@ from repro_torch.core.kernels_math import (
     register_kernel,
     resolve_kernel,
 )
+from repro_torch.core.lowrank import LowRankState
 from repro_torch.core.predict import PosteriorState
 
 __all__ = [
     "GaussianProcess",
+    "LowRankState",
     "PosteriorState",
     "Kernel",
     "SquaredExponential",

@@ -19,7 +19,9 @@ head ops (TRSV, GEMV, XGEMV, VINIT, VTRSV, VGEMV, GRAM) are plain torch
 The streaming updates run two more plan families over the same store:
 ``run_append`` (one appended tile-row, UASM/UASMD/UTRSM/UGEMM/USYRK/UPOTRF)
 and ``run_rank_update`` (the blocked cholupdate sweep, UPREP/UPROW/UCARRY,
-whose UCARRY step is the port's ``carry_update`` kernel).
+whose UCARRY step is the port's ``carry_update`` kernel).  The low-rank
+tier's n-side contraction is one more plan, ``lowrank_plan``: the LRGEMM
+family as one ``lrgemm`` kernel launch (``run_lowrank_contraction``).
 
 The buffers of a run are updated in place (``index_copy_`` /
 ``index_add_``) where the JAX executor used functional ``.at[].set`` /
@@ -613,6 +615,57 @@ def run_solve(
             else:
                 add(rhs, bt.out, -torch.einsum(ein, take(lpacked, bt.a), take(rhs, bt.b)))
     return rhs
+
+
+@functools.lru_cache(maxsize=None)
+def lowrank_plan(mu_tiles: int, n_tiles: int, n_streams: Optional[int] = None) -> Plan:
+    """Compile the LRGEMM bulk family into one batched launch.
+
+    A single level of ``mu_tiles * n_tiles`` independent tile contractions
+    over the K_un grid; like every ``BULK_OPS`` family it is never chunked by
+    the stream pool.  ``out`` holds the c chunk rows, ``a`` the flat K_un
+    slots and ``b`` the training chunks.
+    """
+    tasks = tuple(sch.lowrank_tasks(mu_tiles, n_tiles))
+    batch = Batch(
+        sch.LRGEMM,
+        tasks,
+        out=_arr([p for _, p, _, _ in tasks]),
+        a=_arr([p * n_tiles + j for _, p, j, _ in tasks]),
+        b=_arr([j for _, _, j, _ in tasks]),
+    )
+    return Plan("lowrank", mu_tiles, n_streams, ((batch,),))
+
+
+def run_lowrank_contraction(
+    kun: torch.Tensor,
+    yc: torch.Tensor,
+    *,
+    n_streams: Optional[int] = None,
+    device="cuda",
+) -> torch.Tensor:
+    """c = K_un y through the LRGEMM family: c_p = sum_j K_un[p, j] y_j.
+
+    ``kun`` (MU, M, m, mb) cross-covariance tile grid (rows = inducing
+    points, columns = training points), ``yc`` (M, mb) training chunks.  One
+    ``ops.lrgemm`` launch per plan batch reads the tiles of the flat grid
+    where they lie (the plan's ``a`` index is the identity, so no gathered
+    copy of the grid is made), then one ``index_add_`` into the (MU, m)
+    output.  Padded K_un columns are assembled as zero, so padding needs no
+    mask here.
+    """
+    dev = resolve_device(device)
+    kun = torch.as_tensor(kun, device=dev)
+    yc = torch.as_tensor(yc, device=dev).to(kun.dtype).contiguous()
+    mu_tiles, n_tiles, m, mb = kun.shape
+    plan = lowrank_plan(mu_tiles, n_tiles, n_streams)
+    kflat = kun.reshape(mu_tiles * n_tiles, m, mb).contiguous()
+    out = torch.zeros((mu_tiles, m), dtype=kun.dtype, device=dev)
+    _, _, add = _env_ops(dev)
+    for level in plan.levels:
+        for bt in level:
+            add(out, bt.out, ops.lrgemm(kflat, yc, _idx(bt.a, dev), _idx(bt.b, dev)))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,14 @@ on a warm cache they extend or shrink the cached state in O(n^2 b) instead
 of refactorizing; a cold cache, an unaligned ``forget`` or a numerical
 failure (:class:`repro_torch.core.update.CholeskyUpdateError`) invalidates
 the cache so that the next prediction refactorizes.
+
+``method="lowrank"`` (with ``m_inducing``) runs the tiled Nystrom/DTC tier
+of :mod:`repro_torch.core.lowrank` instead, and takes precedence over
+``pipeline``/``fused``: an O(n m^2) cold build of an m-point inner system,
+O(m^2) per test point, and ``update``/``forget`` through the rank-m inner
+system for any row count (the sliding window evicts the exact excess).
+Its state is cached in a slot of its own beside the exact one, under the
+same key.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import kernels_math as km
+from repro_torch.core import lowrank
 from repro_torch.core import predict as pred
 from repro_torch.core import update as upd
 from repro_torch.device import resolve_device
@@ -45,6 +54,25 @@ def _params_key(params):
         torch.as_tensor(getattr(params, f.name)).detach().cpu().numpy().tobytes()
         for f in dataclasses.fields(params)
     )
+
+
+def _lowrank_state_with_retry(build, base_jitter: float) -> lowrank.LowRankState:
+    """Cold Nystrom build with escalating-jitter retries.
+
+    ``chol(K_uu + jitter I)`` fails when the inducing set has duplicate or
+    near-duplicate rows and the jitter is too small: the factors come back
+    non-finite.  The build is retried with the jitter raised tenfold, at
+    most twice.  The probe reads only the two packed inner factors on the
+    host, once per cold build, never on the per-predict path.
+    """
+    jit = float(base_jitter)
+    state = build(jit)
+    for _ in range(2):
+        if bool(torch.isfinite(state.luu_packed).all() & torch.isfinite(state.lb_packed).all()):
+            return state
+        jit = max(jit, lowrank.DEFAULT_JITTER) * 10.0
+        state = build(jit)
+    return state
 
 
 def disable_tf32() -> None:
@@ -72,9 +100,14 @@ class GaussianProcess:
     sliding_window: Optional[int] = None  # keep at most n_max observations
     # covariance family: None / registry name / Kernel instance
     kernel: Optional[object] = None
-    # approximation tier; only "exact" is ported so far
+    # approximation tier: "exact" factors the n x n covariance; "lowrank" the
+    # m_inducing-point Nystrom inner system (takes precedence over pipeline/fused)
     method: str = "exact"
     device: object = "cuda"
+    m_inducing: Optional[int] = None
+    strategy: str = "subset"  # inducing selection: "subset" | "kmeans-lite"
+    inducing: Optional[object] = None  # explicit inducing inputs (m_inducing, D)
+    jitter: Optional[float] = None  # K_uu regularizer; None -> lowrank.DEFAULT_JITTER
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -83,10 +116,10 @@ class GaussianProcess:
         self.kernel = km.resolve_kernel(self.kernel)
         if self.params is None:
             self.params = self.kernel.default_params()
-        if self.method != "exact":
-            raise ValueError(
-                f"method must be 'exact' (the only tier ported so far), got {self.method!r}"
-            )
+        if self.method not in ("exact", "lowrank"):
+            raise ValueError(f"method must be 'exact' or 'lowrank', got {self.method!r}")
+        if self.method == "lowrank" and self.m_inducing is None:
+            raise ValueError("method='lowrank' requires m_inducing")
         if self.pipeline not in ("tiled", "monolithic"):
             raise ValueError(
                 f"pipeline must be 'tiled' or 'monolithic', got {self.pipeline!r}"
@@ -108,8 +141,12 @@ class GaussianProcess:
                 "features are stored (D, n) — it is not transposed silently."
             )
         self.x_train = x
+        if self.inducing is not None:
+            self.inducing = torch.as_tensor(self.inducing, device=self.device).to(self.dtype, copy=True)
         self._posterior: Optional[pred.PosteriorState] = None
         self._posterior_key = None
+        self._lowrank: Optional[lowrank.LowRankState] = None
+        self._lowrank_key = None
 
     # -- cached posterior ---------------------------------------------------
 
@@ -126,6 +163,11 @@ class GaussianProcess:
             self.n_streams,
             str(self.update_dtype),
             str(self.dtype),
+            self.method,
+            self.m_inducing,
+            self.strategy,
+            None if self.jitter is None else float(self.jitter),
+            None if self.inducing is None else (id(self.inducing), self.inducing._version),
         )
 
     def _cache_warm(self) -> bool:
@@ -149,9 +191,41 @@ class GaussianProcess:
             self._posterior_key = key
         return self._posterior
 
+    def _lowrank_warm(self) -> bool:
+        return self._lowrank is not None and self._lowrank_key == self._cache_key()
+
+    def lowrank_posterior(self) -> lowrank.LowRankState:
+        """The Nystrom state (``method="lowrank"``): inducing chunks, the
+        whitened m x m inner factors and the projected weights, cached across
+        ``predict`` calls under the same key as :meth:`posterior`."""
+        key = self._cache_key()
+        if self._lowrank is None or self._lowrank_key != key:
+            self._lowrank = _lowrank_state_with_retry(
+                lambda jit: lowrank.lowrank_state(
+                    self.x_train,
+                    self.y_train,
+                    self.params,
+                    self.m_inducing,
+                    self.tile_size,
+                    strategy=self.strategy,
+                    inducing=self.inducing,
+                    jitter=jit,
+                    n_streams=self.n_streams,
+                    update_dtype=self.update_dtype,
+                    dtype=self.dtype,
+                    kernel=self.kernel,
+                    device=self.device,
+                ),
+                lowrank.DEFAULT_JITTER if self.jitter is None else float(self.jitter),
+            )
+            self._lowrank_key = key
+        return self._lowrank
+
     def invalidate_cache(self) -> None:
         self._posterior = None
         self._posterior_key = None
+        self._lowrank = None
+        self._lowrank_key = None
 
     # -- streaming updates --------------------------------------------------
 
@@ -165,6 +239,10 @@ class GaussianProcess:
         prediction refactorizes.  With ``sliding_window=n_max`` the oldest
         observations are evicted (:meth:`forget`) once n exceeds n_max, in
         whole tiles, so that the eviction stays on the O(n^2) path.
+
+        With ``method="lowrank"`` a warm state absorbs the rows through the
+        rank-m inner system in O(b m^2 + m^3), and the sliding window evicts
+        exactly the excess, since that downdate needs no tile alignment.
         """
         x_new = self._prep(x_new)
         y_new = torch.as_tensor(y_new, device=self.device).to(self.dtype).reshape(-1)
@@ -174,6 +252,15 @@ class GaussianProcess:
                 f"{tuple(x_new.shape)} and {tuple(y_new.shape)}"
             )
         if x_new.shape[0] == 0:
+            return self
+        if self.method == "lowrank":
+            state = self._lowrank if self._lowrank_warm() else None
+            self.x_train = torch.cat([self.x_train, x_new])
+            self.y_train = torch.cat([self.y_train, y_new])
+            self._absorb(state, x_new, y_new, sign=1)
+            excess = 0 if self.sliding_window is None else self.y_train.shape[0] - self.sliding_window
+            if excess > 0:
+                self.forget(min(excess, self.y_train.shape[0] - 1))
             return self
         warm = self.pipeline == "tiled" and self._cache_warm()
         state = self._posterior
@@ -204,12 +291,20 @@ class GaussianProcess:
         A tile-aligned k on a warm cache runs the O(n^2 k) rank-update sweep
         (``PosteriorState.shrink``); anything else (unaligned k, cold cache,
         numerical failure) invalidates the cache, so the next prediction
-        refactorizes the kept window.
+        refactorizes the kept window.  With ``method="lowrank"`` a warm state
+        forgets any k rows through the rank-m inner system.
         """
         n = self.y_train.shape[0]
         if not 0 <= k < n:
             raise ValueError(f"forget(k) needs 0 <= k < n = {n}; got {k}")
         if k == 0:
+            return self
+        if self.method == "lowrank":
+            state = self._lowrank if self._lowrank_warm() else None
+            x_old, y_old = self.x_train[:k], self.y_train[:k]
+            self.x_train = self.x_train[k:]
+            self.y_train = self.y_train[k:]
+            self._absorb(state, x_old, y_old, sign=-1)
             return self
         warm = self.pipeline == "tiled" and self._cache_warm()
         state = self._posterior
@@ -224,6 +319,22 @@ class GaussianProcess:
         else:
             self.invalidate_cache()
         return self
+
+    def _absorb(self, state: Optional[lowrank.LowRankState], x_rows, y_rows, *, sign: int) -> None:
+        """Move a warm low-rank ``state`` by ``sign`` times the rows and cache
+        it under the current key; no state, or a refactorization that fails,
+        leaves the cache cold, so the next prediction rebuilds."""
+        if state is None:
+            self.invalidate_cache()
+            return
+        try:
+            self._lowrank = lowrank.absorb(
+                state, x_rows, y_rows, sign=sign,
+                n_streams=self.n_streams, update_dtype=self.update_dtype,
+            )
+            self._lowrank_key = self._cache_key()
+        except upd.CholeskyUpdateError:
+            self.invalidate_cache()
 
     # -- prediction ---------------------------------------------------------
 
@@ -263,8 +374,15 @@ class GaussianProcess:
             full_cov=full_cov, dtype=self.dtype, kernel=self.kernel, device=self.device,
         )
 
+    def _predict_lowrank(self, x_test: torch.Tensor, full_cov: bool):
+        return lowrank.predict_from_lowrank_state(
+            self.lowrank_posterior(), x_test, full_cov=full_cov, n_streams=self.n_streams
+        )
+
     def predict(self, x_test) -> torch.Tensor:
         x_test = self._prep(x_test)
+        if self.method == "lowrank":
+            return self._predict_lowrank(x_test, full_cov=False)
         if self.pipeline == "monolithic":
             return self._predict_monolithic(x_test, full_cov=False)
         return self._predict_tiled(x_test, full_cov=False)
@@ -272,6 +390,8 @@ class GaussianProcess:
     def predict_full_cov(self, x_test) -> Tuple[torch.Tensor, torch.Tensor]:
         """The paper's *Predict with Full Covariance Matrix* operation."""
         x_test = self._prep(x_test)
+        if self.method == "lowrank":
+            return self._predict_lowrank(x_test, full_cov=True)
         if self.pipeline == "monolithic":
             return self._predict_monolithic(x_test, full_cov=True)
         return self._predict_tiled(x_test, full_cov=True)

@@ -1,10 +1,10 @@
 """Tile-task DAG scheduler: the static analogue of HPX ``hpx::dataflow``.
 
-A copy of the Cholesky, triangular-solve, whole-pipeline program and
-streaming-update (append, rank update) DAGs of ``repro/core/scheduler.py``
-(that module is pure Python, but importing it runs
-``repro/core/__init__.py``, which imports JAX, so the port keeps its own
-copy).  The low-rank DAG family arrives with the slice that ports that tier.
+A copy of the Cholesky, triangular-solve, whole-pipeline program,
+streaming-update (append, rank update) and low-rank (LRGEMM) DAGs of
+``repro/core/scheduler.py`` (that module is pure Python, but importing it
+runs ``repro/core/__init__.py``, which imports JAX, so the port keeps its
+own copy).
 
 The paper expresses the tiled Cholesky as a dataflow graph: each tile is
 wrapped in an ``hpx::shared_future`` and POTRF/TRSM/SYRK/GEMM tasks fire as
@@ -78,13 +78,18 @@ UPREP = "uprep"          # column head: L'(j,j) + the X/Y/C auxiliaries
 UPROW = "uprow"          # L'(i,j) = L(i,j) X_j^T + s W_i Y_j^T
 UCARRY = "ucarry"        # W_i <- (W_i - L'(i,j) Y_j) C_j^{-T}
 
+# Low-rank (Nystrom) tier op: the n-side contraction of the inducing system.
+# One tile task per (inducing row p, training column j) of the K_un grid;
+# every task is independent, so the whole family is one bulk launch.
+LRGEMM = "lrgemm"        # c_p += K_un[p, j] @ y_j
+
 Task = Tuple[str, int, int, int]
 
 # Ops that the wavefront scheduler does NOT count against the stream pool:
 # the pool models per-stream tile BLAS handles, whereas these are single
 # batched launches in the executor no matter how many tiles they cover.
 # They still enter waves as soon as their dependencies resolve.
-BULK_OPS = frozenset({ASSEMBLE, CROSS, PRIOR, VINIT, XGEMV, GRAM, UASM, UASMD})
+BULK_OPS = frozenset({ASSEMBLE, CROSS, PRIOR, VINIT, XGEMV, GRAM, UASM, UASMD, LRGEMM})
 
 # SYRK is GEMM with both panels equal, so the executor fuses both into one
 # trailing-update launch per level (executor.TRAIL).
@@ -145,8 +150,9 @@ class Schedule:
     m_tiles: int
     levels: Tuple[Tuple[Task, ...], ...]
     # "cholesky" | "forward" | "backward" | "program" | "update_append" | "update_rank"
+    # | "lowrank"
     kind: str = "cholesky"
-    q_tiles: int = 0        # test tile count (program schedules only)
+    q_tiles: int = 0        # test tile count (program); training tile count (lowrank)
     uncertainty: bool = False  # program includes the full-covariance tail
 
     @property
@@ -458,6 +464,21 @@ def build_update_schedule(m_tiles: int, *, kind: str = "update_append") -> Sched
     return Schedule(m_tiles=m_tiles, levels=_asap_levels(tasks, deps_fn), kind=kind)
 
 
+def lowrank_tasks(mu_tiles: int, n_tiles: int) -> List[Task]:
+    """The LRGEMM bulk family over the (mu_tiles x n_tiles) K_un grid.
+
+    A single level: every tile contraction is independent, so the whole
+    family compiles to one batched launch (``BULK_OPS``).
+    """
+    return [(LRGEMM, p, j, -1) for p in range(mu_tiles) for j in range(n_tiles)]
+
+
+def lowrank_deps(task: Task) -> List[Task]:
+    if task[0] != LRGEMM:
+        raise ValueError(task[0])
+    return []
+
+
 def task_deps(task: Task, schedule: Schedule) -> List[Task]:
     """Dependencies of ``task`` under the DAG family of ``schedule.kind``."""
     if schedule.kind == "cholesky":
@@ -468,6 +489,8 @@ def task_deps(task: Task, schedule: Schedule) -> List[Task]:
         return append_deps(task, schedule.m_tiles)
     if schedule.kind == "update_rank":
         return rank_update_deps(task, schedule.m_tiles)
+    if schedule.kind == "lowrank":
+        return lowrank_deps(task)
     return solve_deps(task, schedule.m_tiles, lower=schedule.kind == "forward")
 
 
@@ -490,6 +513,9 @@ def _dag(m_tiles: int, kind: str, q_tiles: int = 0, uncertainty: bool = False):
         return append_tasks(m_tiles), lambda t: append_deps(t, m_tiles)
     if kind == "update_rank":
         return rank_update_tasks(m_tiles), lambda t: rank_update_deps(t, m_tiles)
+    if kind == "lowrank":
+        # q_tiles carries the n-side tile count of the K_un grid
+        return lowrank_tasks(m_tiles, q_tiles), lowrank_deps
     raise ValueError(kind)
 
 

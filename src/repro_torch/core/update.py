@@ -46,9 +46,9 @@ class CholeskyUpdateError(RuntimeError):
 
 
 def _check(t: torch.Tensor, what: str) -> None:
-    if bool(torch.isnan(t).any()):
+    if not bool(torch.isfinite(t).all()):
         raise CholeskyUpdateError(
-            f"incremental {what} produced NaNs (non-positive-definite head); "
+            f"incremental {what} went non-finite (non-positive-definite head); "
             "fall back to a full refactorization"
         )
 

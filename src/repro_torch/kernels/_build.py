@@ -23,7 +23,9 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("cov_assembly", "potrf_tile", "trsm_tile", "trailing_update", "carry_update")
+SOURCES = (
+    "cov_assembly", "potrf_tile", "trsm_tile", "trailing_update", "carry_update", "lrgemm_tile",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -114,12 +116,14 @@ def load(name: str) -> ctypes.CDLL:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "cov_tiles": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _I, _I, _P],
     "potrf": [_P, _P, _I, _I, _I, _P],
     "trsm": [_P, _P, _P, _I, _I, _I, _P],
     "trail": [_P, _P, _P, _P, _I, _I, _I, _P],
     "carry_update": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "lrgemm": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _P],
 }
 
 

@@ -9,7 +9,9 @@ executor vmaps a per-tile op; here the batch axis is written out):
 * ``cov_tiles(...)``       — masked covariance tiles (ASSEMBLE/CROSS/PRIOR,
   and UASM/UASMD of the append);
 * ``carry_update(w, l, y, c)`` — (W - L Y) C^{-T}, the UCARRY step of the
-  rank update.
+  rank update;
+* ``lrgemm(kflat, v, a, b)`` — the tile matvecs ``kflat[a[g]] @ v[b[g]]``
+  of the low-rank tier's LRGEMM family, read where the tiles lie.
 
 On a CUDA tensor an op launches its hand-written kernel or raises; on a CPU
 tensor it runs the kernel's plain version.  No ``try`` falls back from one
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.kernels import carry_update as _carry
 from repro_torch.kernels import cov_assembly as _cov
+from repro_torch.kernels import lrgemm_tile as _lrgemm
 from repro_torch.kernels import potrf_tile as _potrf
 from repro_torch.kernels import trailing_update as _trail
 from repro_torch.kernels import trsm_tile as _trsm
@@ -101,9 +104,18 @@ def carry_update(w: torch.Tensor, l: torch.Tensor, y: torch.Tensor, c: torch.Ten
     return out
 
 
+def lrgemm(kflat: torch.Tensor, v: torch.Tensor, a_idx: torch.Tensor, b_idx: torch.Tensor) -> torch.Tensor:
+    """(G, m) tile matvecs ``kflat[a[g]] @ v[b[g]]`` of (T, m, mb) tiles and (M, mb) chunks."""
+    if not _on_cuda(kflat, "lrgemm"):
+        return _lrgemm.lrgemm_plain(kflat, v, a_idx, b_idx)
+    out = _lrgemm.lrgemm_cuda(kflat, v, a_idx, b_idx)
+    lrgemm.launches += 1
+    return out
+
+
 KERNEL_OPS = {
     "cov_tiles": cov_tiles, "potrf": potrf, "trsm": trsm, "trail": trail,
-    "carry_update": carry_update,
+    "carry_update": carry_update, "lrgemm": lrgemm,
 }
 for _op in KERNEL_OPS.values():
     _op.launches = 0

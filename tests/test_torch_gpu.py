@@ -12,7 +12,9 @@ import torch
 
 from repro_torch.core import GaussianProcess
 from repro_torch.core import kernels_math as km
-from repro_torch.kernels import carry_update, cov_assembly, ops, potrf_tile, trailing_update, trsm_tile
+from repro_torch.kernels import (
+    carry_update, cov_assembly, lrgemm_tile, ops, potrf_tile, trailing_update, trsm_tile,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -43,7 +45,9 @@ def test_kernels_match_plain(cuda, dtype, m, tol):
         want = cov_assembly.cov_tiles_plain(x, x, 0, 0, m - 5, m - 9, p, symmetric=sym)
         assert (got - want).abs().max() <= tol
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"cov_tiles": 2, "potrf": 1, "trsm": 1, "trail": 1, "carry_update": 0}
+    assert ops.launch_counts() == {
+        "cov_tiles": 2, "potrf": 1, "trsm": 1, "trail": 1, "carry_update": 0, "lrgemm": 0,
+    }
 
 
 @pytest.mark.parametrize(
@@ -63,6 +67,53 @@ def test_carry_update_matches_plain(cuda, dtype, g, m, tol):
     assert ops.launch_counts()["carry_update"] == 1
     assert got.dtype == dtype and got.shape == (g, m, m)
     assert (got - carry_update.carry_update_plain(w, l, y, c)).abs().max() <= tol
+
+
+@pytest.mark.parametrize(
+    "dtype,g,m,mb,tol",
+    [(torch.float32, 64, 512, 512, 1e-4), (torch.float32, 7, 100, 60, 1e-4),
+     (torch.float32, 5, 77, 45, 1e-4), (torch.float64, 7, 100, 60, 1e-12),
+     (torch.float64, 3, 512, 384, 1e-12), (torch.float64, 5, 33, 45, 1e-12)],
+)
+def test_lrgemm_matches_plain(cuda, dtype, g, m, mb, tol):
+    """kflat[a[g]] @ v[b[g]]: odd G, mb != m, odd mb (the scalar path), both types."""
+    gen = torch.Generator().manual_seed(4)
+    kflat = torch.randn(g + 3, m, mb, generator=gen, dtype=dtype).to(cuda)
+    v = torch.randn(4, mb, generator=gen, dtype=dtype).to(cuda)
+    a = torch.randperm(g + 3, generator=gen)[:g].to(cuda)
+    b = torch.randint(0, 4, (g,), generator=gen).to(cuda)
+    ops.reset_launch_counts()
+    got = ops.lrgemm(kflat, v, a, b)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lrgemm"] == 1
+    assert got.dtype == dtype and got.shape == (g, m)
+    want = lrgemm_tile.lrgemm_plain(kflat, v, a, b)
+    assert (got - want).abs().max() <= tol * max(1.0, float(want.abs().max()))
+    # an index out of range gives NaN rows, never an out-of-bounds read
+    bad = lrgemm_tile.lrgemm_cuda(kflat, v, a, torch.full_like(b, 4))
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(bad).all())
+
+
+def test_gp_lowrank_on_the_card_matches_cpu(cuda):
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(300, 4, generator=gen)
+    y = torch.sin(x.sum(-1))
+    xt = torch.randn(77, 4, generator=gen)
+    kw = dict(tile_size=64, method="lowrank", m_inducing=96)
+    ops.reset_launch_counts()
+    gp = GaussianProcess(x, y, device=cuda, **kw)
+    mean, var = gp.predict_with_uncertainty(xt)
+    gp.update(x[:50], y[:50])
+    gp.forget(50)
+    warm = gp.predict(xt)
+    counts = ops.launch_counts()
+    ref_mean, ref_var = GaussianProcess(x, y, device="cpu", **kw).predict_with_uncertainty(xt)
+    assert (mean.cpu() - ref_mean).abs().max() <= 1e-3
+    assert (var.cpu() - ref_var).abs().max() <= 1e-3
+    assert (warm.cpu() - ref_mean).abs().max() <= 2e-3
+    # lrgemm: c = K_un y and c_w = W y in the build and in each absorb
+    assert counts["lrgemm"] == 2 + 2 + 2 and counts["cov_tiles"] == 2 + 2 + 2 + 1
 
 
 def test_trail_bf16_operands(cuda):

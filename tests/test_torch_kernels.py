@@ -15,11 +15,13 @@ import torch
 
 from repro.core import kernels_math as jkm
 from repro.kernels import cov_assembly as jcov
+from repro.kernels import lrgemm_tile as jlrg
 from repro.kernels import potrf_tile as jpotrf
 from repro.kernels import trailing_update as jtrail
 from repro.kernels import trsm_tile as jtrsm
 from repro_torch.core import kernels_math as tkm
-from repro_torch.kernels import cov_assembly, ops, potrf_tile, trailing_update, trsm_tile
+from repro_torch.core import executor as tex
+from repro_torch.kernels import cov_assembly, lrgemm_tile, ops, potrf_tile, trailing_update, trsm_tile
 
 
 def T(a):
@@ -92,6 +94,60 @@ def test_cov_tiles_diagonal_bitwise_at_offset():
     # off the diagonal both sides use the expanded distance form, which
     # cancels at this offset (|x|^2 ~ 1.3e5): they agree only to its rounding
     np.testing.assert_allclose(got, want, atol=0.05)
+
+
+# ---------------------------------------------------------------------------
+# lrgemm (the low-rank tier's tile matvecs)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("g,m,mb", [(5, 16, 16), (3, 16, 8), (7, 8, 24)])
+def test_lrgemm_plain_matches_pallas(rng, g, m, mb):
+    """A pre-gathered (G, m, mb) stack, m = mb and m != mb; float32 at 1e-5."""
+    a = rng.standard_normal((g, m, mb)).astype(np.float32)
+    v = rng.standard_normal((g, mb)).astype(np.float32)
+    want = np.asarray(jlrg.lrgemm_tiles(jnp.asarray(a), jnp.asarray(v), interpret=True))
+    idx = torch.arange(g)
+    got = ops.lrgemm(T(a), T(v), idx, idx)
+    assert got.shape == (g, m) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+@pytest.mark.parametrize("mu_tiles,n_tiles,mb", [(2, 3, 16), (3, 2, 8)])
+def test_lrgemm_plain_with_plan_indices_matches_pallas(rng, mu_tiles, n_tiles, mb):
+    """The flat K_un grid read through ``lowrank_plan``'s index vectors,
+    against the Pallas kernel on the gathered stacks (1e-5)."""
+    m = 16
+    kflat = rng.standard_normal((mu_tiles * n_tiles, m, mb)).astype(np.float32)
+    v = rng.standard_normal((n_tiles, mb)).astype(np.float32)
+    (bt,), = tex.lowrank_plan(mu_tiles, n_tiles).levels
+    want = np.asarray(
+        jlrg.lrgemm_tiles(jnp.asarray(kflat[bt.a]), jnp.asarray(v[bt.b]), interpret=True)
+    )
+    got = lrgemm_tile.lrgemm_plain(T(kflat), T(v), T(bt.a), T(bt.b))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+def test_lrgemm_plain_float64_matches_numpy(rng):
+    """float64 stays float64 (the Pallas body would drop to float32): 1e-12."""
+    kflat = rng.standard_normal((6, 16, 12))
+    v = rng.standard_normal((3, 12))
+    a, b = np.array([5, 0, 2, 2]), np.array([1, 2, 0, 1])
+    got = lrgemm_tile.lrgemm_plain(T(kflat), T(v), T(a), T(b))
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), np.einsum("gab,gb->ga", kflat[a], v[b]), atol=1e-12)
+
+
+def test_lrgemm_cuda_refuses_what_it_does_not_take(rng):
+    k = T(rng.standard_normal((2, 8, 8)).astype(np.float32))
+    v = T(rng.standard_normal((2, 8)).astype(np.float32))
+    idx = torch.arange(2)
+    with pytest.raises(ValueError):  # CPU tensors
+        lrgemm_tile.lrgemm_cuda(k, v, idx, idx)
+    with pytest.raises(TypeError):
+        lrgemm_tile.lrgemm_cuda(k, v.double(), idx, idx)
+    with pytest.raises(TypeError):
+        lrgemm_tile.lrgemm_cuda(k, v, idx.int(), idx)
 
 
 # ---------------------------------------------------------------------------
@@ -177,7 +233,10 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing(rng):
     x = T(rng.standard_normal((1, 8, 2)).astype(np.float32))
     ops.cov_tiles(x, x, 0, 0, 8, 8, tkm.SEKernelParams(), symmetric=True)
     ops.carry_update(k, k, k, k)
-    assert ops.launch_counts() == {"cov_tiles": 0, "potrf": 0, "trsm": 0, "trail": 0, "carry_update": 0}
+    ops.lrgemm(k, k[0], torch.zeros(3, dtype=torch.int64), torch.arange(3))
+    assert ops.launch_counts() == {
+        "cov_tiles": 0, "potrf": 0, "trsm": 0, "trail": 0, "carry_update": 0, "lrgemm": 0,
+    }
 
 
 def test_cuda_launchers_refuse_cpu_tensors(rng):

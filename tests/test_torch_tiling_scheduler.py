@@ -2,11 +2,13 @@
 
 The port keeps its own copies of ``repro.core.tiling`` and
 ``repro.core.scheduler``; these tests hold them, and the executor's plans,
-to the JAX package's on the same inputs.  The last test checks that the
+to the JAX package's on the same inputs.  The last tests check that the
 port and its smoke script import neither JAX nor the ``repro`` package.
 """
 
 import re
+import subprocess
+import sys
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -199,3 +201,29 @@ def test_port_imports_neither_jax_nor_repro():
         if _IMPORT.search(f.read_text())
     }
     assert offenders == {}
+
+
+_BLOCKED_IMPORT = """
+import importlib, pkgutil, runpy, sys
+sys.modules["jax"] = None      # any import of jax or repro now raises ImportError
+sys.modules["repro"] = None
+sys.path.insert(0, sys.argv[1] + "/src")
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+runpy.run_path(sys.argv[1] + "/chip_smoke.py", run_name="chip_smoke")
+print(len(names))
+"""
+
+
+def test_port_imports_with_jax_and_repro_blocked():
+    """Every module of the port, and chip_smoke.py, imports in a fresh
+    interpreter in which ``jax`` and ``repro`` cannot be imported."""
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT, str(root)],
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20  # core/ and kernels/ modules, all walked

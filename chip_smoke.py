@@ -4,7 +4,7 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 1. env      the card's name and power limit, torch, CUDA and nvcc versions;
-2. build    compiles the six kernels from src/repro_torch/kernels/csrc/ with
+2. build    compiles the seven kernels from src/repro_torch/kernels/csrc/ with
             nvcc for sm_90a, in parallel (into build/repro_torch/, git-ignored);
 3. kernel   one phase per kernel: its wrapper against its plain PyTorch
             version on its path's own tiles (gp_16k, m = 512, D = 16,
@@ -41,7 +41,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
             warm calls, a step against a cold rebuild of the window, and the
             low-rank tier against the exact tier at gp_16k;
 11. profile.lowrank  device time by kernel and idle share of a cold build
-            and of one step.
+            and of one step;
+12. kernel.flash  the flash-attention kernel at gemma2-2b's prefill shape
+            (B = 4, S = T = 2048, 8 query heads on 4 KV heads, hd = 256,
+            softcap 50, bf16) against its plain version, plus the local
+            window at S = 8192, a ragged S and float32; times it beside
+            ``scaled_dot_product_attention``;
+13. lm      gemma2-2b at full width (26 layers, d_model 2304, bf16, random
+            weights from the seed) serves two batches, 4 prompts of 2048
+            tokens and 1 of 8192, each a prefill (``cache_len`` = S + 16)
+            and 16 greedy decode steps, with the flash launches counted (26
+            per prefill, none per step); decoded logits are held against a
+            full forward over the same tokens, in bf16 and with the weights
+            cast to float32;
+14. timing.lm, profile.lm  prefill seconds and tokens/s, decode ms per
+            step, peak memory; one prefill and one decode step under
+            ``torch.profiler`` (flash and matmul shares, idle share).
 
 Every phase prints one JSON line.  The kernels' summary, the nvidia-smi line
 and, last, ``{"ok": true, "device": {...}}`` follow.  Any failed check exits
@@ -51,6 +66,8 @@ that holds this script without the package.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -73,7 +90,7 @@ SEED = 0
 MAIN_KERNELS = ("cov_tiles", "potrf", "trsm", "trail")
 UPDATE_KERNELS = MAIN_KERNELS + ("carry_update",)
 LOWRANK_KERNELS = MAIN_KERNELS + ("lrgemm",)
-NO_LAUNCHES = {k: 0 for k in UPDATE_KERNELS + ("lrgemm",)}
+NO_LAUNCHES = {k: 0 for k in UPDATE_KERNELS + ("lrgemm", "flash_attention")}
 # the sliding-window path: a window of N_TRAIN rows, UPDATE_STEPS steps of one tile
 UPDATE_STEPS = 2
 # gp_256k_lowrank: gp_256k's sizes (src/repro/configs/gp_msd.py:19) on the
@@ -83,9 +100,27 @@ LR_N_TEST = 16384
 LR_M_INDUCING = 2048
 LR_STEPS = 2
 
+# gemma2-2b (src/repro/configs/gemma2_2b.py) at full width, bf16, random
+# weights from SEED: the served batches are (requests, prompt tokens), one
+# below the local window of 4096 and one above it; each prompt is followed
+# by LM_STEPS greedy decode steps
+LM_ARCH = "gemma2-2b"
+LM_BATCHES = ((4, 2048), (1, 8192))
+LM_STEPS = 16
+# phase kernel.flash, at gemma2-2b's heads (8 on 4 KV heads, hd 256, softcap
+# 50): name -> (B, S = T, type, local window?, q scale, tolerance); the first
+# is the served prefill's attention, the one the kernels line reports
+FLASH_CASES = {
+    "served_b4_s2048": (4, 2048, torch.bfloat16, False, 1.0, 2e-2),
+    "local_b1_s8192_w4096": (1, 8192, torch.bfloat16, True, 1.0, 2e-2),
+    "ragged_b2_s1000": (2, 1000, torch.bfloat16, False, 1.0, 2e-2),
+    "float32_b1_s1024_qx20": (1, 1024, torch.float32, False, 20.0, 5e-5),
+}
+
 # Published peaks of one H100 SXM (dense, at the 700 W limit): FP32 on the
-# CUDA cores and HBM3 bandwidth.
+# CUDA cores, bf16 on the tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -127,10 +162,10 @@ def wall_s(fn):
     return out, time.perf_counter() - t0
 
 
-def bound_ms(n_bytes: float, n_ops: float):
-    """(least time in ms, what bounds it) at the card's published peaks."""
+def bound_ms(n_bytes: float, n_ops: float, peak_flops: float = PEAK_FP32_FLOPS):
+    """(least time in ms, what bounds it) at the card's published peaks (FP32 unless given)."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_FP32_FLOPS * 1e3
+    t_ops = n_ops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -424,12 +459,11 @@ def phase_main(x_train, y_train, x_test, y_test, dev):
     def expected(uncertainty):
         by_op = executor.program_plan(m_tiles, q_tiles, uncertainty, None).launches_by_op()
         return {
+            **NO_LAUNCHES,
             "cov_tiles": sum(by_op.get(o, 0) for o in ("assemble", "cross", "prior")),
             "potrf": by_op.get("potrf", 0),
             "trsm": by_op.get("trsm", 0),
             "trail": by_op.get(executor.TRAIL, 0),
-            "carry_update": 0,
-            "lrgemm": 0,
         }
 
     def delta(before, after):
@@ -576,12 +610,12 @@ def update_launches_per_step():
     ap = executor.update_append_plan(m_tiles, m_tiles).launches_by_op()
     rp = executor.update_rank_plan(m_tiles).launches_by_op()
     return {
+        **NO_LAUNCHES,
         "cov_tiles": ap["uasm"] + ap["uasmd"],
         "potrf": ap["upotrf"] + 2 * rp["uprep"],  # UPREP factors two tiles
         "trsm": ap["utrsm"],
         "trail": ap["ugemm"] + ap["usyrk"],
         "carry_update": rp["ucarry"],
-        "lrgemm": 0,
     }
 
 
@@ -701,12 +735,13 @@ def phase_update_timing(x_win, y_win, x_test, dev):
          "a step is append (extend) + evict (shrink) of the cached window state")
 
 
-def profile_call(phase: str, call: str, fn) -> None:
+def profile_call(phase: str, call: str, fn):
     """Device time by kernel, and the device's idle share, over one call of ``fn``.
 
     ``torch.profiler`` traces the card through CUPTI; the run is one stream,
     so the sum of device times is the busy time.  Profiling slows the host,
     so ``wall_ms`` here is above the unprofiled times of phase ``timing``.
+    Returns the rows (name, count, device ms), the busy ms and the wall ms.
     """
     from torch.profiler import ProfilerActivity, profile
 
@@ -724,6 +759,7 @@ def profile_call(phase: str, call: str, fn) -> None:
          device_busy_ms=busy_ms if rows else "not measured",
          device_idle_share=1.0 - busy_ms / (wall * 1e3) if rows else "not measured",
          top=[{"name": k[:100], "count": c, "device_ms": ms} for k, c, ms in rows[:14]])
+    return rows, busy_ms, wall * 1e3
 
 
 def phase_profile(x_train, y_train, x_test, x_win, y_win, dev):
@@ -1090,6 +1126,255 @@ def phase_lowrank_profile(x_lr, y_lr, x_lt, x_lw, y_lw, dev):
     torch.cuda.empty_cache()
 
 
+def attention_pairs(s: int, t: int, window) -> int:
+    """Unmasked (query, key) pairs of the causal mask (top-left aligned), within ``window`` if given."""
+    rows = np.arange(s, dtype=np.int64)
+    lo = np.zeros_like(rows) if window is None else np.maximum(rows - window + 1, 0)
+    return int(np.maximum(np.minimum(rows + 1, t) - lo, 0).sum())
+
+
+def flash_phase(dev):
+    """The flash kernel against its plain version at gemma2-2b's shapes; timed beside SDPA.
+
+    The served prefill's attention (B = 4, S = T = 2048, 8 query heads on 4
+    KV heads, hd = 256, softcap 50, bf16); the window of the local layers
+    at S = 8192; a ragged S; and float32 with scores large enough for the
+    softcap to bite.
+    """
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa, ops
+
+    cfg = configs.get_config(LM_ARCH)
+    h, kv, hd, cap = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, cfg.attn_softcap
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bf = torch.bfloat16
+
+    def inputs(b, s, dtype, q_scale):
+        q = torch.randn(b, s, h, hd, generator=gen, device=dev) * q_scale
+        k, v = (torch.randn(b, s, kv, hd, generator=gen, device=dev) for _ in range(2))
+        return q.to(dtype), k.to(dtype), v.to(dtype)
+
+    def cost(b, s, window, dtype):
+        """(bytes, operations) the call needs: q, k, v read and o written once; 4 hd FLOP per unmasked pair."""
+        size = 2 if dtype == bf else 4
+        nbytes = (2 * b * s * h * hd + 2 * b * s * kv * hd) * size
+        return nbytes, 4 * hd * attention_pairs(s, s, window) * b * h
+
+    errs, scaled, extra = {}, {}, {}
+    for name, (b, s, dt, local, qs, tol) in FLASH_CASES.items():
+        win = cfg.window if local else None
+        q, k, v = inputs(b, s, dt, qs)
+        out = ops.flash_attention(q, k, v, softcap=cap, window=win)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_plain(q, k, v, softcap=cap, window=win).float()
+        errs[name] = max_err(out, ref)
+        # |out - ref| / max(1, |ref|): a bf16 ulp grows with |ref|
+        scaled[name] = float(((out.float() - ref).abs() / ref.abs().clamp_min(1.0)).max())
+        check(scaled[name] <= tol, f"flash_attention {name}: kernel disagrees with its plain version: "
+              f"{scaled[name]} > {tol} (scaled), {errs[name]} (absolute)")
+        del ref
+        if name == next(iter(FLASH_CASES)):
+            served = (q, k, v)
+        else:
+            nb, no = cost(b, s, win, dt)
+            bnd = bound_ms(nb, no, PEAK_BF16_FLOPS if dt == bf else PEAK_FP32_FLOPS)
+            extra[name] = {"ms": cuda_ms(lambda: ops.flash_attention(q, k, v, softcap=cap, window=win), 3),
+                           "bound_ms": bnd[0], "bound_by": bnd[1]}
+        del q, k, v, out
+    q, k, v = served
+    b, s = q.shape[:2]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in served)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    err_sdpa = max_err(sdpa().transpose(1, 2), ops.flash_attention(q, k, v))
+    nb, no = cost(b, s, None, bf)
+    bnd = bound_ms(nb, no, PEAK_BF16_FLOPS)
+    row = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:33", max_abs_err=max(errs.values()),
+        ms=cuda_ms(lambda: ops.flash_attention(q, k, v, softcap=cap), 10),
+        plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, softcap=cap), 3),
+        bound_ms=bnd[0], bound_by=bnd[1], library_ms=cuda_ms(sdpa, 10),
+    )
+    ms_no_cap = cuda_ms(lambda: ops.flash_attention(q, k, v), 10)
+    emit("kernel.flash", shape={"B": b, "S": s, "T": s, "H": h, "KV": kv, "hd": hd, "softcap": cap,
+                                "dtype": "bfloat16"},
+         max_abs_err=errs, max_scaled_err=scaled, tol={"bfloat16": 2e-2, "float32": 5e-5},
+         tol_rule="max |kernel - plain| / max(1, |plain|) <= tol",
+         tol_reason="both sides compute float32 scores and softmax; bf16: the kernel rounds P to bf16 for "
+         "the tensor cores (2^-9 of each weight) and both round the output to bf16 (one ulp is up to "
+         "2^-7 |o|): the reference's bf16 tolerance, 2e-2, per unit of max(1, |o|); float32: sums of "
+         "exp-weighted terms in another order, the reference's 5e-5",
+         ms_no_softcap=ms_no_cap, sdpa_vs_kernel_no_softcap_max_abs_err=err_sdpa,
+         achieved_tflops=no / row["ms"] / 1e9, other_shapes=extra,
+         library_call="torch.nn.functional.scaled_dot_product_attention(is_causal=True, enable_gqa=True) "
+         "on (B, H, S, hd) copies, no softcap: compare it with ms_no_softcap",
+         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    del served, q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
+
+
+def serve(prefill, decode, model, prompts, steps, feed=None):
+    """One batch of requests through the serving path: prefill, then ``steps`` decode steps.
+
+    Greedy (each step feeds the argmax of the last logits), or fed the
+    tokens ``feed`` (B, steps).  The launch counts are set to 0 before the
+    prefill and before each step and read after it.
+    """
+    from repro_torch.kernels import ops
+
+    b, s = prompts.shape
+    ops.reset_launch_counts()
+    (logits, caches), t_prefill = wall_s(lambda: prefill(model, prompts, cache_len=s + steps))
+    counts = [ops.launch_counts()]
+    tok = logits.argmax(-1) if feed is None else feed[:, 0]
+    fed, step_logits, t_steps = [], [], []
+    for i in range(steps):
+        fed.append(tok)
+        ops.reset_launch_counts()
+        (lg, caches), t = wall_s(lambda: decode(model, tok[:, None], s + i, caches))
+        counts.append(ops.launch_counts())
+        step_logits.append(lg)
+        t_steps.append(t)
+        if i + 1 < steps:
+            tok = lg.argmax(-1) if feed is None else feed[:, i + 1]
+    return dict(logits=logits, step_logits=step_logits, fed=torch.stack(fed, 1), counts=counts,
+                prefill_s=t_prefill, step_s=t_steps)
+
+
+# decode against the full forward: float32 bound, and the bf16 rule
+LM_TOL32 = 1e-3
+LM_RULE = ("float32: |decode - full forward| <= 1e-3 (float32 sums in another order: prefill and decode "
+           "run other GEMM shapes); bf16: |decode_bf16 - full_f32| <= 2 |full_bf16 - full_f32| + 1e-3, "
+           "the bf16 decode no worse than twice the bf16 full forward's own rounding")
+
+
+def phase_lm(dev):
+    """gemma2-2b at full width serves two batches; launches, finiteness and decode against the full forward."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import serve_step
+
+    cfg = configs.get_config(LM_ARCH)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    model, t_init = wall_s(lambda: tf.init_model(cfg, torch.Generator(device=dev).manual_seed(SEED), dev))
+    n_params = sum(p.numel() for p in model.parameters())
+    emit("lm.model", arch=LM_ARCH, config="src/repro/configs/gemma2_2b.py (full width, not cut)",
+         n_layers=cfg.n_layers, d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_],
+         d_ff=cfg.d_ff, vocab=cfg.vocab_size, window=cfg.window, params=n_params,
+         param_count_config=cfg.param_count(), dtype=cfg.param_dtype, seed=SEED, init_seconds=t_init,
+         weights_gib=(torch.cuda.memory_allocated() - base) / 2**30)
+    prefill, decode = serve_step.make_prefill_step(cfg), serve_step.make_decode_step(cfg)
+    rng = np.random.default_rng(SEED)
+    prompts = {bs: torch.from_numpy(rng.integers(0, cfg.vocab_size, bs)).to(dev) for bs in LM_BATCHES}
+
+    # the path: each batch served, every launch counted
+    total = dict(NO_LAUNCHES)
+    runs = {}
+    for bs in LM_BATCHES:
+        torch.cuda.reset_peak_memory_stats()
+        r = serve(prefill, decode, model, prompts[bs], LM_STEPS)
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        for c in r["counts"]:
+            total = {k: total[k] + c[k] for k in total}
+        runs[bs] = r
+        outs = [r["logits"], *r["step_logits"]]
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in outs)
+        shapes = {tuple(t.shape) for t in outs}
+        flash = [c["flash_attention"] for c in r["counts"]]
+        emit("lm.serve", batch=list(bs), steps=LM_STEPS, flash_launches_prefill=flash[0],
+             flash_launches_per_step=flash[1:], launches_prefill=r["counts"][0], finite=finite,
+             shapes=sorted(shapes), tokens_first_request=r["fed"][0].tolist(), prefill_seconds=r["prefill_s"],
+             step_seconds=r["step_s"], peak_memory_gib=r["peak_gib"])
+        check(flash[0] == cfg.n_layers, f"prefill {bs}: {flash[0]} flash launches, not {cfg.n_layers}")
+        check(not any(flash[1:]), f"decode {bs}: flash launched in a decode step: {flash[1:]}")
+        check(r["counts"][0] == {**NO_LAUNCHES, "flash_attention": cfg.n_layers},
+              f"prefill {bs}: unexpected launches {r['counts'][0]}")
+        check(finite and shapes == {(bs[0], cfg.vocab_size)}, f"serve {bs}: non-finite or misshapen logits {shapes}")
+    check(total["flash_attention"] > 0, f"the flash kernel never launched on the serving path: {total}")
+
+    # decode against the full forward over the same tokens: bf16, then the weights cast to float32
+    checked = (0, LM_STEPS - 1)
+    full16 = {}
+    for bs, r in runs.items():
+        seq = torch.cat([prompts[bs], r["fed"]], 1)
+        full16[bs] = {i: prefill(model, seq[:, :bs[1] + i + 1])[0] for i in checked}
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", activation_dtype="float32")
+    model32 = copy.deepcopy(model).float()
+    model32.cfg = cfg32
+    prefill32, decode32 = serve_step.make_prefill_step(cfg32), serve_step.make_decode_step(cfg32)
+    for bs, r in runs.items():
+        seq = torch.cat([prompts[bs], r["fed"]], 1)
+        r32 = serve(prefill32, decode32, model32, prompts[bs], LM_STEPS, feed=r["fed"])
+        check(r32["counts"][0]["flash_attention"] == cfg.n_layers, f"float32 prefill {bs}: {r32['counts'][0]}")
+        res = {}
+        for i in checked:
+            full32 = prefill32(model32, seq[:, :bs[1] + i + 1])[0]
+            res[f"token_{bs[1] + i}"] = {
+                "gap_f32": max_err(r32["step_logits"][i], full32),
+                "gap_bf16": max_err(r["step_logits"][i], full16[bs][i]),
+                "decode_bf16_vs_full_f32": max_err(r["step_logits"][i], full32),
+                "full_bf16_vs_full_f32": max_err(full16[bs][i], full32),
+                "max_abs_logit_f32": float(full32.abs().max()),
+            }
+        emit("lm.decode_vs_full_forward", batch=list(bs), positions=[bs[1] + i for i in checked], errors=res,
+             tol_f32=LM_TOL32, rule=LM_RULE)
+        for pos, e in res.items():
+            check(e["gap_f32"] <= LM_TOL32, f"{bs} {pos}: float32 decode off the full forward by {e['gap_f32']}")
+            bound16 = 2 * e["full_bf16_vs_full_f32"] + LM_TOL32
+            check(e["decode_bf16_vs_full_f32"] <= bound16,
+                  f"{bs} {pos}: bf16 decode off the float32 full forward by {e['decode_bf16_vs_full_f32']} > {bound16}")
+    del model32, full16
+    torch.cuda.empty_cache()
+    return model, cfg, prompts, total
+
+
+def phase_lm_timing(model, cfg, prompts, dev):
+    """Prefill wall time and tokens/s, decode ms per step, peak memory; a second serve of each batch."""
+    from repro_torch.train import serve_step
+
+    prefill, decode = serve_step.make_prefill_step(cfg), serve_step.make_decode_step(cfg)
+    res = {}
+    for bs in LM_BATCHES:
+        torch.cuda.reset_peak_memory_stats()
+        r = serve(prefill, decode, model, prompts[bs], LM_STEPS)
+        steps = sorted(r["step_s"])
+        res[f"b{bs[0]}_s{bs[1]}"] = {
+            "prefill_seconds": r["prefill_s"], "prefill_tokens_per_s": bs[0] * bs[1] / r["prefill_s"],
+            "decode_ms_per_step_median": 1e3 * steps[len(steps) // 2],
+            "decode_ms_per_step_mean": 1e3 * sum(steps) / len(steps),
+            "decode_tokens_per_s": bs[0] * len(steps) / sum(steps),
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        }
+    emit("timing.lm", runs=res, steps=LM_STEPS,
+         note="host clock around calls ending in torch.cuda.synchronize(); the second serve of each batch "
+         "(the first, in phase lm.serve, warmed cuBLAS); peak memory includes the bf16 weights")
+
+
+def phase_lm_profile(model, cfg, prompts):
+    """One prefill and one decode step of the first batch under torch.profiler: flash and matmul shares."""
+    from repro_torch.train import serve_step
+
+    prefill, decode = serve_step.make_prefill_step(cfg), serve_step.make_decode_step(cfg)
+    b, s = LM_BATCHES[0]
+    prompt = prompts[(b, s)]
+    logits, caches = prefill(model, prompt, cache_len=s + 1)
+    tok = logits.argmax(-1)[:, None]
+    for call, fn in ((f"prefill {b} x {s}", lambda: prefill(model, prompt, cache_len=s + 1)),
+                     (f"decode step at position {s}, batch {b}", lambda: decode(model, tok, s, caches))):
+        rows, busy, wall = profile_call("profile.lm", f"{call}, gemma2-2b bf16", fn)
+        flash = sum(ms for name, _, ms in rows if "flash_mma_kernel" in name or "flash_f32_kernel" in name)
+        mm = sum(ms for name, _, ms in rows if any(w in name.lower() for w in ("gemm", "nvjet", "xmma", "cutlass")))
+        if rows:
+            emit("profile.lm.shares", call=call, flash_ms=flash, flash_share_of_busy=flash / busy,
+                 matmul_ms=mm, matmul_share_of_busy=mm / busy, other_ms=busy - flash - mm,
+                 matmul_names="kernel names holding gemm, nvjet, xmma or cutlass")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA card")
@@ -1137,12 +1422,21 @@ def main() -> None:
     launches_lowrank = phase_lowrank(x_lr, y_lr, x_lt, x_lw, y_lw, dev)
     phase_lowrank_timing(x_lr, y_lr, x_lt, y_lt, x_lw, y_lw, (x_train, y_train, x_test, y_test), dev)
     phase_lowrank_profile(x_lr, y_lr, x_lt, x_lw, y_lw, dev)
+    del x_lr, y_lr, x_lt, y_lt, x_lw, y_lw
 
-    # launches: each kernel's count on the path it came with (main, update, lowrank)
+    # gemma2-2b served at full width: the flash kernel, then the serving path
+    rows["flash_attention"] = flash_phase(dev)
+    model, cfg, prompts, launches_lm = phase_lm(dev)
+    phase_lm_timing(model, cfg, prompts, dev)
+    phase_lm_profile(model, cfg, prompts)
+    del model
+
+    # launches: each kernel's count on the path it came with (main, update, lowrank, lm)
     path_of = {name: "main" for name in MAIN_KERNELS}
     path_of["carry_update"] = "update"
     path_of["lrgemm"] = "lowrank"
-    by_path = {"main": launches, "update": launches_update, "lowrank": launches_lowrank}
+    path_of["flash_attention"] = "lm"
+    by_path = {"main": launches, "update": launches_update, "lowrank": launches_lowrank, "lm": launches_lm}
     kernels = [
         {"name": name, "launches": by_path[path_of[name]][name], **row,
          "launches_by_path": {path: counts[name] for path, counts in by_path.items()}}

@@ -1,8 +1,8 @@
 """Carry hyperparameters and cached states across from the JAX package.
 
 The JAX package's ``SEKernelParams``, ``PosteriorState`` and
-``LowRankState`` hold JAX arrays;
-the caller hands their leaves over as numpy arrays (``np.asarray(leaf)``),
+``LowRankState``, and its language models' parameter trees, hold JAX
+arrays; the caller hands their leaves over as numpy arrays (``np.asarray(leaf)``),
 so this module needs neither JAX nor the ``repro`` package.  The tensors it
 builds keep the numpy dtypes and go to ``device``.
 """
@@ -17,6 +17,7 @@ from repro_torch.core import kernels_math as km
 from repro_torch.core.lowrank import LowRankState
 from repro_torch.core.predict import PosteriorState
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import Transformer
 
 
 def params_from_numpy(lengthscale, vertical, noise) -> km.SEKernelParams:
@@ -116,3 +117,56 @@ def lowrank_state_from_numpy(
         mu_valid=None if mu_valid is None else int(np.asarray(mu_valid)),
         kernel=km.resolve_kernel(kernel),
     )
+
+
+def _tensor_from_numpy(a) -> torch.Tensor:
+    """A tensor copy of a numpy array; bfloat16 arrays (ml_dtypes) keep their bits."""
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def lm_params_from_numpy(tree, cfg, device="cuda"):
+    """The port's :class:`~repro_torch.models.transformer.Transformer` from the JAX parameter tree.
+
+    ``tree`` is the reference's ``init_model`` pytree with numpy leaves
+    (``jax.tree.map(np.asarray, params)``): ``embed``, ``final_norm``,
+    ``lm_head`` when untied, ``groups`` (one dict per pattern position,
+    each leaf stacked over cycles) and ``tail``.  Layer ``l`` takes
+    ``groups[l % len(pattern)]`` at cycle ``l // len(pattern)``, the tail
+    after.  Every parameter of the module must be given, in its shape.
+    """
+    dev = resolve_device(device)
+    model = Transformer(cfg, device=dev)
+    plen = len(cfg.pattern)
+    n_cycled = cfg.n_layers // plen * plen
+    loaded = {}
+
+    def walk(prefix, sub, index):
+        for key, val in sub.items():
+            name = f"{prefix}{key}"
+            if isinstance(val, dict):
+                walk(f"{name}.", val, index)
+            else:
+                loaded[name] = _tensor_from_numpy(val if index is None else np.asarray(val)[index])
+
+    walk("", {k: v for k, v in tree.items() if k not in ("groups", "tail")}, None)
+    for l in range(cfg.n_layers):
+        if l < n_cycled:
+            walk(f"layers.{l}.", tree["groups"][l % plen], l // plen)
+        else:
+            walk(f"layers.{l}.", tree["tail"][l - n_cycled], None)
+    state = model.state_dict()
+    if set(loaded) != set(state):
+        raise ValueError(
+            f"parameter trees differ: missing {sorted(set(state) - set(loaded))}, "
+            f"unexpected {sorted(set(loaded) - set(state))}"
+        )
+    for name, t in loaded.items():
+        if tuple(t.shape) != tuple(state[name].shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, the port's is {tuple(state[name].shape)}")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(loaded[name])
+    return model

@@ -25,6 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = (
     "cov_assembly", "potrf_tile", "trsm_tile", "trailing_update", "carry_update", "lrgemm_tile",
+    "flash_attention",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -124,6 +125,7 @@ _SIGNATURES = {
     "trail": [_P, _P, _P, _P, _I, _I, _I, _P],
     "carry_update": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "lrgemm": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _P],
+    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _D, _I, _I, _I, _P],
 }
 
 

@@ -11,7 +11,9 @@ executor vmaps a per-tile op; here the batch axis is written out):
 * ``carry_update(w, l, y, c)`` — (W - L Y) C^{-T}, the UCARRY step of the
   rank update;
 * ``lrgemm(kflat, v, a, b)`` — the tile matvecs ``kflat[a[g]] @ v[b[g]]``
-  of the low-rank tier's LRGEMM family, read where the tiles lie.
+  of the low-rank tier's LRGEMM family, read where the tiles lie;
+* ``flash_attention(q, k, v, ...)`` — causal GQA attention with softcap and
+  sliding window, the language model's prefill attention (not a tile op).
 
 On a CUDA tensor an op launches its hand-written kernel or raises; on a CPU
 tensor it runs the kernel's plain version.  No ``try`` falls back from one
@@ -28,6 +30,7 @@ import torch
 
 from repro_torch.kernels import carry_update as _carry
 from repro_torch.kernels import cov_assembly as _cov
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import lrgemm_tile as _lrgemm
 from repro_torch.kernels import potrf_tile as _potrf
 from repro_torch.kernels import trailing_update as _trail
@@ -113,9 +116,20 @@ def lrgemm(kflat: torch.Tensor, v: torch.Tensor, a_idx: torch.Tensor, b_idx: tor
     return out
 
 
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, softcap=None, window=None
+) -> torch.Tensor:
+    """(B, S, H, hd) attention of q over (B, T, KV, hd) keys and values, in q's type."""
+    if not _on_cuda(q, "flash_attention"):
+        return _flash.flash_attention_plain(q, k, v, causal=causal, softcap=softcap, window=window)
+    out = _flash.flash_attention_cuda(q, k, v, causal=causal, softcap=softcap, window=window)
+    flash_attention.launches += 1
+    return out
+
+
 KERNEL_OPS = {
     "cov_tiles": cov_tiles, "potrf": potrf, "trsm": trsm, "trail": trail,
-    "carry_update": carry_update, "lrgemm": lrgemm,
+    "carry_update": carry_update, "lrgemm": lrgemm, "flash_attention": flash_attention,
 }
 for _op in KERNEL_OPS.values():
     _op.launches = 0

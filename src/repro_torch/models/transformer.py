@@ -1,0 +1,265 @@
+"""Decoder backbone of the dense attention family: prefill and decode.
+
+The counterpart of ``repro/models/transformer.py`` for serving.  A model is
+the config's ``pattern`` of block kinds cycled over ``n_layers``; the port
+runs the "global" and "local" attention kinds and stacks them in a
+:class:`Transformer` module, one :class:`Block` per layer, walked by a
+Python loop.  Layer ``l`` holds what the reference keeps at
+``groups[l % len(pattern)][l // len(pattern)]`` (its stacked cycles), and
+the remainder (``tail``) comes after (``convert.lm_params_from_numpy``).
+
+Two entry modes, as the reference's:
+
+  * prefill: the full sequence, last-position logits and the decode caches;
+    every attention layer runs the flash kernel;
+  * step: one token against the caches, updated in place.
+
+The decode caches follow ``attention.cache_shape``: ``min(window,
+cache_len)`` slots on a local layer, ``cache_len`` on a global one, with
+``cache_len`` = S + 1 by default.  (The reference's prefill sizes a local
+ring ``min(window, S)`` and a global one S + 1 whatever the caller needs,
+so its first decoded token overwrites position 0 when S < window, and its
+second one on a global layer; ROADMAP.md §3.)
+
+The rglru and mamba2 kinds, the MoE feed-forward and the embeddings input
+raise ``NotImplementedError`` naming their ROADMAP.md step.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Union
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    MLP,
+    Norm,
+    _param,
+    apply_mlp,
+    apply_norm,
+    as_generator,
+    init_mlp_,
+    init_param_,
+    rounded,
+    sinusoidal_pos_emb,
+    softcap,
+)
+
+_NOT_PORTED = {
+    "rglru": "ROADMAP.md queue 1, step 11c",
+    "mamba2": "ROADMAP.md queue 1, step 11d",
+}
+
+
+def _dtype(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}[name]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port cannot run yet."""
+    for kind in set(cfg.layer_kinds()):
+        if kind in _NOT_PORTED:
+            raise NotImplementedError(f"{cfg.name}: the {kind} layer kind is not ported ({_NOT_PORTED[kind]})")
+        if kind not in ("global", "local"):
+            raise ValueError(kind)
+    if cfg.n_experts:
+        raise NotImplementedError(f"{cfg.name}: the MoE feed-forward is not ported (ROADMAP.md queue 1, step 11e)")
+    if cfg.input_mode != "tokens":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.input_mode} input is not ported (ROADMAP.md queue 1, step 11f)"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Modules.
+# ---------------------------------------------------------------------------
+
+
+class Block(nn.Module):
+    """norm1 -> attention -> (post_norm1) -> residual; norm2 -> MLP -> (post_norm2) -> residual."""
+
+    def __init__(self, kind: str, cfg: ModelConfig, dtype=torch.float32, device=None):
+        super().__init__()
+        self.kind = kind
+        d = cfg.d_model
+        self.norm1 = Norm(cfg.norm, d, dtype, device)
+        self.attn = attn.Attention(cfg, dtype, device)
+        if cfg.d_ff > 0:
+            self.norm2 = Norm(cfg.norm, d, dtype, device)
+            self.mlp = MLP(cfg.mlp, d, cfg.d_ff, dtype, device)
+        if cfg.post_norm:
+            self.post_norm1 = Norm(cfg.norm, d, dtype, device)
+            if cfg.d_ff > 0:
+                self.post_norm2 = Norm(cfg.norm, d, dtype, device)
+
+
+class Transformer(nn.Module):
+    """``embed`` (V, d), ``final_norm``, ``lm_head`` (d, V) when untied, and one Block per layer.
+
+    Parameters are allocated in ``cfg.param_dtype`` and left unset; they are
+    drawn by :func:`init_model` or copied by ``convert.lm_params_from_numpy``.
+    """
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        check_supported(cfg)
+        dtype = _dtype(cfg.param_dtype)
+        self.cfg = cfg
+        self.embed = _param((cfg.vocab_size, cfg.d_model), dtype, device)
+        self.final_norm = Norm(cfg.norm, cfg.d_model, dtype, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = _param((cfg.d_model, cfg.vocab_size), dtype, device)
+        self.layers = nn.ModuleList(Block(kind, cfg, dtype, device) for kind in cfg.layer_kinds())
+
+
+def _init_block_(blk: Block, generator: torch.Generator) -> Block:
+    attn.init_attention_(blk.attn, generator)
+    if hasattr(blk, "mlp"):
+        init_mlp_(blk.mlp, generator)
+    return blk
+
+
+def init_model(cfg: ModelConfig, generator: Union[torch.Generator, int] = 0, device="cuda") -> Transformer:
+    """Random weights at the reference's scales (truncated normals), in ``cfg.param_dtype``.
+
+    ``generator`` is a ``torch.Generator`` (on ``device``: the weights are
+    drawn there) or an int seed.  Norm scales and biases start as the
+    reference's (zeros, or ones for a layernorm scale).
+    """
+    dev = resolve_device(device)
+    gen = as_generator(generator, dev)
+    model = Transformer(cfg, dev)
+    s = 1.0 / math.sqrt(cfg.d_model)
+    init_param_(model.embed, gen, s)
+    if not cfg.tie_embeddings:
+        init_param_(model.lm_head, gen, s)
+    for blk in model.layers:
+        _init_block_(blk, gen)
+    return model
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> List[dict]:
+    """Empty decode caches, one ``{"k", "v"}`` per layer, in the activation type."""
+    dev = resolve_device(device)
+    dtype = _dtype(cfg.activation_dtype)
+    return [attn.init_cache(cfg, batch, max_len, kind == "local", dtype, dev) for kind in cfg.layer_kinds()]
+
+
+# ---------------------------------------------------------------------------
+# Blocks and the backbone.
+# ---------------------------------------------------------------------------
+
+
+def _kv_to_ring(kv, cfg: ModelConfig, local: bool, cache_len: Optional[int] = None) -> dict:
+    """Prefill (k, v) of shape (B, S, KV, hd) -> decode cache sized by ``attention.cache_shape``.
+
+    ``cache_len`` is the longest sequence the cache must serve (default
+    S + 1: one decoded token); a local layer keeps ``min(window,
+    cache_len)`` slots, a global one ``cache_len``.  Position p sits in
+    slot p % slots.
+    """
+    k, v = kv
+    b, s = k.shape[:2]
+    cache_len = s + 1 if cache_len is None else cache_len
+    if cache_len <= s:
+        raise ValueError(f"cache_len {cache_len} must exceed the prompt length {s}")
+    w = attn.cache_shape(cfg, b, cache_len, local)[1]
+    keep = min(w, s)
+    idx = torch.arange(s - keep, s, device=k.device) % w
+    ck = torch.zeros((b, w) + tuple(k.shape[2:]), dtype=k.dtype, device=k.device)
+    cv = torch.zeros_like(ck)
+    ck.index_copy_(1, idx, k[:, s - keep:])
+    cv.index_copy_(1, idx, v[:, s - keep:])
+    return {"k": ck, "v": cv}
+
+
+def apply_block(
+    p: Block,
+    kind: str,
+    x: torch.Tensor,
+    positions,
+    cfg: ModelConfig,
+    *,
+    mode: str,
+    cache=None,
+    pos=None,
+    cache_len: Optional[int] = None,
+):
+    """Returns (x, cache): the prefill's new cache, or the step's cache updated in place."""
+    h = apply_norm(p.norm1, x, cfg.norm)
+    local = kind == "local"
+    if mode == "step":
+        h, new_cache = attn.attend_decode(p.attn, h, pos, cache, cfg, local=local)
+    elif mode == "prefill":
+        h, kv = attn.attend_full(p.attn, h, positions, cfg, local=local)
+        new_cache = _kv_to_ring(kv, cfg, local, cache_len)
+    else:
+        raise ValueError(f"mode {mode!r}: the port serves (prefill, step); training is not ported")
+    if cfg.post_norm:
+        h = apply_norm(p.post_norm1, h, cfg.norm)
+    x = x + h
+    if cfg.d_ff > 0:
+        h = apply_mlp(p.mlp, apply_norm(p.norm2, x, cfg.norm), cfg.mlp)
+        if cfg.post_norm:
+            h = apply_norm(p.post_norm2, h, cfg.norm)
+        x = x + h
+    return x, new_cache
+
+
+def _embed_in(params: Transformer, cfg: ModelConfig, inputs: torch.Tensor, positions):
+    dtype = _dtype(cfg.activation_dtype)
+    if inputs.is_floating_point():
+        raise NotImplementedError("the embeddings input is not ported (ROADMAP.md queue 1, step 11f)")
+    x = params.embed[inputs].to(dtype)
+    if cfg.embed_scale:
+        x = x * rounded(math.sqrt(cfg.d_model), dtype)
+    if cfg.pos_emb == "sinusoidal":
+        x = x + sinusoidal_pos_emb(positions, cfg.d_model).to(dtype)
+    return x
+
+
+def _backbone(params: Transformer, cfg: ModelConfig, x, positions, *, mode, caches=None, pos=None,
+              cache_len=None):
+    """The layers in order; prefill returns new caches, a step the given ones, updated in place."""
+    new_caches = []
+    for l, (kind, blk) in enumerate(zip(cfg.layer_kinds(), params.layers)):
+        x, c = apply_block(blk, kind, x, positions, cfg, mode=mode,
+                           cache=None if caches is None else caches[l], pos=pos, cache_len=cache_len)
+        new_caches.append(c)
+    return apply_norm(params.final_norm, x, cfg.norm), new_caches if caches is None else caches
+
+
+def _logits(params: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        logits = x @ params.embed.to(x.dtype).T
+    else:
+        logits = x @ params.lm_head.to(x.dtype)
+    return softcap(logits, cfg.final_softcap)
+
+
+def prefill_fn(params: Transformer, cfg: ModelConfig, inputs: torch.Tensor, cache_len: Optional[int] = None):
+    """Full-sequence forward: (last-position logits (B, V), decode caches).
+
+    ``inputs`` (B, S) token ids.  The caches serve positions up to
+    ``cache_len`` - 1 (default S, one decoded token).
+    """
+    b, s = inputs.shape[0], inputs.shape[1]
+    positions = torch.arange(s, device=inputs.device)[None, :].expand(b, s)
+    x = _embed_in(params, cfg, inputs, positions)
+    x, caches = _backbone(params, cfg, x, positions, mode="prefill", cache_len=cache_len)
+    return _logits(params, cfg, x[:, -1]), caches
+
+
+def decode_fn(params: Transformer, cfg: ModelConfig, token: torch.Tensor, pos, caches: List[dict]):
+    """One decode step: token (B, 1) ids at position ``pos``; the caches are updated in place."""
+    pos = int(pos)
+    b = token.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int64, device=token.device)
+    x = _embed_in(params, cfg, token, positions)
+    x, caches = _backbone(params, cfg, x, positions, mode="step", caches=caches, pos=pos)
+    return _logits(params, cfg, x[:, 0]), caches

@@ -7,14 +7,18 @@ that has only PyTorch and the CUDA toolkit:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
+
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch.core import GaussianProcess
 from repro_torch.core import kernels_math as km
 from repro_torch.kernels import (
-    carry_update, cov_assembly, lrgemm_tile, ops, potrf_tile, trailing_update, trsm_tile,
+    carry_update, cov_assembly, flash_attention, lrgemm_tile, ops, potrf_tile, trailing_update, trsm_tile,
 )
+from repro_torch.models import transformer as tf
 
 pytestmark = pytest.mark.gpu
 
@@ -47,6 +51,7 @@ def test_kernels_match_plain(cuda, dtype, m, tol):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {
         "cov_tiles": 2, "potrf": 1, "trsm": 1, "trail": 1, "carry_update": 0, "lrgemm": 0,
+        "flash_attention": 0,
     }
 
 
@@ -148,3 +153,49 @@ def test_gp_tiled_matches_monolithic_on_the_card(cuda):
     assert (var - ref_var).abs().max() <= 1e-3
     counts = ops.launch_counts()
     assert counts["potrf"] == 5 and counts["cov_tiles"] == 3
+
+
+@pytest.mark.parametrize(
+    "dtype,b,s,t,h,kv,hd,causal,softcap,window,tol",
+    [(torch.float32, 2, 100, 100, 4, 2, 16, True, 10.0, None, 5e-5),
+     (torch.float32, 1, 96, 192, 2, 1, 64, False, None, None, 5e-5),
+     (torch.float32, 1, 130, 130, 2, 2, 128, True, None, 37, 5e-5),
+     (torch.bfloat16, 2, 77, 77, 8, 4, 256, True, 50.0, None, 2e-2),
+     (torch.bfloat16, 1, 300, 300, 8, 4, 256, True, 50.0, 100, 2e-2),
+     (torch.bfloat16, 1, 64, 64, 4, 4, 32, True, None, 1, 2e-2)],
+)
+def test_flash_attention_matches_plain(cuda, dtype, b, s, t, h, kv, hd, causal, softcap, window, tol):
+    """Ragged S, S != T, every head size, softcap and window.
+
+    Tolerance per unit of max(1, |o|): bf16 rounds P (tensor cores) and the
+    output (one ulp is up to 2^-7 |o|); float32 sums in another order.
+    """
+    gen = torch.Generator().manual_seed(6)
+    q = torch.randn(b, s, h, hd, generator=gen).to(cuda, dtype)
+    k, v = (torch.randn(b, t, kv, hd, generator=gen).to(cuda, dtype) for _ in range(2))
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal, softcap=softcap, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal, softcap=softcap, window=window).float()
+    assert ((got.float() - want).abs() / want.abs().clamp_min(1.0)).max() <= tol
+    with pytest.raises(ValueError):
+        ops.flash_attention(q[..., :8].contiguous(), k[..., :8].contiguous(), v[..., :8].contiguous())
+
+
+def test_gemma2_two_layers_full_width_prefill_on_the_card_matches_cpu(cuda):
+    """gemma2-2b at full width cut to two layers (one local, one global), float32, S > the window cut to 64."""
+    cfg = dataclasses.replace(configs.get_config("gemma2-2b"), n_layers=2, window=64,
+                              param_dtype="float32", activation_dtype="float32")
+    model = tf.init_model(cfg, 0, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 100), generator=torch.Generator().manual_seed(7))
+    want, want_caches = tf.prefill_fn(model, cfg, toks, cache_len=103)
+    ops.reset_launch_counts()
+    got, caches = tf.prefill_fn(model.to(cuda), cfg, toks.to(cuda), cache_len=103)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 2
+    assert (got.cpu() - want).abs().max() <= 1e-3
+    assert [c["k"].shape[1] for c in caches] == [64, 103]
+    for c, w in zip(caches, want_caches):
+        assert (c["k"].cpu() - w["k"]).abs().max() <= 1e-3

@@ -234,8 +234,11 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing(rng):
     ops.cov_tiles(x, x, 0, 0, 8, 8, tkm.SEKernelParams(), symmetric=True)
     ops.carry_update(k, k, k, k)
     ops.lrgemm(k, k[0], torch.zeros(3, dtype=torch.int64), torch.arange(3))
+    qkv = T(rng.standard_normal((1, 4, 2, 16)).astype(np.float32))
+    ops.flash_attention(qkv, qkv, qkv, softcap=5.0, window=2)
     assert ops.launch_counts() == {
         "cov_tiles": 0, "potrf": 0, "trsm": 0, "trail": 0, "carry_update": 0, "lrgemm": 0,
+        "flash_attention": 0,
     }
 
 

@@ -10,6 +10,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
             version on its path's own tiles (gp_16k, m = 512, D = 16,
             float32), plus float64 and ragged-edge cases; times the kernel,
             the plain version and one PyTorch call of the same function;
+            POTRF also at float64, at G = 31 and at m = 1024, each beside
+            ``torch.linalg.cholesky``, with its ptxas registers and spills,
+            bitwise-equal repeats and NaN at a non-positive pivot;
 4. main     the gp_16k configuration (n_train = n_test = 16384, tile 512):
             a cold ``GaussianProcess.predict``, a cold
             ``predict_with_uncertainty`` and a warm ``predict``, with every
@@ -69,6 +72,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -328,6 +332,8 @@ def kernel_phases(x_train: np.ndarray, dev: torch.device):
          tol_reason="the reference's test_potrf_shapes tolerance (1e-4 m); blocked kernel "
          "against the unblocked plain loop", **{k: rows["potrf"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     check(err <= tol, f"potrf disagrees with its plain version: {err}")
+    diag_pos = torch.from_numpy(asm.out[asm.a == asm.b][np.argsort(asm.a[asm.a == asm.b])]).to(dev)
+    potrf_cases(a00, packed[diag_pos[1:]], x_train, params, dev)
 
     # --- trsm: the panel of column 0 (31 tiles), one L per task ---------
     trsm_b = next(b for lvl in plan.levels for b in lvl if b.op == sch.TRSM)
@@ -409,6 +415,84 @@ def kernel_phases(x_train: np.ndarray, dev: torch.device):
          tol_reason="3 random SPD tiles; float64 keeps float64 in every kernel")
     torch.cuda.synchronize()
     return rows
+
+
+def potrf_ptxas() -> dict:
+    """Registers, shared memory and spill bytes of each ``potrf_kernel``, from the build's ``-Xptxas -v``."""
+    from repro_torch.kernels import _build
+
+    found, current = {}, None
+    for line in _build.build_log("potrf_tile").splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = entry.group(1)
+            current = ("float32" if "potrf_kernelIf" in name else "float64" if "potrf_kernelId" in name
+                       else None)
+            if current:
+                found[current] = {}
+        elif current and "spill stores" in line:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
+            found[current].update(spill_store_bytes=int(st), spill_load_bytes=int(ld))
+        elif current and "registers" in line:
+            found[current]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            found[current]["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return found
+
+
+def potrf_cases(a00, diag31, x_train, params, dev):
+    """The POTRF kernel at the other shapes it meets, each beside ``torch.linalg.cholesky``.
+
+    float64 at m = 512; the 31 other diagonal tiles of gp_16k in one launch
+    (G = 31); and one 1024 x 1024 covariance tile, gp_32k's tile width
+    (src/repro/configs/gp_msd.py:12).  Also: two calls give bitwise-equal
+    factors, a non-positive pivot in the last block column gives NaN where
+    the plain loop does, and ptxas reports no spills.
+    """
+    from repro_torch.kernels import cov_assembly, ops, potrf_tile
+
+    ptxas = potrf_ptxas()
+    emit("kernel.potrf.ptxas", kernels=ptxas)
+    check(set(ptxas) == {"float32", "float64"}, f"no ptxas report of both potrf_kernel types: {ptxas}")
+    check(all(v.get("spill_store_bytes") == 0 and v.get("spill_load_bytes") == 0 for v in ptxas.values()),
+          f"potrf_kernel spills: {ptxas}")
+
+    n = x_train.shape[0]
+    x1024 = torch.from_numpy(x_train[:1024]).to(dev)[None]
+    a1024 = cov_assembly.cov_tiles_plain(x1024, x1024, 0, 0, n, n, params, symmetric=True)
+    cases = {
+        "float64_g1_m512": (a00.double(), 1e-10),
+        "float32_g31_m512": (diag31.contiguous(), 1e-4),
+        "float32_g1_m1024": (a1024.contiguous(), 1e-4),
+    }
+    out = {}
+    for name, (a, tol_per_m) in cases.items():
+        g, m = a.shape[0], a.shape[1]
+        err = max_err(ops.potrf(a), potrf_tile.potrf_plain(a))
+        size = 8 if a.dtype == torch.float64 else 4
+        # FP64 at the H100's published FP64 tensor-core rate, which equals the FP32 one
+        bnd = bound_ms(2 * a.numel() * size, g * m**3 / 3)
+        out[name] = dict(shape=list(a.shape), max_abs_err=err, tol=tol_per_m * m,
+                         ms=cuda_ms(lambda: ops.potrf(a), 10),
+                         plain_ms=cuda_ms(lambda: potrf_tile.potrf_plain(a), 1, warmup=0),
+                         library_ms=cuda_ms(lambda: torch.linalg.cholesky(a), 10),
+                         bound_ms=bnd[0], bound_by=bnd[1])
+    same = {name: bool(torch.equal(ops.potrf(a), ops.potrf(a))) for name, a in
+            (("float32_g1_m512", a00), ("float32_g31_m512", cases["float32_g31_m512"][0]))}
+    bad = a00.clone()
+    bad[0, 500, 500] = -1.0  # the Schur complement at pivot 500 (block column 15 of 16) is negative
+    got, want = ops.potrf(bad), potrf_tile.potrf_plain(bad)
+    nan_ok = bool(torch.isnan(got[0, 500, 500])) and torch.equal(torch.isnan(got), torch.isnan(want))
+    nan_err = max_err(got[0, :500], want[0, :500])
+    emit("kernel.potrf.cases", cases=out, bitwise_equal_calls=same, nonpd_pivot_500_nan_as_plain=nan_ok,
+         nonpd_rows_above_max_abs_err=nan_err,
+         tol_reason="1e-4 m (float32) and 1e-10 m (float64), the reference's test_potrf_shapes "
+         "and test_potrf_f64 tolerances per unit of m")
+    for name, c in out.items():
+        check(c["max_abs_err"] <= c["tol"], f"potrf {name} disagrees with its plain version: {c}")
+    check(all(same.values()), f"two potrf calls differ: {same}")
+    check(nan_ok and nan_err <= 1e-4 * 512, f"potrf: non-PD pivot 500 not NaN as the plain loop: {nan_err}")
+    torch.cuda.synchronize()
 
 
 def dense_reference(x_train, y_train, x_test, dev):

@@ -139,6 +139,48 @@ def test_nonpositive_pivot_gives_nan(cuda):
     assert torch.isnan(out[0, 35, 35])
 
 
+def _spd_stack(g, m, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    r = torch.randn(g, m, m, generator=gen, dtype=dtype)
+    return r @ r.mT / m + torch.eye(m, dtype=dtype)
+
+
+@pytest.mark.parametrize(
+    "dtype,g,m,tol",
+    [(torch.float32, 1, 512, 1e-4), (torch.float32, 1, 1024, 1e-4), (torch.float32, 31, 512, 1e-4),
+     (torch.float64, 1, 512, 1e-10), (torch.float32, 3, 77, 1e-4), (torch.float64, 2, 33, 1e-10)],
+)
+def test_potrf_matches_plain(cuda, dtype, g, m, tol):
+    """The blocked multi-SM kernel against the unblocked plain loop (tolerance 1e-4 m / 1e-10 m)."""
+    a = _spd_stack(g, m, dtype, 4).to(cuda)
+    ops.reset_launch_counts()
+    got = ops.potrf(a)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["potrf"] == 1
+    assert got.dtype == dtype and got.shape == (g, m, m)
+    assert (got - potrf_tile.potrf_plain(a)).abs().max() <= tol * m
+    assert bool((torch.triu(got, 1) == 0).all())
+
+
+def test_potrf_nonpositive_pivot_in_last_block_column(cuda):
+    m, pivot = 512, 500
+    a = _spd_stack(1, m, torch.float32, 5)
+    a[0, pivot, pivot] = -1.0  # the Schur complement at the pivot is negative
+    a = a.to(cuda)
+    got = ops.potrf(a)
+    torch.cuda.synchronize()
+    want = potrf_tile.potrf_plain(a)
+    assert torch.isnan(got[0, pivot, pivot])
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert (got[0, :pivot] - want[0, :pivot]).abs().max() <= 1e-4 * m
+
+
+@pytest.mark.parametrize("g,m", [(1, 512), (31, 512)])
+def test_potrf_is_deterministic(cuda, g, m):
+    a = _spd_stack(g, m, torch.float32, 6).to(cuda)
+    assert torch.equal(ops.potrf(a), ops.potrf(a))
+
+
 def test_gp_tiled_matches_monolithic_on_the_card(cuda):
     gen = torch.Generator().manual_seed(2)
     x = torch.randn(300, 4, generator=gen)

@@ -12,7 +12,17 @@ Run from the root of a checkout:  python3 chip_smoke.py
             the plain version and one PyTorch call of the same function;
             POTRF also at float64, at G = 31 and at m = 1024, each beside
             ``torch.linalg.cholesky``, with its ptxas registers and spills,
-            bitwise-equal repeats and NaN at a non-positive pivot;
+            bitwise-equal repeats and NaN at a non-positive pivot; TRAIL
+            also at the append's launch sizes, against its plain version
+            and beside ``torch.baddbmm``, and
+            TRAIL's and carry's TFLOP/s, ptxas registers and spills (must
+            be 0), CTAs per SM and tensor-core instructions in the float32
+            SASS (must be 0);
+   grad     gradients through the kernels on the card against the CPU's (a
+            low-rank NLML in float32 and float64, and a tiled log-det);
+            carry_update and
+            flash_attention must raise under grad; a GaussianProcess must
+            leave the caller's TF32 flags as they were;
 4. main     the gp_16k configuration (n_train = n_test = 16384, tile 512):
             a cold ``GaussianProcess.predict``, a cold
             ``predict_with_uncertainty`` and a warm ``predict``, with every
@@ -388,6 +398,7 @@ def kernel_phases(x_train: np.ndarray, dev: torch.device):
          bf16_ms=cuda_ms(lambda: ops.trail(c_s, a_s, b_s, bf), 5),
          **{k: rows["trail"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     check(err <= tol and err_bf16 <= tol, f"trail disagrees with its plain version: {err}, {err_bf16}")
+    trail_extra(c_s, a_s, b_s, rows["trail"]["ms"], rows["trail"]["library_ms"], tol, m_tiles, dev)
 
     # --- float64 and ragged edges (m not a multiple of any block) --------
     gen = torch.Generator().manual_seed(SEED)
@@ -417,17 +428,16 @@ def kernel_phases(x_train: np.ndarray, dev: torch.device):
     return rows
 
 
-def potrf_ptxas() -> dict:
-    """Registers, shared memory and spill bytes of each ``potrf_kernel``, from the build's ``-Xptxas -v``."""
+def ptxas_report(source: str, label) -> dict:
+    """Registers, shared memory and spill bytes of the kernels of ``csrc/<source>.cu``, from the build's
+    ``-Xptxas -v``, keyed by ``label(mangled name)`` (kernels it maps to None are left out)."""
     from repro_torch.kernels import _build
 
     found, current = {}, None
-    for line in _build.build_log("potrf_tile").splitlines():
+    for line in _build.build_log(source).splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            name = entry.group(1)
-            current = ("float32" if "potrf_kernelIf" in name else "float64" if "potrf_kernelId" in name
-                       else None)
+            current = label(entry.group(1))
             if current:
                 found[current] = {}
         elif current and "spill stores" in line:
@@ -438,6 +448,91 @@ def potrf_ptxas() -> dict:
             smem = re.search(r"(\d+) bytes smem", line)
             found[current]["smem_bytes"] = int(smem.group(1)) if smem else 0
     return found
+
+
+def potrf_ptxas() -> dict:
+    """ptxas report of each ``potrf_kernel``, keyed by type."""
+    return ptxas_report("potrf_tile", lambda name: "float32" if "potrf_kernelIf" in name
+                        else "float64" if "potrf_kernelId" in name else None)
+
+
+_TYPES = {"ff": "float32", "dd": "float64", "13__nv_bfloat16f": "bf16", "f": "float32", "d": "float64"}
+
+
+def trail_label(name: str):
+    """'float32/big/vec' for trail_kernel<float, float, 16, 16, V = 4, 8, VEC = true, 2>, and so on."""
+    k = re.search(r"trail_kernelI(ff|dd|13__nv_bfloat16f)Li\d+ELi\d+ELi(\d+)ELi\d+ELb([01])E", name)
+    if not k:
+        return None
+    big = int(k.group(2)) == (2 if k.group(1) == "dd" else 4)
+    return f"{_TYPES[k.group(1)]}/{'big' if big else 'small'}/{'vec' if k.group(3) == '1' else 'scalar'}"
+
+
+def carry_label(name: str):
+    """'float32/rs32/vec' for carry_kernel<float, 32, true>, 'float32/prep' for carry_prep<float>."""
+    k = re.search(r"carry_kernelI([fd])Li(\d+)ELb([01])E", name)
+    if k:
+        return f"{_TYPES[k.group(1)]}/rs{k.group(2)}/{'vec' if k.group(3) == '1' else 'scalar'}"
+    k = re.search(r"carry_prepI([fd])E", name)
+    return f"{_TYPES[k.group(1)]}/prep" if k else None
+
+
+def sass_mma_counts(source: str, label) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in the SASS of each labelled kernel of ``csrc/<source>.cu``."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = str(Path(_build.nvcc_path()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(source))],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for fn in sass.split("Function : ")[1:]:
+        name = label(fn.split(None, 1)[0])
+        if name:
+            counts[name] = sum(len(re.findall(rf"\b{op}\b", fn)) for op in ("HMMA", "HGMMA"))
+    return counts
+
+
+def check_build_quality(kernel: str, ptxas: dict, mma: dict) -> None:
+    """The float32 instantiations build without spills and issue no tensor-core instruction."""
+    f32 = {k: v for k, v in ptxas.items() if k.startswith("float32")}
+    check(f32 and all(v.get("spill_store_bytes") == 0 and v.get("spill_load_bytes") == 0 for v in f32.values()),
+          f"{kernel}: ptxas reports spills in a float32 instantiation: {f32}")
+    f32_mma = {k: n for k, n in mma.items() if k.startswith("float32")}
+    check(f32_mma and not any(f32_mma.values()), f"{kernel}: HMMA/HGMMA in the float32 SASS: {f32_mma}")
+
+
+def trail_extra(c_s, a_s, b_s, ms, library_ms, tol, m_tiles, dev):
+    """TRAIL's rate at the 496-tile launch, its append launches beside baddbmm, ptxas and SASS.
+
+    Each append launch is held against ``trail_plain`` at ``tol``, kernel.trail's tolerance: at
+    G < 66 they run the 64 x 64 instantiation, which the 496-tile launch does not.
+    """
+    from repro_torch.core import executor
+    from repro_torch.kernels import _build, trailing_update
+
+    g, m = c_s.shape[0], c_s.shape[1]
+    append = executor.update_append_plan(m_tiles, m_tiles)
+    sizes = sorted({b.size for lvl in append.levels for b in lvl if b.op in ("ugemm", "usyrk")})
+    launches = {}
+    for gs in (sizes[0], sizes[len(sizes) // 2], sizes[-1]):
+        cs, as_, bs_ = (t[:gs].contiguous() for t in (c_s, a_s, b_s))
+        err = max_err(trailing_update.trail_cuda(cs, as_, bs_), trailing_update.trail_plain(cs, as_, bs_))
+        t_k = cuda_ms(lambda: trailing_update.trail_cuda(cs, as_, bs_), 20)
+        t_l = cuda_ms(lambda: torch.baddbmm(cs, as_, bs_.mT, alpha=-1), 20)
+        launches[f"G{gs}"] = {"variant_big_vec": trailing_update.trail_variant(gs, m, torch.float32),
+                              "max_abs_err": err, "tol": tol, "ms": t_k,
+                              "library_ms": t_l, "tflops": 2 * gs * m**3 / t_k / 1e9,
+                              "bound_ms": bound_ms(4 * cs.numel() * 4, 2 * gs * m**3)[0]}
+    lib = _build.load("trailing_update")
+    ptxas, mma = ptxas_report("trailing_update", trail_label), sass_mma_counts("trailing_update", trail_label)
+    emit("kernel.trail.extra", shape=list(c_s.shape), tflops=2 * g * m**3 / ms / 1e9,
+         library_tflops=2 * g * m**3 / library_ms / 1e9, variant_big_vec=trailing_update.trail_variant(g, m, torch.float32),
+         ctas_per_sm={"big": lib.trail_f32_ctas_per_sm(1), "small": lib.trail_f32_ctas_per_sm(0)},
+         append_launch_sizes=sizes, append_launches=launches, ptxas=ptxas, sass_hmma_count=mma,
+         library_call="torch.baddbmm(C, A, B^T, alpha=-1) (cuBLAS, IEEE float32)")
+    check_build_quality("trail", ptxas, mma)
+    check(all(v["max_abs_err"] <= tol for v in launches.values()),
+          f"trail disagrees with its plain version at an append launch size: {launches}")
 
 
 def potrf_cases(a00, diag31, x_train, params, dev):
@@ -493,6 +588,112 @@ def potrf_cases(a00, diag31, x_train, params, dev):
     check(all(same.values()), f"two potrf calls differ: {same}")
     check(nan_ok and nan_err <= 1e-4 * 512, f"potrf: non-PD pivot 500 not NaN as the plain loop: {nan_err}")
     torch.cuda.synchronize()
+
+
+GRAD_TOL = 1e-4
+GRAD_TOL_F64 = 1e-8
+
+
+def phase_grad(dev):
+    """Gradients through the kernels on the card against the CPU's, and ops without a backward.
+
+    The low-rank NLML of 2048 NFIR rows (m_inducing 256, tile 128) in its
+    three hyperparameters, through COV_TILES, POTRF, TRSM, TRAIL and LRGEMM;
+    and d log det K / dK through the tiled Cholesky of an SE covariance (n =
+    1024, tile 128, noise 0.5, so K is well conditioned).  The float32 rule:
+    max |card - cpu| <= 1e-4 max |cpu| over the components.  The NLML's
+    smaller components are differences of terms of the largest one's size,
+    so their float32 rounding (shown by the CPU's float32 against its
+    float64) is set by that size.  Each component on its own is held in
+    float64: |card_i - cpu_i| <= 1e-8 max(1, |cpu_i|).
+    """
+    from repro_torch.core import executor, kernels_math as km, lowrank, tiling, triangular
+    from repro_torch.kernels import ops
+
+    x, y, _, _ = make_data(2048, 16, N_FEATURES, SEED)
+    x, y = torch.from_numpy(x), torch.from_numpy(y)
+
+    def nlml_grads(device, dtype=torch.float32):
+        p = [torch.tensor(v, dtype=dtype, device=device, requires_grad=True) for v in (1.0, 1.0, 0.1)]
+        state = lowrank.lowrank_state(x, y, km.SEKernelParams(*p), 256, 128, dtype=dtype, device=device)
+        value = lowrank.nlml_from_lowrank_state(state)
+        return float(value.detach()), [float(g) for g in torch.autograd.grad(value, p)]
+
+    k = km.assemble_covariance(x[:1024], km.SEKernelParams(1.0, 1.0, 0.5))
+
+    def logdet_grad(device):
+        kd = k.to(device).requires_grad_()
+        lp = executor.run_cholesky(tiling.pack_lower(kd, 128), device=device)
+        value = triangular.logdet_from_factor(lp, 8)
+        return float(value.detach()), torch.autograd.grad(value, kd)[0].cpu()
+
+    ops.reset_launch_counts()
+    v_card, g_card = nlml_grads(dev)
+    launches_nlml = ops.launch_counts()
+    v_cpu, g_cpu = nlml_grads("cpu")
+    v_card64, g_card64 = nlml_grads(dev, torch.float64)
+    v_cpu64, g_cpu64 = nlml_grads("cpu", torch.float64)
+    err_i = [abs(a - b) for a, b in zip(g_card, g_cpu)]
+    err, scale = max(err_i), max(abs(b) for b in g_cpu)
+    err64_i = [abs(a - b) for a, b in zip(g_card64, g_cpu64)]
+    tol64_i = [GRAD_TOL_F64 * max(1.0, abs(b)) for b in g_cpu64]
+    ops.reset_launch_counts()
+    ld_card, gk_card = logdet_grad(dev)
+    launches_logdet = ops.launch_counts()
+    ld_cpu, gk_cpu = logdet_grad("cpu")
+    err_k, scale_k = float((gk_card - gk_cpu).abs().max()), float(gk_cpu.abs().max())
+    raised = {}
+    w = torch.randn(2, 64, 64, device=dev, requires_grad=True)
+    c = torch.eye(64, device=dev).expand(2, 64, 64).contiguous()
+    q = torch.randn(1, 128, 2, 64, device=dev, requires_grad=True)
+    for name, call in (("carry_update", lambda: ops.carry_update(w, w.detach(), w.detach(), c)),
+                       ("flash_attention", lambda: ops.flash_attention(q, q.detach(), q.detach()))):
+        try:
+            call()
+            raised[name] = False
+        except RuntimeError as e:
+            raised[name] = name in str(e)
+    emit("grad.card_vs_cpu",
+         nlml={"params": ["lengthscale", "vertical", "noise"], "value_card": v_card, "value_cpu": v_cpu,
+               "grad_card": g_card, "grad_cpu": g_cpu, "abs_err": err_i, "max_abs_err": err,
+               "tol": GRAD_TOL * scale, "cpu_f32_vs_f64_abs_err": [abs(a - b) for a, b in zip(g_cpu, g_cpu64)],
+               "launches": launches_nlml},
+         nlml_f64={"value_card": v_card64, "value_cpu": v_cpu64, "grad_card": g_card64, "grad_cpu": g_cpu64,
+                   "abs_err": err64_i, "tol": tol64_i},
+         logdet={"value_card": ld_card, "value_cpu": ld_cpu, "max_abs_err": err_k, "tol": GRAD_TOL * scale_k,
+                 "launches": launches_logdet},
+         raise_under_grad=raised, rule="float32: max |card - cpu| <= 1e-4 max |cpu|; float64, each component: "
+         "|card_i - cpu_i| <= 1e-8 max(1, |cpu_i|); the backward differentiates each op's reference "
+         "(ops.GRAD_REFS, the plain tile for cov_tiles) on the saved inputs")
+    check(all(launches_nlml[k] > 0 for k in ("cov_tiles", "potrf", "trsm", "trail", "lrgemm")),
+          f"the NLML gradient did not run through the kernels: {launches_nlml}")
+    check(err <= GRAD_TOL * scale, f"NLML gradient on the card off the CPU's by {err} (scale {scale})")
+    check(all(e <= t for e, t in zip(err64_i, tol64_i)),
+          f"float64 NLML gradient on the card off the CPU's: {err64_i} > {tol64_i}")
+    check(launches_logdet["trail"] > 0 and err_k <= GRAD_TOL * scale_k,
+          f"log-det gradient on the card off the CPU's by {err_k} (scale {scale_k}), launches {launches_logdet}")
+    check(all(raised.values()), f"an op without a backward did not raise under grad: {raised}")
+
+
+def phase_tf32(x_train, y_train, x_test, dev):
+    """A GaussianProcess leaves the caller's TF32 flags as they were, and computes the same either way."""
+    from repro_torch.core import GaussianProcess
+
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    before = (matmul.allow_tf32, cudnn.allow_tf32)
+    results, after = [], []
+    try:
+        for flags in ((True, True), (False, False)):
+            matmul.allow_tf32, cudnn.allow_tf32 = flags
+            gp = GaussianProcess(x_train[:4096], y_train[:4096], tile_size=TILE, device=dev)
+            results.append(gp.predict_with_uncertainty(x_test[:1024]))
+            after.append((matmul.allow_tf32, cudnn.allow_tf32))
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = before
+    same = all(torch.equal(a, b) for a, b in zip(*results))
+    emit("tf32.scope", caller_flags=[[True, True], [False, False]], flags_after=after, results_bitwise_equal=same)
+    check(after == [(True, True), (False, False)], f"GaussianProcess changed the caller's TF32 flags: {after}")
+    check(same, "a GaussianProcess computed differently with the caller's TF32 flag on")
 
 
 def dense_reference(x_train, y_train, x_test, dev):
@@ -682,6 +883,16 @@ def carry_phase(x_win, y_win, dev):
          **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     check(err <= tol, f"carry_update disagrees with its plain version: {err} > {tol}")
     check(err64 <= tol64, f"carry_update (float64) disagrees with its plain version: {err64} > {tol64}")
+    from repro_torch.kernels import _build
+
+    lib = _build.load("carry_update")
+    ctas_per_sm = lib.carry_update_f32_ctas_per_sm(m)
+    ptxas, mma = ptxas_report("carry_update", carry_label), sass_mma_counts("carry_update", carry_label)
+    emit("kernel.carry_update.extra", shape=list(wc.shape), tflops=3 * g * m**3 / row["ms"] / 1e9,
+         library_tflops=3 * g * m**3 / row["library_ms"] / 1e9, ctas_per_sm=ctas_per_sm, ptxas=ptxas,
+         sass_hmma_count=mma)
+    check(ctas_per_sm >= 2, f"carry_update: {ctas_per_sm} CTAs per SM at m = 512, not two")
+    check_build_quality("carry_update", ptxas, mma)
     torch.cuda.synchronize()
     return row
 
@@ -819,6 +1030,9 @@ def phase_update_timing(x_win, y_win, x_test, dev):
          "a step is append (extend) + evict (shrink) of the cached window state")
 
 
+PORT_KERNEL_PREFIX = "void (anonymous namespace)::"
+
+
 def profile_call(phase: str, call: str, fn):
     """Device time by kernel, and the device's idle share, over one call of ``fn``.
 
@@ -839,10 +1053,18 @@ def profile_call(phase: str, call: str, fn):
         key=lambda r: -r[2],
     )
     busy_ms = sum(r[2] for r in rows)
+    # every kernel of the port, by name and type (``carry_prep<float>``), however small
+    port = {}
+    for k, c, ms in rows:
+        if k.startswith(PORT_KERNEL_PREFIX) and "at::native" not in k:
+            name = k[len(PORT_KERNEL_PREFIX):].split("(")[0]
+            count, total = port.get(name, (0, 0.0))
+            port[name] = (count + c, total + ms)
     emit(phase, call=call, wall_ms=wall * 1e3,
          device_busy_ms=busy_ms if rows else "not measured",
          device_idle_share=1.0 - busy_ms / (wall * 1e3) if rows else "not measured",
-         top=[{"name": k[:100], "count": c, "device_ms": ms} for k, c, ms in rows[:14]])
+         top=[{"name": k[:100], "count": c, "device_ms": ms} for k, c, ms in rows[:14]],
+         port_kernels={k: {"count": c, "device_ms": ms} for k, (c, ms) in port.items()})
     return rows, busy_ms, wall * 1e3
 
 
@@ -1480,6 +1702,8 @@ def main() -> None:
          step_rows=TILE, seed=SEED, test_points="the main phase's x_test")
     rows = kernel_phases(x_train, dev)
     rows["carry_update"] = carry_phase(x_win, y_win, dev)
+    phase_grad(dev)
+    phase_tf32(x_train, y_train, x_test, dev)
     # warm the libraries and allocator on a small problem before timing
     from repro_torch.core import GaussianProcess
 

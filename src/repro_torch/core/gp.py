@@ -36,7 +36,9 @@ same key.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -75,15 +77,48 @@ def _lowrank_state_with_retry(build, base_jitter: float) -> lowrank.LowRankState
     return state
 
 
-def disable_tf32() -> None:
-    """Keep float32 products in IEEE float32 on the card (no TF32).
+@contextlib.contextmanager
+def ieee_float32_matmul(device):
+    """Keep float32 products in IEEE float32 on the card (no TF32) inside the block.
 
     GRAM, the cross-covariance matvecs and the solves go through cuBLAS and
     cuSOLVER; TF32 there would loosen the float32 parity with the JAX
-    reference without any sign of it.
+    reference without any sign of it.  On a CUDA ``device`` this sets
+    ``torch.backends.cuda.matmul.allow_tf32`` to False for the block and
+    gives the caller's setting back on exit, also when the block raises.
+    A caller who set the precision through the newer ``fp32_precision``
+    API gets that setting back the same way.  The cuDNN flag is left alone:
+    the GP uses no cuDNN.
     """
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    matmul = torch.backends.cuda.matmul
+    try:
+        attr, ieee = "allow_tf32", False
+        before = matmul.allow_tf32
+    except RuntimeError:  # mixing the legacy flag with fp32_precision raises
+        attr, ieee = "fp32_precision", "ieee"
+        before = matmul.fp32_precision
+    if before == ieee:
+        yield
+        return
+    setattr(matmul, attr, ieee)
+    try:
+        yield
+    finally:
+        setattr(matmul, attr, before)
+
+
+def _ieee_on_device(method):
+    """Run a :class:`GaussianProcess` method under :func:`ieee_float32_matmul`."""
+
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        with ieee_float32_matmul(self.device):
+            return method(self, *args, **kwargs)
+
+    return wrapped
 
 
 @dataclasses.dataclass
@@ -111,8 +146,6 @@ class GaussianProcess:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        if self.device.type == "cuda":
-            disable_tf32()
         self.kernel = km.resolve_kernel(self.kernel)
         if self.params is None:
             self.params = self.kernel.default_params()
@@ -173,6 +206,7 @@ class GaussianProcess:
     def _cache_warm(self) -> bool:
         return self._posterior is not None and self._posterior_key == self._cache_key()
 
+    @_ieee_on_device
     def posterior(self) -> pred.PosteriorState:
         """The packed Cholesky factor + alpha, cached across ``predict`` calls."""
         key = self._cache_key()
@@ -194,6 +228,7 @@ class GaussianProcess:
     def _lowrank_warm(self) -> bool:
         return self._lowrank is not None and self._lowrank_key == self._cache_key()
 
+    @_ieee_on_device
     def lowrank_posterior(self) -> lowrank.LowRankState:
         """The Nystrom state (``method="lowrank"``): inducing chunks, the
         whitened m x m inner factors and the projected weights, cached across
@@ -229,6 +264,7 @@ class GaussianProcess:
 
     # -- streaming updates --------------------------------------------------
 
+    @_ieee_on_device
     def update(self, x_new, y_new) -> "GaussianProcess":
         """Absorb new observations online in O(n^2 b), with no refactorization.
 
@@ -285,6 +321,7 @@ class GaussianProcess:
                 self.forget(min(-(-excess // m) * m, self.y_train.shape[0] - 1))
         return self
 
+    @_ieee_on_device
     def forget(self, k: int) -> "GaussianProcess":
         """Evict the k oldest observations (sliding-window downdate).
 
@@ -379,6 +416,7 @@ class GaussianProcess:
             self.lowrank_posterior(), x_test, full_cov=full_cov, n_streams=self.n_streams
         )
 
+    @_ieee_on_device
     def predict(self, x_test) -> torch.Tensor:
         x_test = self._prep(x_test)
         if self.method == "lowrank":
@@ -387,6 +425,7 @@ class GaussianProcess:
             return self._predict_monolithic(x_test, full_cov=False)
         return self._predict_tiled(x_test, full_cov=False)
 
+    @_ieee_on_device
     def predict_full_cov(self, x_test) -> Tuple[torch.Tensor, torch.Tensor]:
         """The paper's *Predict with Full Covariance Matrix* operation."""
         x_test = self._prep(x_test)
@@ -396,6 +435,7 @@ class GaussianProcess:
             return self._predict_monolithic(x_test, full_cov=True)
         return self._predict_tiled(x_test, full_cov=True)
 
+    @_ieee_on_device
     def predict_with_uncertainty(self, x_test) -> Tuple[torch.Tensor, torch.Tensor]:
         mean, sigma = self.predict_full_cov(x_test)
         return mean, torch.diagonal(sigma)

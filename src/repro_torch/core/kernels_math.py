@@ -50,9 +50,10 @@ class SEKernelParams:
 
     def as_floats(self) -> "SEKernelParams":
         """The same parameters as Python floats (reads a 0-d tensor to the host)."""
-        return SEKernelParams(
-            float(self.lengthscale), float(self.vertical), float(self.noise)
-        )
+        return SEKernelParams(*(
+            float(v.detach()) if isinstance(v, torch.Tensor) else float(v)
+            for v in (self.lengthscale, self.vertical, self.noise)
+        ))
 
 
 def sq_dists(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,7 @@ Each source compiles with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
 its own shared library with a plain C interface, loaded with ``ctypes``.
 All missing libraries are built at once, one ``nvcc`` process per source
 started together.  A library's file name carries a hash of its source, the
-shared header and the flags, so an edited source is rebuilt and a stale
+shared headers and the flags, so an edited source is rebuilt and a stale
 library is never loaded.  The libraries go to ``build/repro_torch/`` at the
 root of the checkout (git-ignored).  A missing ``nvcc`` or a failed build
 raises; nothing falls back to the plain versions.
@@ -54,8 +54,8 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     """Content-addressed path of the shared library built from ``csrc/<name>.cu``."""
     h = hashlib.sha256()
-    for part in ((CSRC / f"{name}.cu").read_bytes(), (CSRC / "common.cuh").read_bytes()):
-        h.update(part)
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
@@ -122,17 +122,28 @@ _SIGNATURES = {
     "cov_tiles": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _I, _I, _P],
     "potrf": [_P, _P, _P, _P, _I, _I, _I, _P],
     "trsm": [_P, _P, _P, _I, _I, _I, _P],
-    "trail": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "carry_update": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "trail": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "carry_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "lrgemm": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _P],
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _D, _I, _I, _I, _P],
 }
+
+
+# launch-geometry queries some libraries export: (name, argtypes, restype)
+_QUERIES = (
+    ("carry_update_f32_ctas_per_sm", [_I], _I),
+    ("trail_f32_ctas_per_sm", [_I], _I),
+)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare argtypes/restype of every launcher the library exports."""
     lib.repro_error_string.argtypes = [_I]
     lib.repro_error_string.restype = ctypes.c_char_p
+    for name, argtypes, restype in _QUERIES:
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes, fn.restype = argtypes, restype
     for base, argtypes in _SIGNATURES.items():
         for suffix in ("f32", "f64", "bf16"):
             fn = getattr(lib, f"{base}_{suffix}", None)

@@ -3,11 +3,18 @@
 Replaces ``repro/kernels/downdate_tile.py::_carry_kernel``.  The blocked
 cholupdate sweep rewrites every sub-diagonal carry block once per column,
 ``W_i <- (W_i - L'(i,j) Y_j) C_j^{-T}``: one (m x m) product, then a right
-triangular solve against the lower correction factor C_j.  One launch
-covers every UCARRY task of a level, on (G, m, m) stacks.  The product is
-``L Y``, not ``L Y^T`` as in the trailing update.  float32 and float64 are
-kept; the kernel takes m up to about 3500 (float32) or 1700 (float64) and
-refuses a larger tile with a CUDA "invalid argument" error.  The source,
+triangular solve against the lower correction factor C_j.  One call covers
+every UCARRY task of a level, on (G, m, m) stacks.  The product is ``L Y``,
+not ``L Y^T`` as in the trailing update.  float32 and float64 are kept.
+
+On the card a call is two launches: ``carry_prep`` writes C transposed and
+the inverses of its 32 x 32 diagonal blocks into workspace tensors, then
+``carry_kernel`` forms a strip of RS rows of W - L Y in shared memory and
+solves it right-looking, both on the register-blocked product core shared
+with the trailing update.  RS is 32 (float32) or 16 (float64), so that two
+CTAs fit on an SM at m = 512.  m is limited by the strip: up to 1472
+(float32) and 1440 (float64); a larger tile is refused with a CUDA "invalid
+argument" error.  The source,
 with what bounds it on the H100 and what the design does about it, is
 ``csrc/carry_update.cu``.
 """
@@ -54,12 +61,18 @@ def carry_update_cuda(w: torch.Tensor, l: torch.Tensor, y: torch.Tensor, c: torc
         )
     if not all(t.is_contiguous() for t in (w, l, y, c)):
         raise ValueError("carry_update takes contiguous stacks")
-    out = torch.empty_like(w)
+    g, m = w.shape[0], w.shape[1]
+    f64 = w.dtype == torch.float64
     lib = _build.load("carry_update")
-    fn = lib.carry_update_f32 if w.dtype == torch.float32 else lib.carry_update_f64
+    out = torch.empty_like(w)
+    # workspace: C transposed, and the inverse of each 32 x 32 diagonal block, transposed
+    ct = torch.empty_like(c)
+    dt = torch.empty((g, -(-m // 32), 32, 32), dtype=w.dtype, device=w.device)
+    vec = m % (16 // w.element_size()) == 0 and all(t.data_ptr() % 16 == 0 for t in (w, l, y, c, out))
+    fn = lib.carry_update_f64 if f64 else lib.carry_update_f32
     code = fn(
-        w.data_ptr(), l.data_ptr(), y.data_ptr(), c.data_ptr(), out.data_ptr(),
-        w.shape[0], w.shape[1], w.device.index, torch.cuda.current_stream(w.device).cuda_stream,
+        w.data_ptr(), l.data_ptr(), y.data_ptr(), c.data_ptr(), ct.data_ptr(), dt.data_ptr(), out.data_ptr(),
+        g, m, int(vec), w.device.index, torch.cuda.current_stream(w.device).cuda_stream,
     )
     _build.check(lib, code, "carry_update")
     return out

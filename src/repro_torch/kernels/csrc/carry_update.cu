@@ -16,201 +16,351 @@
 // launch of an eviction at gp_16k (G = 31) does 1.25e10 FLOP, at least
 // 0.19 ms.
 //
-// Design: one block per (task, strip of RS rows of W).  The rows of X in
-// X C^T = B are independent, so a strip needs only its own rows of W and L
-// and the whole of Y and C (read through L2).  Phase 1 forms the strip of
-// B = W - L Y in shared memory (RS x m: 128 KiB for RS = 64, m = 512,
-// float32): a register-blocked SIMT product over 64-column passes, staging
-// 16-deep panels of the strip's L rows (transposed) and of Y.  Phase 2
-// solves the strip in place, 32 columns at a time: the part that depends on
-// solved columns is a small product against panels of C staged in shared
-// memory, the 32 x 32 diagonal part is solved one thread per row.  RS is 64
-// for float32 and 32 for float64, halved (down to 16) while the strip does
-// not fit in the 227 KB a block may use.  No wgmma or TMA yet.
+// Design: two launches on the caller's stream.
+//
+// carry_prep, one 256-thread block per (task, 32-column block j of C):
+// writes C's column block j transposed into the workspace Ct (row j*32 + k
+// of Ct holds C[:, j*32 + k], so the solve streams C's rows k-major with
+// 16-byte copies), and inverts the diagonal block C_jj (padded with the
+// identity past m): lane c of one warp runs the forward substitution of
+// column c, and writes row c of D_j^T = C_jj^{-T} to the workspace Dt.
+//
+// carry_kernel, one 256-thread block per (task, strip of RS rows of W).  The
+// rows of X in X C^T = B are independent, so a strip needs only its own rows
+// of W and L and the whole of Y and C (read through L2).  Both phases run on
+// the register-blocked product core of gemm_core.cuh, 8 x 8 float (4 x 4
+// double) accumulators per thread over an RS x BN pass (BN = 256 x 2V / TY):
+//   phase 1  the strip of B = W - L Y into shared memory.  Y is already
+//            k-major and streams with cp.async; the strip's L rows go through
+//            registers and are written transposed.  Two buffers, 8-deep
+//            stages, one barrier per stage;
+//   phase 2  right-looking, 32 columns at a time: X_j = S_j D_j^T (a small
+//            product on all threads), then the columns to the right take
+//            S -= X_j C[>j, j]^T, a product of depth 32 with X_j^T staged in
+//            shared memory and Ct streamed like Y.  A warp skips the FMAs of
+//            a column half that lies wholly past m, so the update's work
+//            shrinks with the columns left.  D_{j+1}^T is copied while block
+//            j's update runs, and the update's first C stage while X_j is
+//            formed, so neither copy waits in the open.
+// RS is 32 (float32) or 16 (float64), so that two CTAs fit on an SM at
+// m = 512 (float32: 108,288 bytes of shared memory and 128 registers per
+// CTA).  The Python wrapper picks the load width (16-byte vectors when m is
+// a multiple of 16 / sizeof(T), else the scalar-load instantiation).  m is
+// limited by the strip in shared memory: up to 1472 for float32 and 1440 for
+// float64; a larger tile is refused with a CUDA "invalid argument" error.
+#include <climits>
+
 #include "common.cuh"
+#include "gemm_core.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int BN = 64;  // phase 1: output columns per pass
-constexpr int BK = 16;  // phase 1: depth of a staged panel
-constexpr int CB = 32;  // phase 2: column block of the solve
+constexpr int CB = 32;  // the solve's column block
+constexpr int BK = 8;   // depth of a streamed stage
 constexpr size_t MAX_SMEM = 232448;
 
-__host__ __device__ inline int round_up(int a, int b) { return (a + b - 1) / b * b; }
+template <typename T, int RS>
+struct Strip {
+  static constexpr int V = 16 / sizeof(T);
+  static constexpr int TY = RS / (2 * V);
+  using TL = gemm::Tile<T, TY, THREADS / TY>;
+  static constexpr int BN = TL::BN;
+  static constexpr int LDX = RS + V;                // pitch of region R: [k][strip row]
+  static constexpr int LDD = CB + V;                // pitch of D_j^T
+  static constexpr int B_ELEMS = 2 * BK * TL::LDB;  // two stages of the streamed panel
+  static constexpr int R_ELEMS = CB * LDX;          // phase 1's L stages, then X_j^T
+  static constexpr int D_ELEMS = CB * LDD;          // D_j^T
+  static_assert(2 * BK <= CB, "the L stages fit in region R");
+  // pitch of the strip: a multiple of 32 elements plus 4, so the rows that a
+  // warp reads in the same column fall in different banks
+  __host__ __device__ static int lds(int m) { return (m + 31) / 32 * 32 + 4; }
+  __host__ __device__ static size_t bytes(int m) {
+    return (static_cast<size_t>(RS) * lds(m) + B_ELEMS + R_ELEMS + D_ELEMS) * sizeof(T);
+  }
+};
 
-// Shared memory of one block, in elements: the strip [RS][ld] with
-// ld = round_up(m, BN) + 1 (odd, so a column read across rows is free of
-// bank conflicts), the phase-1 panels of L and Y and the phase-2 block of C.
-template <int RS>
-__host__ __device__ inline size_t smem_elems(int m) {
-  return static_cast<size_t>(RS) * (round_up(m, BN) + 1) + BK * (RS + 4) + BK * (BN + 4) +
-         CB * (CB + 1);
+// Ct = C^T on and below the diagonal blocks, Dt[j] = C_jj^{-T}, for one (task, block column j).
+template <typename T>
+__global__ void __launch_bounds__(THREADS) carry_prep(const T* __restrict__ c_stack, T* __restrict__ ct_stack,
+                                                      T* __restrict__ dt_stack, int m, int nb) {
+  __shared__ T tile[CB][CB + 1];
+  const int g = blockIdx.x / nb, j = blockIdx.x % nb;
+  const size_t mm = static_cast<size_t>(m) * m;
+  const T* c = c_stack + g * mm;
+  T* ct = ct_stack + g * mm;
+  const int tid = threadIdx.x, k0 = j * CB;
+  for (int n0 = k0; n0 < m; n0 += CB) {
+    const bool diag = n0 == k0;
+    for (int e = tid; e < CB * CB; e += THREADS) {
+      const int i = e / CB, k = e % CB;
+      const bool in = n0 + i < m && k0 + k < m;
+      tile[i][k] = in ? c[static_cast<size_t>(n0 + i) * m + k0 + k] : (diag && i == k ? T(1) : T(0));
+    }
+    __syncthreads();
+    for (int e = tid; e < CB * CB; e += THREADS) {
+      const int k = e / CB, i = e % CB;
+      if (k0 + k < m && n0 + i < m) ct[static_cast<size_t>(k0 + k) * m + n0 + i] = tile[i][k];
+    }
+    if (diag && tid < 32) {
+      // column `lane` of C_jj^{-1} by forward substitution; it is row `lane` of C_jj^{-T}
+      const int lane = tid;
+      T z[CB];
+#pragma unroll
+      for (int i = 0; i < CB; ++i) {
+        T v = i == lane ? T(1) : T(0);
+#pragma unroll
+        for (int q = 0; q < i; ++q) v = fma(-tile[i][q], z[q], v);
+        z[i] = v / tile[i][i];
+      }
+      T* d = dt_stack + (static_cast<size_t>(g) * nb + j) * CB * CB + lane * CB;
+#pragma unroll
+      for (int q = 0; q < CB; q += 16 / sizeof(T)) {
+        gemm::Vec16<T> v;
+#pragma unroll
+        for (int e = 0; e < 16 / static_cast<int>(sizeof(T)); ++e) v.v[e] = z[q + e];
+        *reinterpret_cast<gemm::Vec16<T>*>(d + q) = v;
+      }
+    }
+    __syncthreads();
+  }
 }
 
-template <typename T, int RS>
-__global__ void __launch_bounds__(THREADS) carry_kernel(
-    const T* __restrict__ w_stack, const T* __restrict__ l_stack,
-    const T* __restrict__ y_stack, const T* __restrict__ c_stack, T* __restrict__ o_stack,
-    int m) {
+template <typename T, int RS, bool VEC>
+__global__ void __launch_bounds__(THREADS, 2) carry_kernel(
+    const T* __restrict__ w_stack, const T* __restrict__ l_stack, const T* __restrict__ y_stack,
+    const T* __restrict__ ct_stack, const T* __restrict__ dt_stack, T* __restrict__ o_stack, int m) {
+  using S = Strip<T, RS>;
+  using TL = typename S::TL;
+  constexpr int V = S::V, BN = S::BN, LDB = TL::LDB, LDX = S::LDX, LDD = S::LDD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = round_up(m, BN) + 1;
-  T* s = reinterpret_cast<T*>(smem_raw);  // [RS][ld]: B, then X
-  T* ls = s + static_cast<size_t>(RS) * ld;  // [BK][RS + 4]: L[r0 + row][k0 + k]
-  T* ys = ls + BK * (RS + 4);                // [BK][BN + 4]: Y[k0 + k][n0 + col]
-  T* cs = ys + BK * (BN + 4);                // [CB][CB + 1]: a block of C
+  const int ld = S::lds(m);
+  T* s = reinterpret_cast<T*>(smem_raw);   // [RS][ld]: B, then X
+  T* bs = s + static_cast<size_t>(RS) * ld;  // [2][BK][LDB]: Y or Ct stages
+  T* rr = bs + S::B_ELEMS;                   // region R: [2][BK][LDX] L stages, then [CB][LDX] X_j^T
+  T* ds = rr + S::R_ELEMS;                   // [CB][LDD]: D_j^T
 
+  const int strips = (m + RS - 1) / RS;
+  const int g = blockIdx.x / strips, r0 = (blockIdx.x % strips) * RS;
+  const int nb = (m + CB - 1) / CB;
   const size_t mm = static_cast<size_t>(m) * m;
-  const T* w = w_stack + blockIdx.x * mm;
-  const T* l = l_stack + blockIdx.x * mm;
-  const T* y = y_stack + blockIdx.x * mm;
-  const T* c = c_stack + blockIdx.x * mm;
-  T* o = o_stack + blockIdx.x * mm;
-  const int r0 = blockIdx.y * RS;
+  const T* w = w_stack + g * mm;
+  const T* l = l_stack + g * mm;
+  const T* y = y_stack + g * mm;
+  const T* ct = ct_stack + g * mm;
+  const T* dt = dt_stack + static_cast<size_t>(g) * nb * CB * CB;
+  T* o = o_stack + g * mm;
   const int tid = threadIdx.x;
+  const TL t(tid);
+  const int mpad = (m + CB - 1) / CB * CB;  // s holds zeros in columns [m, mpad)
+  T acc[2 * V][2 * V];
 
   // ---- phase 1: s = W - L Y on the strip's rows (zero past m) ----------
-  constexpr int RI = RS / 16;  // rows of the 64-column pass held by a thread
-  const int tx = tid % 16, ty = tid / 16;
-  for (int n0 = 0; n0 < m; n0 += BN) {
-    T acc[RI][4];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = T(0);
-    for (int k0 = 0; k0 < m; k0 += BK) {
-      for (int e = tid; e < RS * BK; e += THREADS) {
-        const int row = e / BK, k = e % BK;
-        const int gr = r0 + row, gk = k0 + k;
-        ls[k * (RS + 4) + row] = (gr < m && gk < m) ? l[static_cast<size_t>(gr) * m + gk] : T(0);
+  using LPanel = gemm::RowPanel<T, T, RS, BK, THREADS, VEC>;
+  LPanel pl;
+  const int nk = (m + BK - 1) / BK;
+  for (int n0 = 0; n0 < mpad; n0 += BN) {
+    gemm::zero<TL>(acc);
+    pl.load(l, m, r0, m, 0, m, tid);
+    gemm::kpanel_async<T, BK, BN, THREADS, VEC>(bs, LDB, y, m, 0, m, n0, m, tid);
+    gemm::cp_async_commit();
+    pl.store(rr, LDX, tid);
+    for (int kt = 0; kt < nk; ++kt) {
+      const int cur = kt & 1;
+      const bool more = kt + 1 < nk;
+      gemm::cp_async_wait<0>();
+      __syncthreads();  // stage kt is in; every thread is done with stage kt - 1
+      // the next stage's loads (zeros past the last stage) go out before the
+      // FMAs; the fence keeps the compiler from sinking them below
+      pl.load(l, m, r0, m, (kt + 1) * BK, m, tid);
+      if (more) {
+        gemm::kpanel_async<T, BK, BN, THREADS, VEC>(bs + (cur ^ 1) * BK * LDB, LDB, y, m, (kt + 1) * BK, m,
+                                                     n0, m, tid);
+        gemm::cp_async_commit();
       }
-      for (int e = tid; e < BK * BN; e += THREADS) {
-        const int k = e / BN, col = e % BN;
-        const int gk = k0 + k, gc = n0 + col;
-        ys[k * (BN + 4) + col] = (gk < m && gc < m) ? y[static_cast<size_t>(gk) * m + gc] : T(0);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < BK; ++k) {
-        T av[RI], bv[4];
-#pragma unroll
-        for (int i = 0; i < RI; ++i) av[i] = ls[k * (RS + 4) + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = ys[k * (BN + 4) + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < RI; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
-      }
-      __syncthreads();
+      asm volatile("" ::: "memory");
+      gemm::mma_live<TL, BK>(t, rr + cur * BK * LDX, LDX, bs + cur * BK * LDB, LDB, acc, m - n0);
+      pl.store(rr + (cur ^ 1) * BK * LDX, LDX, tid);
     }
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int row = ty + 16 * i, gr = r0 + row;
+    for (int i = 0; i < 2 * V; ++i) {
+      const int row = t.row(i), gr = r0 + row;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + tx + 16 * j;
-        const T wv = (gr < m && col < m) ? w[static_cast<size_t>(gr) * m + col] : T(0);
-        s[row * ld + col] = wv - acc[i][j];
+      for (int h = 0; h < 2; ++h) {
+        const int col = n0 + t.col(h * V);
+        if (col >= mpad) continue;
+        gemm::Vec16<T> v;
+        const T* wr = w + static_cast<size_t>(gr) * m + col;
+        if (VEC && gr < m && col < m) {
+          v = *reinterpret_cast<const gemm::Vec16<T>*>(wr);
+        } else {
+#pragma unroll
+          for (int e = 0; e < V; ++e) v.v[e] = (gr < m && col + e < m) ? wr[e] : T(0);
+        }
+#pragma unroll
+        for (int e = 0; e < V; ++e) v.v[e] -= acc[i][h * V + e];
+        *reinterpret_cast<gemm::Vec16<T>*>(s + row * ld + col) = v;
       }
+      asm volatile("" ::: "memory");  // one row of W in registers at a time, beside acc
+    }
+    __syncthreads();
+  }
+
+  // ---- phase 2: X C^T = s, in place, right-looking by 32-column blocks ----
+  // cp.async groups in flight: D_{j+1}^T is copied while block j's update
+  // runs, and the update's first C stage while X_j = S_j D_j^T is formed.
+  const int xr = tid / 8, xc = (tid % 8) * 4;
+  auto load_d = [&](int j) {
+    for (int e = tid; e < CB * CB / V; e += THREADS)
+      gemm::cp_async16(ds + (e / (CB / V)) * LDD + (e % (CB / V)) * V, dt + j * CB * CB + e * V, true);
+    gemm::cp_async_commit();
+  };
+  load_d(0);
+  for (int j = 0; j < nb; ++j) {
+    const int k0 = j * CB;
+    const bool update = k0 + CB < m;
+    gemm::cp_async_wait<0>();
+    __syncthreads();  // D_j^T is in; block j - 1's update of s is done
+    if (update) {
+      gemm::kpanel_async<T, BK, BN, THREADS, VEC>(bs, LDB, ct, m, k0, m, k0 + CB, m, tid);
+      gemm::cp_async_commit();
+    }
+    // X_j = S_j D_j^T, each thread 4 columns of one or two rows, written to
+    // X_j^T in region R (not read here); s takes X_j after the barrier
+#pragma unroll 1
+    for (int row = xr; row < RS; row += 32) {
+      T x[4] = {T(0), T(0), T(0), T(0)};
+      const T* srow = s + row * ld + k0;
+#pragma unroll 4
+      for (int kk = 0; kk < CB; ++kk) {
+        T d[4];
+#pragma unroll
+        for (int q = 0; q < 4; q += V) gemm::lds16(ds + kk * LDD + xc + q, d + q);
+        const T sv = srow[kk];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) x[q] = fma(sv, d[q], x[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) rr[(xc + q) * LDX + row] = x[q];  // X_j^T, k-major for the update
+    }
+    __syncthreads();  // every read of S_j and D_j^T is done
+    const bool next_d = j + 1 < nb;
+    if (next_d) load_d(j + 1);
+    for (int row = xr; row < RS; row += 32) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) s[row * ld + k0 + xc + q] = rr[(xc + q) * LDX + row];
+    }
+    // S[:, c] -= sum_k X_j[:, k] C[c, k0 + k] for the columns c >= k0 + CB
+    for (int n0 = k0 + CB; n0 < m; n0 += BN) {
+      const bool first = n0 == k0 + CB;
+      gemm::zero<TL>(acc);
+      if (!first) {
+        gemm::kpanel_async<T, BK, BN, THREADS, VEC>(bs, LDB, ct, m, k0, m, n0, m, tid);
+        gemm::cp_async_commit();
+      }
+#pragma unroll
+      for (int kt = 0; kt < CB / BK; ++kt) {
+        const int cur = kt & 1;
+        if (kt == 0 && first && next_d) {
+          gemm::cp_async_wait<1>();  // stage 0, not D_{j+1}^T
+        } else {
+          gemm::cp_async_wait<0>();
+        }
+        __syncthreads();  // stage kt (and, at kt = 0, X_j^T) is in; stage kt - 1 is done
+        if (kt + 1 < CB / BK) {
+          gemm::kpanel_async<T, BK, BN, THREADS, VEC>(bs + (cur ^ 1) * BK * LDB, LDB, ct, m,
+                                                       k0 + (kt + 1) * BK, m, n0, m, tid);
+          gemm::cp_async_commit();
+        }
+        gemm::mma_live<TL, BK>(t, rr + kt * BK * LDX, LDX, bs + cur * BK * LDB, LDB, acc, m - n0);
+      }
+#pragma unroll
+      for (int i = 0; i < 2 * V; ++i) {
+        const int row = t.row(i);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = n0 + t.col(h * V);
+          if (col < m) {
+            gemm::Vec16<T>* p = reinterpret_cast<gemm::Vec16<T>*>(s + row * ld + col);
+            gemm::Vec16<T> v = *p;
+#pragma unroll
+            for (int e = 0; e < V; ++e) v.v[e] -= acc[i][h * V + e];
+            *p = v;
+          }
+        }
+      }
+      __syncthreads();  // the update is in s, and the C stages are free, before the next pass
     }
   }
   __syncthreads();
 
-  // ---- phase 2: X C^T = s, in place, one 32-column block at a time -----
-  constexpr int RPT = RS / (THREADS / CB);  // rows of a column block per thread
-  const int cc0 = tid % CB, rq = tid / CB;
-  for (int cb = 0; cb < m; cb += CB) {
-    T acc[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) acc[i] = T(0);
-    for (int k0 = 0; k0 < cb; k0 += CB) {
-      for (int e = tid; e < CB * CB; e += THREADS) {
-        const int cc = e / CB, kk = e % CB;
-        const int gc = cb + cc;
-        cs[cc * (CB + 1) + kk] = gc < m ? c[static_cast<size_t>(gc) * m + k0 + kk] : T(0);
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < CB; ++kk) {
-        const T cv = cs[cc0 * (CB + 1) + kk];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) acc[i] += s[(rq + (THREADS / CB) * i) * ld + k0 + kk] * cv;
-      }
-      __syncthreads();
+  // ---- write the strip's valid rows ------------------------------------
+  const int rows = m - r0 < RS ? m - r0 : RS;
+  if (VEC) {
+    const int per_row = m / V;
+    for (int e = tid; e < rows * per_row; e += THREADS) {
+      const int row = e / per_row, col = (e % per_row) * V;
+      *reinterpret_cast<gemm::Vec16<T>*>(o + static_cast<size_t>(r0 + row) * m + col) =
+          *reinterpret_cast<const gemm::Vec16<T>*>(s + row * ld + col);
     }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) s[(rq + (THREADS / CB) * i) * ld + cb + cc0] -= acc[i];
-    for (int e = tid; e < CB * CB; e += THREADS) {
-      const int cc = e / CB, kk = e % CB;
-      const int gc = cb + cc, gk = cb + kk;
-      cs[cc * (CB + 1) + kk] = (gc < m && gk < m) ? c[static_cast<size_t>(gc) * m + gk]
-                                                  : (cc == kk ? T(1) : T(0));
+  } else {
+    for (int e = tid; e < rows * m; e += THREADS) {
+      const int row = e / m, col = e % m;
+      o[static_cast<size_t>(r0 + row) * m + col] = s[row * ld + col];
     }
-    __syncthreads();
-    if (tid < RS) {  // diagonal block: one row per thread
-      T xr[CB];
-#pragma unroll
-      for (int cc = 0; cc < CB; ++cc) {
-        T v = s[tid * ld + cb + cc];
-#pragma unroll
-        for (int q = 0; q < cc; ++q) v -= xr[q] * cs[cc * (CB + 1) + q];
-        xr[cc] = v / cs[cc * (CB + 1) + cc];
-      }
-#pragma unroll
-      for (int cc = 0; cc < CB; ++cc) s[tid * ld + cb + cc] = xr[cc];
-    }
-    __syncthreads();
-  }
-
-  // ---- write the strip's valid rows, coalesced along each row ----------
-  for (int row = 0; row < RS && r0 + row < m; ++row) {
-    T* orow = o + static_cast<size_t>(r0 + row) * m;
-    for (int col = tid; col < m; col += THREADS) orow[col] = s[row * ld + col];
   }
 }
 
+// vec: 16-byte loads, which need m to be a multiple of 16 / sizeof(T).  ct
+// (G, m, m) and dt (G, ceil(m/32), 32, 32) are the caller's workspace.
 template <typename T, int RS>
-cudaError_t launch_rs(const void* w, const void* l, const void* y, const void* c, void* o,
-                      int n_tiles, int m, cudaStream_t stream) {
-  const size_t bytes = smem_elems<RS>(m) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      carry_kernel<T, RS>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(n_tiles, (m + RS - 1) / RS);
-  carry_kernel<T, RS><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(w), static_cast<const T*>(l), static_cast<const T*>(y),
-      static_cast<const T*>(c), static_cast<T*>(o), m);
-  return cudaGetLastError();
-}
-
-// The widest strip that fits in shared memory, from RS_MAX down to 16.
-template <typename T, int RS_MAX>
-int launch(const void* w, const void* l, const void* y, const void* c, void* o, int n_tiles,
-           int m, int device, void* stream) {
+int launch(const void* w, const void* l, const void* y, const void* c, void* ct, void* dt, void* o,
+           int n_tiles, int m, int vec, int device, void* stream) {
   cudaError_t err = repro_set_device(device);
   if (err != cudaSuccess) return err;
   if (n_tiles == 0 || m == 0) return cudaSuccess;
+  if (vec && m % (16 / static_cast<int>(sizeof(T))) != 0) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if constexpr (RS_MAX >= 64) {
-    if (smem_elems<64>(m) * sizeof(T) <= MAX_SMEM)
-      return launch_rs<T, 64>(w, l, y, c, o, n_tiles, m, st);
-  }
-  if (smem_elems<32>(m) * sizeof(T) <= MAX_SMEM)
-    return launch_rs<T, 32>(w, l, y, c, o, n_tiles, m, st);
-  if (smem_elems<16>(m) * sizeof(T) <= MAX_SMEM)
-    return launch_rs<T, 16>(w, l, y, c, o, n_tiles, m, st);
-  return cudaErrorInvalidValue;  // the strip of 16 rows does not fit
+  using S = Strip<T, RS>;
+  const size_t bytes = S::bytes(m);
+  if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
+  const int nb = (m + CB - 1) / CB, strips = (m + RS - 1) / RS;
+  const long long prep_blocks = static_cast<long long>(n_tiles) * nb;
+  const long long blocks = static_cast<long long>(n_tiles) * strips;
+  if (blocks > INT_MAX || prep_blocks > INT_MAX) return cudaErrorInvalidValue;
+  auto kernel = vec ? carry_kernel<T, RS, true> : carry_kernel<T, RS, false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  carry_prep<T><<<static_cast<int>(prep_blocks), THREADS, 0, st>>>(
+      static_cast<const T*>(c), static_cast<T*>(ct), static_cast<T*>(dt), m, nb);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<int>(blocks), THREADS, bytes, st>>>(
+      static_cast<const T*>(w), static_cast<const T*>(l), static_cast<const T*>(y),
+      static_cast<const T*>(ct), static_cast<const T*>(dt), static_cast<T*>(o), m);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-REPRO_EXPORT int carry_update_f32(const void* w, const void* l, const void* y, const void* c,
-                                  void* o, int n_tiles, int m, int device, void* stream) {
-  return launch<float, 64>(w, l, y, c, o, n_tiles, m, device, stream);
+REPRO_EXPORT int carry_update_f32(const void* w, const void* l, const void* y, const void* c, void* ct,
+                                  void* dt, void* o, int n_tiles, int m, int vec, int device, void* stream) {
+  return launch<float, 32>(w, l, y, c, ct, dt, o, n_tiles, m, vec, device, stream);
 }
 
-REPRO_EXPORT int carry_update_f64(const void* w, const void* l, const void* y, const void* c,
-                                  void* o, int n_tiles, int m, int device, void* stream) {
-  return launch<double, 32>(w, l, y, c, o, n_tiles, m, device, stream);
+REPRO_EXPORT int carry_update_f64(const void* w, const void* l, const void* y, const void* c, void* ct,
+                                  void* dt, void* o, int n_tiles, int m, int vec, int device, void* stream) {
+  return launch<double, 16>(w, l, y, c, ct, dt, o, n_tiles, m, vec, device, stream);
+}
+
+// CTAs of the float32 kernel with 16-byte loads that fit on one SM at tile
+// size m; a negative CUDA error code on failure.
+REPRO_EXPORT int carry_update_f32_ctas_per_sm(int m) {
+  const size_t bytes = Strip<float, 32>::bytes(m);
+  auto kernel = carry_kernel<float, 32, true>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  int n = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, THREADS, bytes);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }

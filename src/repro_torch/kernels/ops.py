@@ -20,10 +20,21 @@ tensor it runs the kernel's plain version.  No ``try`` falls back from one
 to the other.  Each op carries a plain integer ``launches`` that it bumps
 where it launches its kernel, and nowhere else, so a run can show that it
 went through the kernels (:func:`launch_counts`).
+
+Gradients, as the reference's ``_with_ref_vjp`` keeps them: when grad mode
+is on and an operand requires grad, ``potrf``, ``trsm``, ``trail``,
+``lrgemm`` and ``cov_tiles`` run through :class:`_RefGrad`, whose forward is
+the kernel (the plain version on the CPU) and whose backward differentiates
+the op's differentiable reference (:data:`GRAD_REFS`; for ``cov_tiles`` the
+plain tile, whose hyperparameters the kernel reads as floats) on the saved
+inputs.  Otherwise they launch exactly as without autograd.
+``carry_update`` and ``flash_attention`` have no backward in the reference:
+on the card they raise rather than return a detached result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import torch
@@ -45,11 +56,75 @@ def _on_cuda(t: torch.Tensor, op: str) -> bool:
     raise ValueError(f"{op}: no kernel or plain version for device {t.device}")
 
 
+def _wants_grad(*operands) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in operands
+    )
+
+
+def _potrf_ref(a):
+    return torch.linalg.cholesky(a)
+
+
+def _trsm_ref(l, b):
+    return torch.linalg.solve_triangular(l.mT, b, upper=True, left=False)
+
+
+# The differentiable function each op's backward differentiates: the
+# reference's jnp tile ops (``_potrf_ref``, ``_trsm_ref``, the SYRK/GEMM
+# matmuls and ``a @ v``).  The plain POTRF and TRSM loops write into their
+# own outputs in place, which autograd cannot go back through, so those two
+# take the torch.linalg functions the reference takes.
+GRAD_REFS = {
+    "potrf": _potrf_ref,
+    "trsm": _trsm_ref,
+    "trail": _trail.trail_plain,
+    "lrgemm": _lrgemm.lrgemm_plain,
+}
+
+
+class _RefGrad(torch.autograd.Function):
+    """Forward: ``kernel(*args)``; backward: autograd of ``ref`` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, kernel, ref, *args):
+        ctx.ref = ref
+        ctx.save_for_backward(*args)
+        return kernel(*args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            args = [a.detach().requires_grad_(n) for a, n in zip(ctx.saved_tensors, needs)]
+            wrt = [a for a, n in zip(args, needs) if n]
+            got = iter(torch.autograd.grad(ctx.ref(*args), wrt, grad, allow_unused=True))
+        return (None, None, *(next(got) if n else None for n in needs))
+
+
+def _run(name: str, kernel, *args, ref=None):
+    """``kernel(*args)``, through :class:`_RefGrad` when an operand needs a gradient.
+
+    The backward differentiates ``ref``, by default ``GRAD_REFS[name]``.
+    """
+    if _wants_grad(*args):
+        return _RefGrad.apply(kernel, ref or GRAD_REFS[name], *args)
+    return kernel(*args)
+
+
+def _no_backward(op: str, *operands) -> None:
+    if _wants_grad(*operands):
+        raise RuntimeError(
+            f"{op} has no backward (the reference gives it none): call it under "
+            "torch.no_grad() or on operands that do not require grad"
+        )
+
+
 def potrf(a: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factors of a (G, m, m) stack."""
     if not _on_cuda(a, "potrf"):
-        return _potrf.potrf_plain(a)
-    out = _potrf.potrf_cuda(a)
+        return _run("potrf", _potrf.potrf_plain, a)
+    out = _run("potrf", _potrf.potrf_cuda, a)
     potrf.launches += 1
     return out
 
@@ -57,8 +132,8 @@ def potrf(a: torch.Tensor) -> torch.Tensor:
 def trsm(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """X with X L^T = B for (G, m, m) stacks of L and B."""
     if not _on_cuda(b, "trsm"):
-        return _trsm.trsm_plain(l, b)
-    out = _trsm.trsm_cuda(l, b)
+        return _run("trsm", _trsm.trsm_plain, l, b)
+    out = _run("trsm", _trsm.trsm_cuda, l, b)
     trsm.launches += 1
     return out
 
@@ -69,7 +144,7 @@ def trail(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, update_dtype=None) 
         a, b = a.to(update_dtype), b.to(update_dtype)
     if not _on_cuda(c, "trail"):
         return _trail.trail_plain(c, a, b)
-    out = _trail.trail_cuda(c, a, b)
+    out = _run("trail", _trail.trail_cuda, c, a, b)
     trail.launches += 1
     return out
 
@@ -90,10 +165,17 @@ def cov_tiles(
             xa, xb, row0, col0, n_valid_r, n_valid_c, params,
             symmetric=symmetric, kernel=kernel,
         )
-    out = _cov.cov_tiles_cuda(
-        xa, xb, row0, col0, n_valid_r, n_valid_c, params,
-        symmetric=symmetric, kernel=kernel,
-    )
+    # the hyperparameters that are tensors are operands of _RefGrad, the rest stay bound
+    names = [f.name for f in dataclasses.fields(params) if isinstance(getattr(params, f.name), torch.Tensor)]
+
+    def bound(fn):
+        def tiles(xa, xb, *values):
+            p = dataclasses.replace(params, **dict(zip(names, values)))
+            return fn(xa, xb, row0, col0, n_valid_r, n_valid_c, p, symmetric=symmetric, kernel=kernel)
+        return tiles
+
+    out = _run("cov_tiles", bound(_cov.cov_tiles_cuda), xa, xb, *(getattr(params, n) for n in names),
+               ref=bound(_cov.cov_tiles_plain))
     cov_tiles.launches += 1
     return out
 
@@ -102,6 +184,7 @@ def carry_update(w: torch.Tensor, l: torch.Tensor, y: torch.Tensor, c: torch.Ten
     """(W - L Y) C^{-T} for (G, m, m) stacks (the fused UCARRY step)."""
     if not _on_cuda(w, "carry_update"):
         return _carry.carry_update_plain(w, l, y, c)
+    _no_backward("carry_update", w, l, y, c)
     out = _carry.carry_update_cuda(w, l, y, c)
     carry_update.launches += 1
     return out
@@ -111,7 +194,7 @@ def lrgemm(kflat: torch.Tensor, v: torch.Tensor, a_idx: torch.Tensor, b_idx: tor
     """(G, m) tile matvecs ``kflat[a[g]] @ v[b[g]]`` of (T, m, mb) tiles and (M, mb) chunks."""
     if not _on_cuda(kflat, "lrgemm"):
         return _lrgemm.lrgemm_plain(kflat, v, a_idx, b_idx)
-    out = _lrgemm.lrgemm_cuda(kflat, v, a_idx, b_idx)
+    out = _run("lrgemm", _lrgemm.lrgemm_cuda, kflat, v, a_idx, b_idx)
     lrgemm.launches += 1
     return out
 
@@ -122,6 +205,7 @@ def flash_attention(
     """(B, S, H, hd) attention of q over (B, T, KV, hd) keys and values, in q's type."""
     if not _on_cuda(q, "flash_attention"):
         return _flash.flash_attention_plain(q, k, v, causal=causal, softcap=softcap, window=window)
+    _no_backward("flash_attention", q, k, v)
     out = _flash.flash_attention_cuda(q, k, v, causal=causal, softcap=softcap, window=window)
     flash_attention.launches += 1
     return out

@@ -4,7 +4,13 @@ Replaces ``repro/kernels/trailing_update.py::_update_kernel``.  One launch
 covers every SYRK and GEMM task of a level (SYRK passes the same panel tile
 as A and B).  Products accumulate in float32 for float32 and bfloat16
 operands and in float64 for float64; with ``update_dtype=bfloat16`` only A
-and B are bfloat16, C and the result keep the storage type.  The source,
+and B are bfloat16, C and the result keep the storage type.  The kernel is
+a register-blocked SIMT product in IEEE FMA (never TF32): 128 x 128 output
+tiles per 256-thread CTA (64 x 64 for float64), each thread 8 x 8 (4 x 4)
+accumulators, two-stage pipelined loads.  :func:`trail_variant` picks
+64 x 64 tiles (32 x 32 for float64) for launches of fewer big tiles than
+half the card's SMs, and the scalar-load instantiation when rows are not
+16-byte aligned (m not a multiple of 16 / sizeof(operand)).  The source,
 with what bounds it on the H100 and what the design does about it, is
 ``csrc/trailing_update.cu``.
 """
@@ -30,6 +36,21 @@ def trail_plain(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tens
     return (c.to(acc) - upd).to(c.dtype)
 
 
+# a launch of fewer big tiles than half the H100's 132 SMs takes small ones
+# (measured at m = 512: small tiles win at G <= 4, big ones from G = 8)
+SMALL_LAUNCH_TILES = 66
+
+
+def trail_variant(g: int, m: int, operand_dtype: torch.dtype) -> tuple:
+    """(big, vec) of the launch: big output tiles (128 x 128; 64 x 64 for
+    float64) unless ``g`` tasks make fewer of them than half the card's SMs,
+    and 16-byte loads when m allows them."""
+    edge = 64 if operand_dtype == torch.float64 else 128  # the big tile's edge
+    big = g * (-(-m // edge)) ** 2 >= SMALL_LAUNCH_TILES
+    vec = m % (16 // operand_dtype.itemsize) == 0
+    return big, vec
+
+
 def trail_cuda(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on (G, m, m) stacks C, A and B."""
     name = _LAUNCHERS.get((a.dtype, c.dtype))
@@ -45,9 +66,11 @@ def trail_cuda(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tenso
     if not (c.is_contiguous() and a.is_contiguous() and b.is_contiguous()):
         raise ValueError("trail takes contiguous stacks")
     out = torch.empty_like(c)
+    big, vec = trail_variant(c.shape[0], c.shape[1], a.dtype)
+    vec = vec and all(t.data_ptr() % 16 == 0 for t in (c, a, b, out))
     lib = _build.load("trailing_update")
     code = getattr(lib, name)(
-        c.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), c.shape[0], c.shape[1],
+        c.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), c.shape[0], c.shape[1], int(big), int(vec),
         c.device.index, torch.cuda.current_stream(c.device).cuda_stream,
     )
     _build.check(lib, code, "trail")

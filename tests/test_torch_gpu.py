@@ -13,10 +13,10 @@ import pytest
 import torch
 
 from repro_torch import configs
-from repro_torch.core import GaussianProcess
+from repro_torch.core import GaussianProcess, executor, lowrank, tiling, triangular
 from repro_torch.core import kernels_math as km
 from repro_torch.kernels import (
-    carry_update, cov_assembly, flash_attention, lrgemm_tile, ops, potrf_tile, trailing_update, trsm_tile,
+    _build, carry_update, cov_assembly, flash_attention, lrgemm_tile, ops, potrf_tile, trailing_update, trsm_tile,
 )
 from repro_torch.models import transformer as tf
 
@@ -31,18 +31,29 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype,m,tol", [(torch.float32, 100, 1e-3), (torch.float64, 64, 1e-10)])
-def test_kernels_match_plain(cuda, dtype, m, tol):
+# TRAIL's instantiations: G in {1, 3, 40} takes both tile sizes and m in
+# {77, 129} the scalar loads (tests/test_torch_kernels.py checks the grid
+# reaches every (tile, load width) of trailing_update.trail_variant)
+TRAIL_GRID = [(g, m) for g in (1, 3, 40) for m in (16, 77, 100, 128, 129, 512)]
+
+
+@pytest.mark.parametrize(
+    "dtype,g,m,tol",
+    [(torch.float32, 3, 100, 1e-3), (torch.float64, 3, 64, 1e-10)]
+    + [(torch.float32, g, m, 1e-3) for g, m in TRAIL_GRID if (g, m) != (3, 100)]
+    + [(torch.float64, g, m, 1e-10) for g, m in TRAIL_GRID],
+)
+def test_kernels_match_plain(cuda, dtype, g, m, tol):
     gen = torch.Generator().manual_seed(0)
-    r = torch.randn(3, m, m, generator=gen, dtype=dtype)
+    r = torch.randn(g, m, m, generator=gen, dtype=dtype)
     spd = (r @ r.mT / m + torch.eye(m, dtype=dtype)).to(cuda)
-    rhs = torch.randn(3, m, m, generator=gen, dtype=dtype).to(cuda)
+    rhs = torch.randn(g, m, m, generator=gen, dtype=dtype).to(cuda)
     lo = potrf_tile.potrf_plain(spd)
     ops.reset_launch_counts()
     assert (ops.potrf(spd) - lo).abs().max() <= tol * m
     assert (ops.trsm(lo, rhs) - trsm_tile.trsm_plain(lo, rhs)).abs().max() <= tol * m
     assert (ops.trail(spd, lo, rhs) - trailing_update.trail_plain(spd, lo, rhs)).abs().max() <= tol * m
-    x = torch.randn(3, m, 3, generator=gen, dtype=dtype).to(cuda)
+    x = torch.randn(g, m, 3, generator=gen, dtype=dtype).to(cuda)
     p = km.SEKernelParams(1.3, 0.8, 0.05)
     for sym in (True, False):
         got = ops.cov_tiles(x, x, 0, 0, m - 5, m - 9, p, symmetric=sym)
@@ -58,10 +69,14 @@ def test_kernels_match_plain(cuda, dtype, m, tol):
 @pytest.mark.parametrize(
     "dtype,g,m,tol",
     [(torch.float32, 3, 512, 1e-3), (torch.float32, 4, 100, 1e-3), (torch.float64, 3, 77, 1e-10),
-     (torch.float64, 2, 512, 1e-10)],
+     (torch.float64, 2, 512, 1e-10), (torch.float32, 3, 77, 1e-3), (torch.float32, 2, 256, 1e-3),
+     (torch.float64, 4, 100, 1e-10), (torch.float64, 2, 256, 1e-10)],
 )
 def test_carry_update_matches_plain(cuda, dtype, g, m, tol):
-    """(W - L Y) C^{-T}: the kernel against its plain version, C = chol(I + R R^T / m)."""
+    """(W - L Y) C^{-T}: the kernel against its plain version, C = chol(I + R R^T / m).
+
+    m = 77 and 100 take the scalar loads in float64 (77 also in float32).
+    """
     gen = torch.Generator().manual_seed(3)
     w, l, y, r = (torch.randn(g, m, m, generator=gen, dtype=dtype) / m**0.5 for _ in range(4))
     c = potrf_tile.potrf_plain(torch.eye(m, dtype=dtype) + r @ r.mT)
@@ -121,14 +136,97 @@ def test_gp_lowrank_on_the_card_matches_cpu(cuda):
     assert counts["lrgemm"] == 2 + 2 + 2 and counts["cov_tiles"] == 2 + 2 + 2 + 1
 
 
-def test_trail_bf16_operands(cuda):
+@pytest.mark.parametrize("g,m", [(5, 96)] + TRAIL_GRID)
+def test_trail_bf16_operands(cuda, g, m):
+    """bf16 A and B with float32 C; m = 77, 100 and 129 take the scalar loads (rows of 8 bf16)."""
     gen = torch.Generator().manual_seed(1)
-    c, a, b = (torch.randn(5, 96, 96, generator=gen).to(cuda) for _ in range(3))
+    c, a, b = (torch.randn(g, m, m, generator=gen).to(cuda) for _ in range(3))
     bf = torch.bfloat16
     got = ops.trail(c, a, b, bf)
     want = trailing_update.trail_plain(c, a.to(bf), b.to(bf))
     assert got.dtype == torch.float32
     assert (got - want).abs().max() <= 1e-3
+
+
+def test_carry_two_ctas_per_sm(cuda):
+    """Two CTAs of the float32 carry kernel fit on an SM at gp_16k's tile (m = 512)."""
+    assert _build.load("carry_update").carry_update_f32_ctas_per_sm(512) >= 2
+
+
+def test_grad_lowrank_nlml_on_the_card_matches_cpu(cuda):
+    """The low-rank NLML's gradient in the hyperparameters, through every kernel of the build on the card.
+
+    float32 within 1e-4 of the largest component; float64 each component within 1e-8 of its own size.
+    """
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn(1024, 4, generator=gen) / 2
+    y = torch.sin(x.sum(-1))
+
+    def grads(device, dtype=torch.float32):
+        p = [torch.tensor(v, dtype=dtype, device=device, requires_grad=True) for v in (1.0, 1.0, 0.1)]
+        st = lowrank.lowrank_state(x, y, km.SEKernelParams(*p), 128, 64, dtype=dtype, device=device)
+        return [g.cpu() for g in torch.autograd.grad(lowrank.nlml_from_lowrank_state(st), p)]
+
+    ops.reset_launch_counts()
+    got = grads(cuda)
+    counts = ops.launch_counts()
+    want = grads("cpu")
+    assert all(counts[k] > 0 for k in ("cov_tiles", "potrf", "trsm", "trail", "lrgemm")), counts
+    scale = max(float(w.abs()) for w in want)
+    assert max(float((g - w).abs()) for g, w in zip(got, want)) <= 1e-4 * scale
+    for g, w in zip(grads(cuda, torch.float64), grads("cpu", torch.float64)):
+        assert float((g - w).abs()) <= 1e-8 * max(1.0, float(w.abs()))
+
+
+def test_grad_tiled_logdet_on_the_card_matches_cpu(cuda):
+    """d log det K / dK through the tiled Cholesky (POTRF, TRSM, TRAIL kernels), float32."""
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(512, 4, generator=gen)
+    k = km.assemble_covariance(x, km.SEKernelParams(1.0, 1.0, 0.5))
+
+    def grad(device):
+        kd = k.to(device).requires_grad_()
+        lp = executor.run_cholesky(tiling.pack_lower(kd, 64), device=device)
+        return torch.autograd.grad(triangular.logdet_from_factor(lp, 8), kd)[0].cpu()
+
+    ops.reset_launch_counts()
+    got = grad(cuda)
+    assert ops.launch_counts()["trail"] > 0
+    want = grad("cpu")
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_ops_without_a_backward_raise_under_grad(cuda):
+    w, l, y = (torch.randn(2, 32, 32, device=cuda) for _ in range(3))
+    c = torch.eye(32, device=cuda).expand(2, 32, 32).contiguous()
+    with pytest.raises(RuntimeError, match="carry_update"):
+        ops.carry_update(w.requires_grad_(), l, y, c)
+    with torch.no_grad():
+        assert ops.carry_update(w, l, y, c).grad_fn is None
+    q, k, v = (torch.randn(1, 64, 2, 32, device=cuda) for _ in range(3))
+    with pytest.raises(RuntimeError, match="flash_attention"):
+        ops.flash_attention(q, k.requires_grad_(), v)
+
+
+def test_gp_leaves_the_callers_tf32_flags(cuda):
+    """A GP on the card computes in IEEE float32 and gives the caller's TF32 flags back."""
+    gen = torch.Generator().manual_seed(10)
+    x = torch.randn(300, 4, generator=gen)
+    y = torch.sin(x.sum(-1))
+    xt = torch.randn(50, 4, generator=gen)
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    before = (matmul.allow_tf32, cudnn.allow_tf32)
+    try:
+        results = []
+        for flags in ((True, True), (False, False)):
+            matmul.allow_tf32, cudnn.allow_tf32 = flags
+            gp = GaussianProcess(x, y, tile_size=64, device=cuda)
+            results.append(gp.predict_with_uncertainty(xt))
+            assert (matmul.allow_tf32, cudnn.allow_tf32) == flags
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = before
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
 
 
 def test_nonpositive_pivot_gives_nan(cuda):

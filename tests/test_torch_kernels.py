@@ -224,6 +224,20 @@ def test_trail_plain_bf16_operands_match_pallas(rng):
     assert np.abs(got.numpy() - want).max() / np.abs(want).max() < 0.02
 
 
+def test_trail_variant_rule():
+    """Big tiles from half the H100's SMs' worth of them (128 x 128; 64 x 64 for float64), 16-byte loads
+    when a row is whole vectors; the gpu tests' grid reaches every (tile, load width) pair."""
+    f32, bf, f64 = torch.float32, torch.bfloat16, torch.float64
+    v = trailing_update.trail_variant
+    assert v(496, 512, f32) == (True, True) and v(8, 512, f32) == (True, True)
+    assert v(4, 512, f32) == (False, True) and v(1, 512, bf) == (False, True)
+    assert v(40, 129, f32) == (True, False) and v(3, 100, bf) == (False, False) and v(3, 100, f32) == (False, True)
+    assert v(17, 512, f64) == (True, True) and v(1, 512, f64) == (False, True)
+    grid = [(g, m) for g in (1, 3, 40) for m in (16, 77, 100, 128, 129, 512)]
+    for dt in (f32, bf, f64):
+        assert {v(g, m, dt) for g, m in grid} == {(True, True), (True, False), (False, True), (False, False)}
+
+
 def test_cpu_tensors_take_the_plain_versions_and_count_nothing(rng):
     ops.reset_launch_counts()
     k = T(_spd(rng, 8)[None])

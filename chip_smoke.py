@@ -17,7 +17,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
             and beside ``torch.baddbmm``, and
             TRAIL's and carry's TFLOP/s, ptxas registers and spills (must
             be 0), CTAs per SM and tensor-core instructions in the float32
-            SASS (must be 0);
+            SASS (must be 0); carry also at m = 2048, past its tallest
+            strip, in float32 and float64;
    grad     gradients through the kernels on the card against the CPU's (a
             low-rank NLML in float32 and float64, and a tiled log-det);
             carry_update and
@@ -42,7 +43,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
             ``predict`` and in one sliding-window step (``torch.profiler``);
 8. kernel.lrgemm  the low-rank tier's kernel at the gp_256k build's shape
             (G = 2048 tiles of 512 x 512, float32) against its plain version,
-            plus float64, odd G and mb != m; times it beside ``torch.bmm``;
+            plus float64, odd G and mb != m; times it beside ``torch.bmm``
+            (TB/s of both);
 9. lowrank  gp_256k_lowrank (n_train = 262144, n_test = 16384, tile 512,
             m_inducing = 2048): a cold ``predict``, a cold
             ``predict_with_uncertainty`` and a warm ``predict`` of
@@ -59,7 +61,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
             (B = 4, S = T = 2048, 8 query heads on 4 KV heads, hd = 256,
             softcap 50, bf16) against its plain version, plus the local
             window at S = 8192, a ragged S and float32; times it beside
-            ``scaled_dot_product_attention``;
+            ``scaled_dot_product_attention``; fails on a spill in any
+            instantiation, on a bf16 one without HGMMA, or on ptxas
+            serializing its wgmma;
 13. lm      gemma2-2b at full width (26 layers, d_model 2304, bf16, random
             weights from the seed) serves two batches, 4 prompts of 2048
             tokens and 1 of 8192, each a prefill (``cache_len`` = S + 16)
@@ -69,7 +73,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
             cast to float32;
 14. timing.lm, profile.lm  prefill seconds and tokens/s, decode ms per
             step, peak memory; one prefill and one decode step under
-            ``torch.profiler`` (flash and matmul shares, idle share).
+            ``torch.profiler`` (flash and matmul shares, idle share; a
+            prefill that profiles 0 ms of flash fails).
 
 Every phase prints one JSON line.  The kernels' summary, the nvidia-smi line
 and, last, ``{"ok": true, "device": {...}}`` follow.  Any failed check exits
@@ -107,6 +112,8 @@ LOWRANK_KERNELS = MAIN_KERNELS + ("lrgemm",)
 NO_LAUNCHES = {k: 0 for k in UPDATE_KERNELS + ("lrgemm", "flash_attention")}
 # the sliding-window path: a window of N_TRAIN rows, UPDATE_STEPS steps of one tile
 UPDATE_STEPS = 2
+# a carry tile past the tallest strip (32 rows float32, 16 float64: m <= 1472 / 1440)
+CARRY_BIG_M = 2048
 # gp_256k_lowrank: gp_256k's sizes (src/repro/configs/gp_msd.py:19) on the
 # Nystrom tier, m_inducing = 2048 (4 tiles), subset inducing points, jitter 1e-4
 LR_N_TRAIN = 262144
@@ -130,6 +137,9 @@ FLASH_CASES = {
     "ragged_b2_s1000": (2, 1000, torch.bfloat16, False, 1.0, 2e-2),
     "float32_b1_s1024_qx20": (1, 1024, torch.float32, False, 20.0, 5e-5),
 }
+
+# the flash kernels' names in a profile (the bf16 kernel of the served path, and float32)
+FLASH_KERNEL_NAMES = ("flash_wgmma_kernel", "flash_f32_kernel")
 
 # Published peaks of one H100 SXM (dense, at the 700 W limit): FP32 on the
 # CUDA cores, bf16 on the tensor cores, and HBM3 bandwidth.
@@ -477,8 +487,14 @@ def carry_label(name: str):
     return f"{_TYPES[k.group(1)]}/prep" if k else None
 
 
-def sass_mma_counts(source: str, label) -> dict:
-    """Tensor-core instructions (HMMA, HGMMA) in the SASS of each labelled kernel of ``csrc/<source>.cu``."""
+def flash_label(name: str):
+    """'bf16/hd256' for flash_wgmma_kernel<256>, 'float32/hd64' for flash_f32_kernel<64>."""
+    k = re.search(r"flash_(wgmma|f32)_kernelILi(\d+)E", name)
+    return f"{'bf16' if k.group(1) == 'wgmma' else 'float32'}/hd{k.group(2)}" if k else None
+
+
+def sass_mma_counts(source: str, label, ops=("HMMA", "HGMMA")) -> dict:
+    """Tensor-core instructions (by default HMMA and HGMMA) in the SASS of each labelled kernel of ``csrc/<source>.cu``."""
     from repro_torch.kernels import _build
 
     cuobjdump = str(Path(_build.nvcc_path()).parent / "cuobjdump")
@@ -488,7 +504,7 @@ def sass_mma_counts(source: str, label) -> dict:
     for fn in sass.split("Function : ")[1:]:
         name = label(fn.split(None, 1)[0])
         if name:
-            counts[name] = sum(len(re.findall(rf"\b{op}\b", fn)) for op in ("HMMA", "HGMMA"))
+            counts[name] = sum(len(re.findall(rf"\b{op}\b", fn)) for op in ops)
     return counts
 
 
@@ -860,6 +876,21 @@ def carry_phase(x_win, y_win, dev):
         key = f"{str(dt).split('.')[-1]}_m{mm}"
         edge[key] = max_err(ops.carry_update(ws, ls, ys, cs), carry_update.carry_update_plain(ws, ls, ys, cs))
         check(edge[key] <= tol_e, f"carry_update {key}: kernel disagrees with its plain version: {edge[key]}")
+    # a tile past the 32-row (float32) and 16-row (float64) strip: m = 2048 takes a shorter one
+    from repro_torch.kernels import _build
+
+    lib = _build.load("carry_update")
+    big = {"strip_rows_float32": lib.carry_update_f32_strip(CARRY_BIG_M),
+           "max_m": {"float32": lib.carry_update_max_m(0), "float64": lib.carry_update_max_m(1)}}
+    for dt, tol_e in ((torch.float32, 1e-3), (torch.float64, 1e-10)):
+        ws, ls, ys, rs = (torch.randn(2, CARRY_BIG_M, CARRY_BIG_M, generator=gen, dtype=dt).to(dev) / CARRY_BIG_M**0.5
+                          for _ in range(4))
+        cs = torch.linalg.cholesky(torch.eye(CARRY_BIG_M, dtype=dt, device=dev) + rs @ rs.mT).contiguous()
+        key = f"{str(dt).split('.')[-1]}_m{CARRY_BIG_M}"
+        edge[key] = max_err(ops.carry_update(ws, ls, ys, cs), carry_update.carry_update_plain(ws, ls, ys, cs))
+        big[f"{key}_ms"] = cuda_ms(lambda: ops.carry_update(ws, ls, ys, cs), 3)
+        check(edge[key] <= tol_e, f"carry_update {key}: kernel disagrees with its plain version: {edge[key]}")
+        del ws, ls, ys, rs, cs
     nbytes = 5 * wc.numel() * 4
     bnd = bound_ms(nbytes, 3 * g * m**3)
     row = dict(
@@ -879,13 +910,10 @@ def carry_phase(x_win, y_win, dev):
          "the product (K = 512) and the solve sum in another order; float64 on the same operands: "
          "1e-9 max(1, max|plain|)",
          library_call="two calls: torch.bmm, then torch.linalg.solve_triangular(C^T, left=False)",
-         f64_ms=cuda_ms(lambda: ops.carry_update(*d64), 5),
+         f64_ms=cuda_ms(lambda: ops.carry_update(*d64), 5), big_tile=big,
          **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     check(err <= tol, f"carry_update disagrees with its plain version: {err} > {tol}")
     check(err64 <= tol64, f"carry_update (float64) disagrees with its plain version: {err64} > {tol64}")
-    from repro_torch.kernels import _build
-
-    lib = _build.load("carry_update")
     ctas_per_sm = lib.carry_update_f32_ctas_per_sm(m)
     ptxas, mma = ptxas_report("carry_update", carry_label), sass_mma_counts("carry_update", carry_label)
     emit("kernel.carry_update.extra", shape=list(wc.shape), tflops=3 * g * m**3 / row["ms"] / 1e9,
@@ -1165,6 +1193,7 @@ def lrgemm_phase(x_lr, y_lr, dev):
     emit("kernel.lrgemm", shape=[g, m, m], max_abs_err=err, tol=tol, f64_max_abs_err=err64, f64_tol=tol64,
          edge_errors=edge, edge_tol="1e-4 (float32), 1e-12 (float64), times max(1, max|plain|)",
          max_abs_plain=scale, f64_ms=f64_ms, achieved_tb_per_s=nbytes / row["ms"] / 1e9,
+         library_tb_per_s=nbytes / row["library_ms"] / 1e9, kernel_over_library=row["ms"] / row["library_ms"],
          tol_reason="float32: sums of 512 products in another order, 1e-4 max(1, max|plain|); "
          "float64 on the same operands: 1e-12 max(1, max|plain|)",
          library_call="torch.bmm(K_un tiles, gathered y chunks) (cuBLAS), the gather not timed",
@@ -1514,13 +1543,41 @@ def flash_phase(dev):
          "2^-7 |o|): the reference's bf16 tolerance, 2e-2, per unit of max(1, |o|); float32: sums of "
          "exp-weighted terms in another order, the reference's 5e-5",
          ms_no_softcap=ms_no_cap, sdpa_vs_kernel_no_softcap_max_abs_err=err_sdpa,
-         achieved_tflops=no / row["ms"] / 1e9, other_shapes=extra,
+         softcap_over_no_softcap=row["ms"] / ms_no_cap, no_softcap_over_sdpa=ms_no_cap / row["library_ms"],
+         achieved_tflops=no / row["ms"] / 1e9, achieved_tflops_no_softcap=no / ms_no_cap / 1e9, other_shapes=extra,
          library_call="torch.nn.functional.scaled_dot_product_attention(is_causal=True, enable_gqa=True) "
          "on (B, H, S, hd) copies, no softcap: compare it with ms_no_softcap",
          **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     del served, q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
+    flash_build_quality()
     return row
+
+
+def flash_build_quality() -> None:
+    """The bf16 kernel runs on wgmma in every instantiation, without spills or serialized wgmma."""
+    from repro_torch.kernels import _build, flash_attention as fa
+
+    lib = _build.load("flash_attention")
+    ptxas = ptxas_report("flash_attention", flash_label)
+    hgmma = sass_mma_counts("flash_attention", flash_label, ops=("HGMMA",))
+    log = _build.build_log("flash_attention")
+    serialized, ignored = len(re.findall(r"\(C7512\)", log)), len(re.findall(r"\(C7508\)", log))
+    ctas = {f"hd{hd}": lib.flash_bf16_ctas_per_sm(hd) for hd in fa.HEAD_DIMS}
+    emit("kernel.flash.extra", names="flash_wgmma_kernel<hd> (bf16), flash_f32_kernel<hd> (float32)",
+         ptxas=ptxas, sass_hgmma_count=hgmma, ctas_per_sm=ctas,
+         registers_after_setmaxnreg={"consumer_warpgroups": 240, "producer_warpgroup": 24},
+         ptxas_wgmma_serialized_warnings=serialized, ptxas_setmaxnreg_ignored_warnings=ignored,
+         note="ptxas reports the launch's 168 registers a thread; setmaxnreg moves them to the consumers")
+    check_build_quality("flash_attention", ptxas, sass_mma_counts("flash_attention", flash_label))
+    bf16 = {k: v for k, v in ptxas.items() if k.startswith("bf16")}
+    check(len(bf16) == len(fa.HEAD_DIMS) and all(v.get("spill_store_bytes") == 0 and v.get("spill_load_bytes") == 0
+                                                for v in bf16.values()),
+          f"flash_attention: ptxas reports spills in a bf16 instantiation, or one is missing: {bf16}")
+    check(all(hgmma.get(k, 0) > 0 for k in bf16), f"flash_attention: no HGMMA in a bf16 instantiation: {hgmma}")
+    check(serialized == 0 and ignored == 0,
+          f"flash_attention: ptxas serialized wgmma ({serialized}) or ignored setmaxnreg ({ignored})")
+    check(all(n >= 1 for n in ctas.values()), f"flash_attention: a bf16 instantiation does not fit an SM: {ctas}")
 
 
 def serve(prefill, decode, model, prompts, steps, feed=None):
@@ -1673,12 +1730,16 @@ def phase_lm_profile(model, cfg, prompts):
     for call, fn in ((f"prefill {b} x {s}", lambda: prefill(model, prompt, cache_len=s + 1)),
                      (f"decode step at position {s}, batch {b}", lambda: decode(model, tok, s, caches))):
         rows, busy, wall = profile_call("profile.lm", f"{call}, gemma2-2b bf16", fn)
-        flash = sum(ms for name, _, ms in rows if "flash_mma_kernel" in name or "flash_f32_kernel" in name)
+        flash = sum(ms for name, _, ms in rows if any(k in name for k in FLASH_KERNEL_NAMES))
         mm = sum(ms for name, _, ms in rows if any(w in name.lower() for w in ("gemm", "nvjet", "xmma", "cutlass")))
         if rows:
             emit("profile.lm.shares", call=call, flash_ms=flash, flash_share_of_busy=flash / busy,
                  matmul_ms=mm, matmul_share_of_busy=mm / busy, other_ms=busy - flash - mm,
+                 flash_names=list(FLASH_KERNEL_NAMES),
                  matmul_names="kernel names holding gemm, nvjet, xmma or cutlass")
+            if call.startswith("prefill"):
+                check(flash > 0, f"profile.lm: the prefill profiled 0 ms of flash: no kernel named "
+                      f"{FLASH_KERNEL_NAMES} among {[r[0][:60] for r in rows[:14]]}")
 
 
 def main() -> None:

@@ -132,6 +132,9 @@ _SIGNATURES = {
 # launch-geometry queries some libraries export: (name, argtypes, restype)
 _QUERIES = (
     ("carry_update_f32_ctas_per_sm", [_I], _I),
+    ("carry_update_f32_strip", [_I], _I),
+    ("carry_update_max_m", [_I], _I),
+    ("flash_bf16_ctas_per_sm", [_I], _I),
     ("trail_f32_ctas_per_sm", [_I], _I),
 )
 

@@ -9,12 +9,13 @@ not ``L Y^T`` as in the trailing update.  float32 and float64 are kept.
 
 On the card a call is two launches: ``carry_prep`` writes C transposed and
 the inverses of its 32 x 32 diagonal blocks into workspace tensors, then
-``carry_kernel`` forms a strip of RS rows of W - L Y in shared memory and
-solves it right-looking, both on the register-blocked product core shared
-with the trailing update.  RS is 32 (float32) or 16 (float64), so that two
-CTAs fit on an SM at m = 512.  m is limited by the strip: up to 1472
-(float32) and 1440 (float64); a larger tile is refused with a CUDA "invalid
-argument" error.  The source,
+``carry_kernel`` forms a strip of W - L Y in shared memory and solves it
+right-looking, both on the register-blocked product core shared with the
+trailing update.  The strip is 32 rows (float32) or 16 (float64) wherever it
+fits, as at m = 512, where two CTAs share an SM; a larger tile takes a
+shorter strip (16, then 8 rows for float32; 8 for float64), which takes m up
+to 6816 (float32) and 3168 (float64).  Past that, the wrapper raises
+``ValueError``.  The source,
 with what bounds it on the H100 and what the design does about it, is
 ``csrc/carry_update.cu``.
 """
@@ -64,6 +65,12 @@ def carry_update_cuda(w: torch.Tensor, l: torch.Tensor, y: torch.Tensor, c: torc
     g, m = w.shape[0], w.shape[1]
     f64 = w.dtype == torch.float64
     lib = _build.load("carry_update")
+    limit = lib.carry_update_max_m(int(f64))
+    if m > limit:
+        raise ValueError(
+            f"carry_update takes tiles up to m = {limit} in {w.dtype} (the shortest strip of rows "
+            f"must fit in shared memory), got m = {m}"
+        )
     out = torch.empty_like(w)
     # workspace: C transposed, and the inverse of each 32 x 32 diagonal block, transposed
     ct = torch.empty_like(c)

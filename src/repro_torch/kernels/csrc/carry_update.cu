@@ -28,8 +28,9 @@
 // carry_kernel, one 256-thread block per (task, strip of RS rows of W).  The
 // rows of X in X C^T = B are independent, so a strip needs only its own rows
 // of W and L and the whole of Y and C (read through L2).  Both phases run on
-// the register-blocked product core of gemm_core.cuh, 8 x 8 float (4 x 4
-// double) accumulators per thread over an RS x BN pass (BN = 256 x 2V / TY):
+// the register-blocked product core of gemm_core.cuh, (2V) x (2V)
+// accumulators per thread (8 x 8 float, 4 x 4 double on the tall strips) over
+// an RS x BN pass (BN = 256 x 2V / TY):
 //   phase 1  the strip of B = W - L Y into shared memory.  Y is already
 //            k-major and streams with cp.async; the strip's L rows go through
 //            registers and are written transposed.  Two buffers, 8-deep
@@ -42,13 +43,20 @@
 //            shrinks with the columns left.  D_{j+1}^T is copied while block
 //            j's update runs, and the update's first C stage while X_j is
 //            formed, so neither copy waits in the open.
-// RS is 32 (float32) or 16 (float64), so that two CTAs fit on an SM at
-// m = 512 (float32: 108,288 bytes of shared memory and 128 registers per
-// CTA).  The Python wrapper picks the load width (16-byte vectors when m is
-// a multiple of 16 / sizeof(T), else the scalar-load instantiation).  m is
-// limited by the strip in shared memory: up to 1472 for float32 and 1440 for
-// float64; a larger tile is refused with a CUDA "invalid argument" error.
+// The strip is RS rows: 32 (float32) or 16 (float64) wherever it fits in
+// shared memory, which takes every tile up to m = 1472 (float32) and 1440
+// (float64), and gives two CTAs an SM at m = 512 (float32: 108,288 bytes of
+// shared memory and 128 registers per CTA).  A larger tile takes a shorter
+// strip, chosen by the launcher from Strip<T, RS>::bytes(m): 16 and then 8
+// rows (float32), 8 rows (float64), with thread tiles of (2V) x (2V), V =
+// min(RS / 8, one 16-byte vector), so that a warp still covers 4 x 8
+// threads of the product core.  That takes m up to 6816 (float32) and 3168
+// (float64); carry_update_max_m reports the limit, and the Python wrapper
+// refuses a larger tile with ValueError.  The wrapper picks the load width
+// (16-byte vectors when m is a multiple of 16 / sizeof(T), else the
+// scalar-load instantiation).
 #include <climits>
+#include <type_traits>
 
 #include "common.cuh"
 #include "gemm_core.cuh"
@@ -62,13 +70,15 @@ constexpr size_t MAX_SMEM = 232448;
 
 template <typename T, int RS>
 struct Strip {
-  static constexpr int V = 16 / sizeof(T);
+  static constexpr int CH = 16 / sizeof(T);              // elements of a 16-byte copy
+  static constexpr int V = RS / 8 < CH ? RS / 8 : CH;     // thread-tile vector: TY = RS / (2V) >= 4
   static constexpr int TY = RS / (2 * V);
-  using TL = gemm::Tile<T, TY, THREADS / TY>;
+  using TL = gemm::Tile<T, TY, THREADS / TY, V>;
   static constexpr int BN = TL::BN;
+  static constexpr int LDB = BN + CH;               // pitch of the streamed panel (16-byte rows)
   static constexpr int LDX = RS + V;                // pitch of region R: [k][strip row]
-  static constexpr int LDD = CB + V;                // pitch of D_j^T
-  static constexpr int B_ELEMS = 2 * BK * TL::LDB;  // two stages of the streamed panel
+  static constexpr int LDD = CB + CH;               // pitch of D_j^T
+  static constexpr int B_ELEMS = 2 * BK * LDB;      // two stages of the streamed panel
   static constexpr int R_ELEMS = CB * LDX;          // phase 1's L stages, then X_j^T
   static constexpr int D_ELEMS = CB * LDD;          // D_j^T
   static_assert(2 * BK <= CB, "the L stages fit in region R");
@@ -78,7 +88,21 @@ struct Strip {
   __host__ __device__ static size_t bytes(int m) {
     return (static_cast<size_t>(RS) * lds(m) + B_ELEMS + R_ELEMS + D_ELEMS) * sizeof(T);
   }
+  static bool fits(int m) { return bytes(m) <= MAX_SMEM; }
 };
+
+// Call f(std::integral_constant<int, RS>) with the tallest strip that fits
+// tile size m: 32, 16 or 8 rows (float32), 16 or 8 (float64).
+template <typename T, typename F>
+cudaError_t with_strip(int m, F&& f) {
+  constexpr int TALL = sizeof(T) == 4 ? 32 : 16;
+  if (Strip<T, TALL>::fits(m)) return f(std::integral_constant<int, TALL>{});
+  if constexpr (TALL == 32) {
+    if (Strip<T, 16>::fits(m)) return f(std::integral_constant<int, 16>{});
+  }
+  if (Strip<T, 8>::fits(m)) return f(std::integral_constant<int, 8>{});
+  return cudaErrorInvalidValue;
+}
 
 // Ct = C^T on and below the diagonal blocks, Dt[j] = C_jj^{-T}, for one (task, block column j).
 template <typename T>
@@ -132,7 +156,8 @@ __global__ void __launch_bounds__(THREADS, 2) carry_kernel(
     const T* __restrict__ ct_stack, const T* __restrict__ dt_stack, T* __restrict__ o_stack, int m) {
   using S = Strip<T, RS>;
   using TL = typename S::TL;
-  constexpr int V = S::V, BN = S::BN, LDB = TL::LDB, LDX = S::LDX, LDD = S::LDD;
+  constexpr int V = S::V, CH = S::CH, BN = S::BN, LDB = S::LDB, LDX = S::LDX, LDD = S::LDD;
+  using VecV = gemm::VecN<T, V>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ld = S::lds(m);
   T* s = reinterpret_cast<T*>(smem_raw);   // [RS][ld]: B, then X
@@ -189,17 +214,17 @@ __global__ void __launch_bounds__(THREADS, 2) carry_kernel(
       for (int h = 0; h < 2; ++h) {
         const int col = n0 + t.col(h * V);
         if (col >= mpad) continue;
-        gemm::Vec16<T> v;
+        VecV v;
         const T* wr = w + static_cast<size_t>(gr) * m + col;
         if (VEC && gr < m && col < m) {
-          v = *reinterpret_cast<const gemm::Vec16<T>*>(wr);
+          v = *reinterpret_cast<const VecV*>(wr);
         } else {
 #pragma unroll
           for (int e = 0; e < V; ++e) v.v[e] = (gr < m && col + e < m) ? wr[e] : T(0);
         }
 #pragma unroll
         for (int e = 0; e < V; ++e) v.v[e] -= acc[i][h * V + e];
-        *reinterpret_cast<gemm::Vec16<T>*>(s + row * ld + col) = v;
+        *reinterpret_cast<VecV*>(s + row * ld + col) = v;
       }
       asm volatile("" ::: "memory");  // one row of W in registers at a time, beside acc
     }
@@ -211,8 +236,8 @@ __global__ void __launch_bounds__(THREADS, 2) carry_kernel(
   // runs, and the update's first C stage while X_j = S_j D_j^T is formed.
   const int xr = tid / 8, xc = (tid % 8) * 4;
   auto load_d = [&](int j) {
-    for (int e = tid; e < CB * CB / V; e += THREADS)
-      gemm::cp_async16(ds + (e / (CB / V)) * LDD + (e % (CB / V)) * V, dt + j * CB * CB + e * V, true);
+    for (int e = tid; e < CB * CB / CH; e += THREADS)
+      gemm::cp_async16(ds + (e / (CB / CH)) * LDD + (e % (CB / CH)) * CH, dt + j * CB * CB + e * CH, true);
     gemm::cp_async_commit();
   };
   load_d(0);
@@ -235,7 +260,7 @@ __global__ void __launch_bounds__(THREADS, 2) carry_kernel(
       for (int kk = 0; kk < CB; ++kk) {
         T d[4];
 #pragma unroll
-        for (int q = 0; q < 4; q += V) gemm::lds16(ds + kk * LDD + xc + q, d + q);
+        for (int q = 0; q < 4; q += CH) gemm::lds16(ds + kk * LDD + xc + q, d + q);
         const T sv = srow[kk];
 #pragma unroll
         for (int q = 0; q < 4; ++q) x[q] = fma(sv, d[q], x[q]);
@@ -281,8 +306,8 @@ __global__ void __launch_bounds__(THREADS, 2) carry_kernel(
         for (int h = 0; h < 2; ++h) {
           const int col = n0 + t.col(h * V);
           if (col < m) {
-            gemm::Vec16<T>* p = reinterpret_cast<gemm::Vec16<T>*>(s + row * ld + col);
-            gemm::Vec16<T> v = *p;
+            VecV* p = reinterpret_cast<VecV*>(s + row * ld + col);
+            VecV v = *p;
 #pragma unroll
             for (int e = 0; e < V; ++e) v.v[e] -= acc[i][h * V + e];
             *p = v;
@@ -297,9 +322,9 @@ __global__ void __launch_bounds__(THREADS, 2) carry_kernel(
   // ---- write the strip's valid rows ------------------------------------
   const int rows = m - r0 < RS ? m - r0 : RS;
   if (VEC) {
-    const int per_row = m / V;
+    const int per_row = m / CH;
     for (int e = tid; e < rows * per_row; e += THREADS) {
-      const int row = e / per_row, col = (e % per_row) * V;
+      const int row = e / per_row, col = (e % per_row) * CH;
       *reinterpret_cast<gemm::Vec16<T>*>(o + static_cast<size_t>(r0 + row) * m + col) =
           *reinterpret_cast<const gemm::Vec16<T>*>(s + row * ld + col);
     }
@@ -312,8 +337,10 @@ __global__ void __launch_bounds__(THREADS, 2) carry_kernel(
 }
 
 // vec: 16-byte loads, which need m to be a multiple of 16 / sizeof(T).  ct
-// (G, m, m) and dt (G, ceil(m/32), 32, 32) are the caller's workspace.
-template <typename T, int RS>
+// (G, m, m) and dt (G, ceil(m/32), 32, 32) are the caller's workspace.  The
+// strip is the tallest that fits m (with_strip); past the shortest, the
+// launch is refused with cudaErrorInvalidValue.
+template <typename T>
 int launch(const void* w, const void* l, const void* y, const void* c, void* ct, void* dt, void* o,
            int n_tiles, int m, int vec, int device, void* stream) {
   cudaError_t err = repro_set_device(device);
@@ -321,46 +348,73 @@ int launch(const void* w, const void* l, const void* y, const void* c, void* ct,
   if (n_tiles == 0 || m == 0) return cudaSuccess;
   if (vec && m % (16 / static_cast<int>(sizeof(T))) != 0) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using S = Strip<T, RS>;
-  const size_t bytes = S::bytes(m);
-  if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
-  const int nb = (m + CB - 1) / CB, strips = (m + RS - 1) / RS;
-  const long long prep_blocks = static_cast<long long>(n_tiles) * nb;
-  const long long blocks = static_cast<long long>(n_tiles) * strips;
-  if (blocks > INT_MAX || prep_blocks > INT_MAX) return cudaErrorInvalidValue;
-  auto kernel = vec ? carry_kernel<T, RS, true> : carry_kernel<T, RS, false>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  carry_prep<T><<<static_cast<int>(prep_blocks), THREADS, 0, st>>>(
-      static_cast<const T*>(c), static_cast<T*>(ct), static_cast<T*>(dt), m, nb);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  kernel<<<static_cast<int>(blocks), THREADS, bytes, st>>>(
-      static_cast<const T*>(w), static_cast<const T*>(l), static_cast<const T*>(y),
-      static_cast<const T*>(ct), static_cast<const T*>(dt), static_cast<T*>(o), m);
-  return cudaGetLastError();
+  return with_strip<T>(m, [&](auto rs) -> cudaError_t {
+    constexpr int RS = decltype(rs)::value;
+    const size_t bytes = Strip<T, RS>::bytes(m);
+    const int nb = (m + CB - 1) / CB, strips = (m + RS - 1) / RS;
+    const long long prep_blocks = static_cast<long long>(n_tiles) * nb;
+    const long long blocks = static_cast<long long>(n_tiles) * strips;
+    if (blocks > INT_MAX || prep_blocks > INT_MAX) return cudaErrorInvalidValue;
+    auto kernel = vec ? carry_kernel<T, RS, true> : carry_kernel<T, RS, false>;
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (e != cudaSuccess) return e;
+    carry_prep<T><<<static_cast<int>(prep_blocks), THREADS, 0, st>>>(
+        static_cast<const T*>(c), static_cast<T*>(ct), static_cast<T*>(dt), m, nb);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    kernel<<<static_cast<int>(blocks), THREADS, bytes, st>>>(
+        static_cast<const T*>(w), static_cast<const T*>(l), static_cast<const T*>(y),
+        static_cast<const T*>(ct), static_cast<const T*>(dt), static_cast<T*>(o), m);
+    return cudaGetLastError();
+  });
+}
+
+// The largest tile size m that some strip fits.
+template <typename T>
+int max_m() {
+  int m = 1;
+  while (Strip<T, 8>::fits(m + 1)) ++m;
+  return m;
 }
 
 }  // namespace
 
 REPRO_EXPORT int carry_update_f32(const void* w, const void* l, const void* y, const void* c, void* ct,
                                   void* dt, void* o, int n_tiles, int m, int vec, int device, void* stream) {
-  return launch<float, 32>(w, l, y, c, ct, dt, o, n_tiles, m, vec, device, stream);
+  return launch<float>(w, l, y, c, ct, dt, o, n_tiles, m, vec, device, stream);
 }
 
 REPRO_EXPORT int carry_update_f64(const void* w, const void* l, const void* y, const void* c, void* ct,
                                   void* dt, void* o, int n_tiles, int m, int vec, int device, void* stream) {
-  return launch<double, 16>(w, l, y, c, ct, dt, o, n_tiles, m, vec, device, stream);
+  return launch<double>(w, l, y, c, ct, dt, o, n_tiles, m, vec, device, stream);
+}
+
+// Largest tile size the kernel takes: float32 (f64 == 0) or float64.
+REPRO_EXPORT int carry_update_max_m(int f64) { return f64 ? max_m<double>() : max_m<float>(); }
+
+// Strip height (rows) the float32 kernel runs at tile size m; 0 past the limit.
+REPRO_EXPORT int carry_update_f32_strip(int m) {
+  int rows = 0;
+  with_strip<float>(m, [&](auto rs) -> cudaError_t {
+    rows = decltype(rs)::value;
+    return cudaSuccess;
+  });
+  return rows;
 }
 
 // CTAs of the float32 kernel with 16-byte loads that fit on one SM at tile
 // size m; a negative CUDA error code on failure.
 REPRO_EXPORT int carry_update_f32_ctas_per_sm(int m) {
-  const size_t bytes = Strip<float, 32>::bytes(m);
-  auto kernel = carry_kernel<float, 32, true>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   int n = 0;
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, THREADS, bytes);
+  const cudaError_t err = with_strip<float>(m, [&](auto rs) -> cudaError_t {
+    constexpr int RS = decltype(rs)::value;
+    const size_t bytes = Strip<float, RS>::bytes(m);
+    auto kernel = carry_kernel<float, RS, true>;
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, THREADS, bytes);
+    return e;
+  });
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }

@@ -22,29 +22,48 @@
 //
 // What bounds it on the H100: operations.  It does 4 hd FLOP per unmasked
 // (query, key) pair and must move q, k, v and o once: at gemma2-2b's prefill
-// (B = 4, S = T = 2048, 8 heads on 4, hd = 256, bf16) 6.9e10 FLOP, 0.069 ms
+// (B = 4, S = T = 2048, 8 heads on 4, hd = 256, bf16) 6.9e10 FLOP, 0.0695 ms
 // at 989 TFLOP/s on the tensor cores, against 50 MB, 0.015 ms at 3.35 TB/s.
 // In float32 the CUDA cores' 67 TFLOP/s bound it the same way.
 //
-// Design (a first kernel; wgmma, TMA and warp specialisation are a later
-// PR's work).  Both paths take one block per (64 query rows, query head,
-// batch), stage the Q block once and each 64-key block of K and V in shared
-// memory, keep the row statistics m and l in registers, skip the causal
-// blocks above the diagonal and the blocks wholly left of the window, and
-// run the longest (last) query blocks first.
+// bf16 (the served path), flash_wgmma_kernel: only wgmma reaches the tensor
+// cores' full rate, so both products run on it, fed by TMA, in a
+// warp-specialised CTA of three warpgroups (384 threads, one CTA per SM):
 //
-// bf16 (the served path): tensor cores through mma.sync m16n8k16 (bf16 in,
-// float32 accumulate).  4 warps, each owning 16 query rows.  Q, K and V are
-// copied to shared memory as bf16 with cp.async (ragged rows zero-filled);
-// ldmatrix feeds the fragments (.trans for V, which is the product's
-// k-major operand).  S = Q K^T stays in the warp's accumulator registers;
-// the scale, cap, mask and online softmax run there, and P, rounded to
-// bf16, is the A operand of P V straight from those registers (the C and A
-// fragment layouts match), so neither S nor P touches shared memory.  The
-// output accumulator is 16 x hd per warp, hd / 2 floats a thread (128 at
-// hd = 256).  Row strides of hd + 8 elements put the 8 rows of an ldmatrix
-// phase on distinct banks.  At hd = 256 a block holds 99 KB: two blocks
-// (8 warps) per SM.
+//   producer   warpgroup 2 gives its registers away (setmaxnreg 24); one
+//              thread loads Q once, then keeps the K and V blocks of 64 keys
+//              in flight through a ring of 2 stages (hd = 256; 4 below), each
+//              stage with a full and an empty mbarrier for K and for V, so a
+//              K block is reloaded as soon as its S product is done;
+//   consumers  warpgroups 0 and 1 (setmaxnreg 240) each own 64 query rows:
+//              S = Q K^T by wgmma m64n64k16 with Q and K both K-major in
+//              shared memory, then O += P V by wgmma m64n{hd}k16 with P, the
+//              softmax weights rounded to bf16, as the A operand straight
+//              from the registers that held S (the accumulator and A
+//              fragment layouts match) and V read MN-major through the
+//              descriptor's transpose, never transposed in memory.
+//
+// GQA packing: a CTA takes the same 64 rows of two query heads of one KV
+// head, so each K and V block is loaded once for both (gemma2-2b: 8 heads on
+// 4, both heads of a KV head in one CTA, with one mask and one trip count);
+// with one query head per KV head it takes 128 rows of that head instead.
+// The tiles arrive by TMA as boxes of 64 rows x 128 bytes (hd / 64 boxes a
+// row at hd >= 64; 64- and 32-byte boxes at hd 32 and 16) in the swizzle that
+// the wgmma descriptors name, so the same bytes serve TMA and the tensor
+// cores without a bank conflict.  Q rows past S and keys past T arrive as
+// zeros (TMA's out-of-bounds fill); the output leaves through the Q slot of
+// shared memory by a TMA store, which drops the rows past S.
+//
+// Each consumer overlaps its softmax with the tensor cores: while the
+// product P_{n-1} V_{n-1} runs, it takes S_n = Q K_n^T (issued first) through
+// the cap, the mask and the exponentials, and rescales O once P V is done.
+// The softmax runs in base 2 with log2(e) folded into the scale, on
+// ex2.approx; the softcap is cap * (1 - 2 / (1 + 2^(2 log2(e) x / cap))),
+// exact to float32 rounding (about 1e-7 of cap), not tanh.approx (2^-11).
+// The element-wise mask runs only in the blocks that straddle the causal
+// diagonal, the window's edge or the ragged end of T; the CTA skips the
+// blocks wholly above the diagonal or left of the window, and the CTAs run
+// longest query blocks first.
 //
 // float32 (the smoke configurations and the tests): float32 FMA on the CUDA
 // cores, 256 threads, each owning a 4 x 4 tile of the 64 x 64 score block
@@ -54,18 +73,22 @@
 // key) into P V.  Row strides of hd + 4 floats keep the 16-byte reads of 8
 // consecutive rows off a shared bank.  At hd = 256 it holds 211 KB: one
 // block per SM.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <climits>
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 64;  // query rows of one block
+constexpr int BQ = 64;  // query rows of one block (float32) or one consumer warpgroup (bf16)
 constexpr int BK = 64;  // keys of one staged K/V block
 constexpr float NEG_INF = -1073741824.0f;  // -2^30, the Pallas kernel's NEG_INF
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr size_t MAX_SMEM = 232448;
 
 // -inf: a masked score, whose exp is exactly 0
@@ -81,54 +104,50 @@ __device__ __forceinline__ bool unmasked(int r, int c, int T_len, int causal, in
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync on the tensor cores
+// bf16: wgmma and TMA, warp-specialised
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_THREADS = 128;  // 4 warps x 16 query rows
+constexpr int WG = 128;                         // threads of a warpgroup
+constexpr int CONSUMERS = 2;                    // consumer warpgroups, 64 query rows each
+constexpr int WS_THREADS = (CONSUMERS + 1) * WG;  // and one producer warpgroup
 
 template <int HD>
-struct MmaLayout {
-  static constexpr int STRIDE = HD + 8;  // bf16 elements per shared row
+struct WsLayout {
+  static constexpr int SWB = 2 * HD < 128 ? 2 * HD : 128;  // bytes of a box row (the swizzle span)
+  static constexpr int BOXE = SWB / 2;                     // bf16 of a box row
+  static constexpr int NBOX = HD / BOXE;                   // boxes across hd
+  static constexpr uint32_t LAYOUT = SWB == 128 ? 1 : SWB == 64 ? 2 : 3;  // descriptor layout type
+  static constexpr int SWMASK = SWB / 16 - 1;              // 16-byte chunks XORed by the swizzle
+  static constexpr int STAGES = HD >= 256 ? 2 : 4;
+  static constexpr int BOX_BYTES = 64 * SWB;               // one box of 64 rows
+  static constexpr int TILE_BYTES = 64 * HD * 2;           // 64 rows: a Q slot, a K or a V stage
   static constexpr int q_off = 0;
-  static constexpr int k_off = BQ * STRIDE;
-  static constexpr int v_off = k_off + BK * STRIDE;
-  static constexpr size_t bytes = static_cast<size_t>(v_off + BK * STRIDE) * sizeof(__nv_bfloat16);
+  static constexpr int k_off = q_off + CONSUMERS * TILE_BYTES;
+  static constexpr int v_off = k_off + STAGES * TILE_BYTES;
+  static constexpr int bar_off = v_off + STAGES * TILE_BYTES;
+  // q_full, then k_full, v_full, k_empty, v_empty: STAGES each
+  static constexpr int N_BARS = 1 + 4 * STAGES;
+  static constexpr size_t bytes = bar_off + 8 * N_BARS + 1024;  // + alignment of the base to 1024
+  static_assert(bytes <= MAX_SMEM, "the CTA's shared memory does not fit one SM");
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+struct Softmax {
+  float scale_log2;  // log2(e) / sqrt(hd)
+  float cap_in;      // 2 log2(e) / (sqrt(hd) softcap)
+  float cap_out;     // softcap log2(e)
+  int use_cap, T_len, causal, window;
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// 16 bytes from global to shared memory, or 16 zero bytes when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16 x 16, row) b (16 x 8, col), bf16 in, float32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -146,150 +165,267 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Rows r0 .. r0 + ROWS - 1 of a (rows, HD) bf16 view into shared memory
-// (row stride MmaLayout<HD>::STRIDE); rows at or past n_rows are zero.
-template <int HD, int ROWS>
-__device__ __forceinline__ void stage_bf16(const __nv_bfloat16* __restrict__ base, long long row_stride,
-                                           int r0, int n_rows, __nv_bfloat16* dst) {
-  constexpr int CPR = HD / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < ROWS * CPR; c += MMA_THREADS) {
-    const int r = c / CPR, e = (c % CPR) * 8;
-    const bool ok = r0 + r < n_rows;
-    cp_async16(dst + r * MmaLayout<HD>::STRIDE + e,
-               ok ? base + static_cast<long long>(r0 + r) * row_stride + e : base, ok);
+// One block of 64 keys through the softmax, in base 2: s holds the thread's
+// raw scores of rows r and r + 8 (s[4j + {0,1}] and s[4j + {2,3}], keys col0
+// + 8j + 2t + {0,1}), and leaves their weights 2^(y - m') there.  m and l
+// are the running row max (base 2) and the thread's share of the row sum;
+// c the factor that rescales the output.  Without the cap, y = s scale_log2
+// is folded into the exponent's FMA (scale_log2 > 0 keeps the max).  MASK:
+// test each entry.
+template <bool CAP, bool MASK>
+__device__ __forceinline__ void softmax_block(float (&s)[32], float (&m)[2], float (&l)[2], float (&c)[2],
+                                              const Softmax& sm, int r, int col0, int t) {
+  float mx[2] = {masked_score(), masked_score()};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    float y = CAP ? fmaf(-2.f * sm.cap_out, rcp(1.f + ex2(s[i] * sm.cap_in)), sm.cap_out) : s[i];
+    if (MASK && !unmasked(r + 8 * h, col0 + 8 * (i >> 2) + 2 * t + (i & 1), sm.T_len, sm.causal, sm.window))
+      y = masked_score();
+    s[i] = y;
+    mx[h] = fmaxf(mx[h], y);
+  }
+  const float k = CAP ? 1.f : sm.scale_log2;
+  float m_new[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    m_new[h] = fmaxf(m[h], quad_max(mx[h]) * k);
+    c[h] = ex2(m[h] - m_new[h]);
+    m[h] = m_new[h];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    s[i] = ex2(fmaf(s[i], k, -m_new[h]));
+    sum[h] += s[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * c[h] + sum[h];
+}
+
+__device__ __forceinline__ void softmax_dispatch(float (&s)[32], float (&m)[2], float (&l)[2], float (&c)[2],
+                                                 const Softmax& sm, int r, int col0, int t, bool full) {
+  if (sm.use_cap) {
+    if (full) softmax_block<true, false>(s, m, l, c, sm, r, col0, t);
+    else softmax_block<true, true>(s, m, l, c, sm, r, col0, t);
+  } else {
+    if (full) softmax_block<false, false>(s, m, l, c, sm, r, col0, t);
+    else softmax_block<false, true>(s, m, l, c, sm, r, col0, t);
   }
 }
 
+// S = Q K^T: 64 rows x 64 keys, depth hd, both operands K-major in shared
+// memory.  Each descriptor is formed from an opaque copy of the base address
+// just before its wgmma, so the compiler cannot compute them all ahead and
+// hold them in registers beside O, S and P.
 template <int HD>
-__global__ void __launch_bounds__(MMA_THREADS, 2) flash_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S, int T_len, int H,
-    int KV, float scale, float softcap, int causal, int window) {
-  using L = MmaLayout<HD>;
-  constexpr int ST = L::STRIDE;
-  constexpr int NT = HD / 8;  // 8-column tiles of the output
-  extern __shared__ __align__(16) __nv_bfloat16 sm[];
-  __nv_bfloat16* qs = sm + L::q_off;
-  __nv_bfloat16* ks = sm + L::k_off;
-  __nv_bfloat16* vs = sm + L::v_off;
-
-  const int nq = (S + BQ - 1) / BQ;
-  const int row0 = (nq - 1 - static_cast<int>(blockIdx.x)) * BQ;  // longest blocks first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const long long q_stride = static_cast<long long>(H) * HD;
-  const long long kv_stride = static_cast<long long>(KV) * HD;
-  const __nv_bfloat16* qh = q + (static_cast<long long>(b) * S * H + h) * HD;
-  const __nv_bfloat16* kh = k + (static_cast<long long>(b) * T_len * KV + kvh) * HD;
-  const __nv_bfloat16* vh = v + (static_cast<long long>(b) * T_len * KV + kvh) * HD;
-  __nv_bfloat16* oh = o + (static_cast<long long>(b) * S * H + h) * HD;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane >> 2, t = lane & 3;  // fragment row group, thread in group
-  const int wr = warp * 16;               // the warp's first row in the block
-  // ldmatrix row addresses: lanes 8 mi .. 8 mi + 7 give the rows of matrix mi
-  const int lm_row = ((lane >> 3) & 1) * 8 + (lane & 7);
-  const int lm_col = (lane >> 4) * 8;
-
-  stage_bf16<HD, BQ>(qh, q_stride, row0, S, qs);
-
-  int col_lo = 0, col_hi = T_len - 1;
-  if (causal) col_hi = min(col_hi, row0 + BQ - 1);
-  if (window > 0) col_lo = max(0, row0 - window + 1);
-
-  float acc[NT][4];
+__device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t q_addr, uint32_t k_addr) {
+  using L = WsLayout<HD>;
+  hop::fence_regs(s);
+  hop::wgmma_fence();
 #pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_i[2] = {NEG_INF, NEG_INF}, l_i[2] = {0.f, 0.f};  // rows g and g + 8
-
-  for (int col0 = (col_lo / BK) * BK; col0 <= col_hi; col0 += BK) {
-    __syncthreads();  // every warp is done with the previous K and V
-    stage_bf16<HD, BK>(kh, kv_stride, col0, T_len, ks);
-    stage_bf16<HD, BK>(vh, kv_stride, col0, T_len, vs);
-    cp_async_wait_all();
-    __syncthreads();
-
-    // S = Q K^T for the warp's 16 rows and the block's 64 keys (8 tiles of 8)
-    float s[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < HD; kk += 16) {
-      uint32_t a[4];
-      ldmatrix_x4(a, qs + (wr + lm_row) * ST + kk + lm_col);
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        // matrices: (keys +0, k +0), (keys +0, k +8), (keys +8, k +0), (keys +8, k +8)
-        uint32_t bk[4];
-        ldmatrix_x4(bk, ks + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * ST + kk + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], a, bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
-      }
-    }
-
-    // scale, cap, mask (masked entries -inf, so exp gives 0), online softmax
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int r = row0 + wr + g + 8 * hr;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = col0 + 8 * n + 2 * t + e;
-          const float x = cap_scores(s[n][2 * hr + e], scale, softcap);
-          s[n][2 * hr + e] = unmasked(r, c, T_len, causal, window) ? x : masked_score();
-          mx = fmaxf(mx, s[n][2 * hr + e]);
-        }
-      const float m_new = fmaxf(m_i[hr], quad_max(mx));
-      const float corr = expf(m_i[hr] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = expf(s[n][2 * hr + e] - m_new);
-          s[n][2 * hr + e] = p;
-          sum += p;
-        }
-      l_i[hr] = l_i[hr] * corr + quad_sum(sum);
-      m_i[hr] = m_new;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        acc[n][2 * hr] *= corr;
-        acc[n][2 * hr + 1] *= corr;
-      }
-    }
-
-    // acc += P V: P's accumulator tiles (2 kc, 2 kc + 1) are the A fragment of keys 16 kc ..
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      a[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      a[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      a[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-      for (int np = 0; np < HD / 16; ++np) {
-        // transposed matrices: (keys +0, cols +0), (keys +8, cols +0), (keys +0, cols +8), (keys +8, cols +8)
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vs + (kc * 16 + lm_row) * ST + np * 16 + lm_col);
-        mma_bf16(acc[2 * np], a, bv[0], bv[1]);
-        mma_bf16(acc[2 * np + 1], a, bv[2], bv[3]);
-      }
-    }
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk * 32 / L::SWB) * L::BOX_BYTES + (kk * 32) % L::SWB;
+    hop::wgmma_ss_m64n64k16(s, hop::gmma_desc(hop::opaque(q_addr) + off, 16, 8 * L::SWB, L::LAYOUT),
+                            hop::gmma_desc(hop::opaque(k_addr) + off, 16, 8 * L::SWB, L::LAYOUT), kk > 0);
   }
-  cp_async_wait_all();  // the Q copy, when no key block was visited
+  hop::wgmma_commit();
+}
 
+// O += P V: P (64 x 64 keys) from registers, V (64 keys x hd) MN-major in shared memory.
+template <int HD>
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 2], const uint32_t (&p)[16], uint32_t v_addr) {
+  using L = WsLayout<HD>;
+  hop::fence_regs(o);
+  hop::wgmma_fence();
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = row0 + wr + g + 8 * hr;
-    if (r >= S) continue;
-    const float denom = fmaxf(l_i[hr], 1e-30f);
-    __nv_bfloat16* orow = oh + static_cast<long long>(r) * q_stride + 2 * t;
+  for (int kc = 0; kc < BK / 16; ++kc)
+    hop::WgmmaRS<HD>::mma(o, p[4 * kc], p[4 * kc + 1], p[4 * kc + 2], p[4 * kc + 3],
+                          hop::gmma_desc(hop::opaque(v_addr) + kc * 16 * L::SWB, L::BOX_BYTES, 8 * L::SWB, L::LAYOUT));
+  hop::wgmma_commit();
+}
+
+// P as bf16 A fragments: keys 16 kc .. 16 kc + 15 are p[4 kc .. 4 kc + 3].
+__device__ __forceinline__ void pack_p(uint32_t (&p)[16], const float (&s)[32]) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
-          __floats2bfloat162_rn(acc[n][2 * hr] / denom, acc[n][2 * hr + 1] / denom);
+  for (int k = 0; k < 16; ++k) p[k] = pack_bf16(s[2 * k], s[2 * k + 1]);
+}
+
+// Lane 0 of each warp arrives, after the warp's wgmma reads of the stage are done.
+__device__ __forceinline__ void warp_arrive(uint32_t bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) hop::mbar_arrive(bar);
+}
+
+// grid: one CTA per (query rows, head unit, batch), the longest query blocks
+// first.  A head unit is a KV head's pair of query heads (H / KV >= 2; an odd
+// last pair computes its one head twice and stores it once) or one query head
+// (H == KV, two blocks of 64 rows).
+template <int HD>
+__global__ void __launch_bounds__(WS_THREADS, 1) flash_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to, int S, int H, int KV,
+    int n_units, int n_row_blocks, Softmax sm) {
+  using L = WsLayout<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (hop::smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - hop::smem_u32(smem_raw));
+  const uint32_t q_full = base + L::bar_off;
+  auto bar = [&](int kind, int st) { return base + L::bar_off + 8 * (1 + kind * L::STAGES + st); };
+  enum { K_FULL = 0, V_FULL = 1, K_EMPTY = 2, V_EMPTY = 3 };
+
+  // the work item: rows and head of each consumer's 64-row slot
+  const int G = H / KV;
+  const int per_rb = gridDim.x / n_row_blocks;
+  const int rb = n_row_blocks - 1 - static_cast<int>(blockIdx.x) / per_rb;
+  const int rest = static_cast<int>(blockIdx.x) % per_rb;
+  const int b = rest / n_units, u = rest % n_units;
+  int head0, head1, row0, row1, kvh;
+  bool keep1;  // slot 1 holds rows of its own (else it repeats slot 0 and stores nothing)
+  if (G == 1) {
+    kvh = head0 = head1 = u;
+    row0 = rb * 2 * BQ;
+    keep1 = row0 + BQ < S;
+    row1 = keep1 ? row0 + BQ : row0;
+  } else {
+    const int pairs = (G + 1) / 2;
+    kvh = u / pairs;
+    head0 = kvh * G + 2 * (u % pairs);
+    keep1 = 2 * (u % pairs) + 1 < G;
+    head1 = keep1 ? head0 + 1 : head0;
+    row0 = row1 = rb * BQ;
+  }
+  // the key blocks a kept row needs: causal skipping above the last row, window skipping left of the first
+  const int last_row = min(row1 + BQ - 1, S - 1);
+  int col_lo = 0, col_hi = sm.T_len - 1;
+  if (sm.causal) col_hi = min(col_hi, last_row);
+  if (sm.window > 0) col_lo = max(0, row0 - sm.window + 1);
+  const int blk_lo = col_lo / BK;
+  const int n_blk = col_hi >= col_lo ? col_hi / BK - blk_lo + 1 : 0;
+
+  if (threadIdx.x == 0) {
+    hop::mbar_init(q_full, 1);
+    for (int st = 0; st < L::STAGES; ++st) {
+      hop::mbar_init(bar(K_FULL, st), 1);
+      hop::mbar_init(bar(V_FULL, st), 1);
+      hop::mbar_init(bar(K_EMPTY, st), CONSUMERS * 4);  // lane 0 of every consumer warp
+      hop::mbar_init(bar(V_EMPTY, st), CONSUMERS * 4);
+    }
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG;
+  if (wg == CONSUMERS) {
+    // ---- producer: Q once, then the K and V ring ----------------------------
+    hop::reg_dealloc<24>();
+    if (threadIdx.x == CONSUMERS * WG) {
+      hop::mbar_expect_tx(q_full, CONSUMERS * L::TILE_BYTES);
+      for (int slot = 0; slot < CONSUMERS; ++slot)
+        for (int bx = 0; bx < L::NBOX; ++bx)
+          hop::tma_load_4d(base + L::q_off + slot * L::TILE_BYTES + bx * L::BOX_BYTES, &tq, q_full,
+                           bx * L::BOXE, slot ? head1 : head0, slot ? row1 : row0, b);
+      for (int n = 0; n < n_blk; ++n) {
+        const int st = n % L::STAGES;
+        const uint32_t ph = (n / L::STAGES) & 1;
+        const int key0 = (blk_lo + n) * BK;
+        hop::mbar_wait(bar(K_EMPTY, st), ph ^ 1);
+        hop::mbar_expect_tx(bar(K_FULL, st), L::TILE_BYTES);
+        for (int bx = 0; bx < L::NBOX; ++bx)
+          hop::tma_load_4d(base + L::k_off + st * L::TILE_BYTES + bx * L::BOX_BYTES, &tk, bar(K_FULL, st),
+                           bx * L::BOXE, kvh, key0, b);
+        hop::mbar_wait(bar(V_EMPTY, st), ph ^ 1);
+        hop::mbar_expect_tx(bar(V_FULL, st), L::TILE_BYTES);
+        for (int bx = 0; bx < L::NBOX; ++bx)
+          hop::tma_load_4d(base + L::v_off + st * L::TILE_BYTES + bx * L::BOX_BYTES, &tv, bar(V_FULL, st),
+                           bx * L::BOXE, kvh, key0, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ---------------------------------------
+    hop::reg_alloc<240>();
+    const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int ra = wg ? row1 : row0;   // the warpgroup's first row
+    const int r = ra + warp * 16 + g;  // the thread's rows r and r + 8
+    const uint32_t q_addr = base + L::q_off + wg * L::TILE_BYTES;
+    auto k_addr = [&](int st) { return base + L::k_off + st * L::TILE_BYTES; };
+    auto v_addr = [&](int st) { return base + L::v_off + st * L::TILE_BYTES; };
+    // no entry of the block is masked for any of the warpgroup's rows
+    auto full = [&](int key0) {
+      return key0 + BK <= sm.T_len && (!sm.causal || key0 + BK - 1 <= ra) &&
+             (sm.window <= 0 || key0 > ra + BQ - 1 - sm.window);
+    };
+
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float s[32], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, c[2];
+    uint32_t p[16];
+
+    hop::mbar_wait(q_full, 0);
+    if (n_blk > 0) {
+      hop::mbar_wait(bar(K_FULL, 0), 0);
+      issue_qk<HD>(s, q_addr, k_addr(0));
+      hop::wgmma_wait<0>();
+      hop::fence_regs(s);
+      warp_arrive(bar(K_EMPTY, 0));
+      softmax_dispatch(s, m, l, c, sm, r, blk_lo * BK, t, full(blk_lo * BK));
+      pack_p(p, s);
+      for (int n = 1; n < n_blk; ++n) {
+        const int st = n % L::STAGES, pst = (n - 1) % L::STAGES;
+        const uint32_t ph = (n / L::STAGES) & 1, pph = ((n - 1) / L::STAGES) & 1;
+        const int key0 = (blk_lo + n) * BK;
+        hop::mbar_wait(bar(K_FULL, st), ph);
+        issue_qk<HD>(s, q_addr, k_addr(st));
+        hop::mbar_wait(bar(V_FULL, pst), pph);
+        issue_pv<HD>(o, p, v_addr(pst));
+        hop::wgmma_wait<1>();  // S_n is done; P_{n-1} V_{n-1} may still run
+        hop::fence_regs(s);
+        warp_arrive(bar(K_EMPTY, st));
+        softmax_dispatch(s, m, l, c, sm, r, key0, t, full(key0));
+        hop::wgmma_wait<0>();
+        hop::fence_regs(o);
+        hop::fence_regs(s);
+        warp_arrive(bar(V_EMPTY, pst));
+        if (__any_sync(0xffffffffu, c[0] != 1.f || c[1] != 1.f)) {  // a row max of the warp moved
+#pragma unroll
+          for (int i = 0; i < HD / 2; ++i) o[i] *= c[(i >> 1) & 1];
+        }
+        pack_p(p, s);
+      }
+      const int pst = (n_blk - 1) % L::STAGES;
+      hop::mbar_wait(bar(V_FULL, pst), ((n_blk - 1) / L::STAGES) & 1);
+      issue_pv<HD>(o, p, v_addr(pst));
+      hop::wgmma_wait<0>();
+      hop::fence_regs(o);
+    }
+
+    // O / l in bf16 into the warpgroup's Q slot, in the TMA box layout, then out by TMA
+    float inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) inv[h] = 1.f / fmaxf(quad_sum(l[h]), 1e-30f);
+    unsigned char* slot = smem + L::q_off + wg * L::TILE_BYTES;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rr = warp * 16 + g + 8 * h;
+        uint32_t off = (col / L::BOXE) * L::BOX_BYTES + rr * L::SWB + (col % L::BOXE) * 2;
+        off ^= (off & (L::SWMASK << 7)) >> 3;
+        *reinterpret_cast<uint32_t*>(slot + off) = pack_bf16(o[4 * j + 2 * h] * inv[h], o[4 * j + 2 * h + 1] * inv[h]);
+      }
+    }
+    hop::fence_proxy_async();
+    hop::named_barrier(1 + wg, WG);
+    if (tid == 0 && (wg == 0 || keep1)) {
+      for (int bx = 0; bx < L::NBOX; ++bx)
+        hop::tma_store_4d(&to, base + L::q_off + wg * L::TILE_BYTES + bx * L::BOX_BYTES, bx * L::BOXE,
+                          wg ? head1 : head0, ra, b);
+      hop::bulk_commit();
+      hop::bulk_wait_read();
+    }
   }
 }
 
@@ -463,7 +599,6 @@ __global__ void __launch_bounds__(F32_THREADS, 1) flash_f32_kernel(
     for (int c = 0; c < NC; ++c) orow[16 * c] = acc[i][c] / denom;
   }
 }
-
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
@@ -474,30 +609,96 @@ cudaError_t allow_smem(Kernel kern, size_t smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
 }
 
-template <typename T, int HD>
-cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len,
-                      int H, int KV, float scale, float softcap, int causal, int window,
-                      cudaStream_t stream) {
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  if constexpr (std::is_same<T, float>::value) {
-    constexpr size_t smem = F32Layout<HD>::bytes;
-    static_assert(smem <= MAX_SMEM, "the block's shared memory does not fit one SM");
-    const cudaError_t err = allow_smem(flash_f32_kernel<HD>, smem);
-    if (err != cudaSuccess) return err;
-    flash_f32_kernel<HD><<<grid, F32_THREADS, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), S, T_len, H, KV, scale, softcap, causal, window);
-  } else {
-    constexpr size_t smem = MmaLayout<HD>::bytes;
-    static_assert(smem <= MAX_SMEM, "the block's shared memory does not fit one SM");
-    const cudaError_t err = allow_smem(flash_mma_kernel<HD>, smem);
-    if (err != cudaSuccess) return err;
-    flash_mma_kernel<HD><<<grid, MMA_THREADS, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, T_len, H, KV, scale,
-        softcap, causal, window);
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, reached through the runtime's cudaGetDriverEntryPoint (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
+}
+
+// The tensor map of a contiguous bf16 (B, rows, heads, HD) array, in boxes
+// of 64 rows x one swizzle span of one head, zero-filled out of bounds.
+template <int HD>
+cudaError_t tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int rows, int heads) {
+  using L = WsLayout<HD>;
+  const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {HD * 2ull, HD * 2ull * heads, HD * 2ull * heads * rows};
+  const cuuint32_t box[4] = {L::BOXE, 1, BQ, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = L::SWB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : L::SWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+                              elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int HD>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len, int H,
+                        int KV, float scale, float softcap, int causal, int window, cudaStream_t stream) {
+  using L = WsLayout<HD>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv, to;
+  cudaError_t err = tensor_map<HD>(encode, &tq, q, B, S, H);
+  if (err == cudaSuccess) err = tensor_map<HD>(encode, &tk, k, B, T_len, KV);
+  if (err == cudaSuccess) err = tensor_map<HD>(encode, &tv, v, B, T_len, KV);
+  if (err == cudaSuccess) err = tensor_map<HD>(encode, &to, o, B, S, H);
+  if (err != cudaSuccess) return err;
+  const int G = H / KV;
+  const int rows = G == 1 ? 2 * BQ : BQ;  // query rows of a CTA
+  const int n_row_blocks = (S + rows - 1) / rows;
+  const int n_units = G == 1 ? H : KV * ((G + 1) / 2);
+  const long long grid = static_cast<long long>(n_row_blocks) * n_units * B;
+  if (grid > INT_MAX) return cudaErrorInvalidValue;
+  Softmax sm;
+  sm.scale_log2 = scale * LOG2E;
+  sm.use_cap = softcap > 0.f;
+  sm.cap_in = sm.use_cap ? 2.f * LOG2E * scale / softcap : 0.f;
+  sm.cap_out = sm.use_cap ? softcap * LOG2E : 0.f;
+  sm.T_len = T_len;
+  sm.causal = causal;
+  sm.window = window;
+  err = allow_smem(flash_wgmma_kernel<HD>, L::bytes);
+  if (err != cudaSuccess) return err;
+  flash_wgmma_kernel<HD><<<static_cast<int>(grid), WS_THREADS, L::bytes, stream>>>(tq, tk, tv, to, S, H, KV, n_units,
+                                                                                   n_row_blocks, sm);
   return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len, int H,
+                       int KV, float scale, float softcap, int causal, int window, cudaStream_t stream) {
+  const dim3 grid((S + BQ - 1) / BQ, H, B);
+  constexpr size_t smem = F32Layout<HD>::bytes;
+  static_assert(smem <= MAX_SMEM, "the block's shared memory does not fit one SM");
+  const cudaError_t err = allow_smem(flash_f32_kernel<HD>, smem);
+  if (err != cudaSuccess) return err;
+  flash_f32_kernel<HD><<<grid, F32_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), S, T_len, H, KV, scale, softcap, causal, window);
+  return cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len, int H,
+                      int KV, float scale, float softcap, int causal, int window, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value)
+    return launch_f32<HD>(q, k, v, o, B, S, T_len, H, KV, scale, softcap, causal, window, stream);
+  else
+    return launch_bf16<HD>(q, k, v, o, B, S, T_len, H, KV, scale, softcap, causal, window, stream);
 }
 
 // softcap <= 0: none; window <= 0: none (a window needs causal != 0).
@@ -537,4 +738,23 @@ REPRO_EXPORT int flash_attention_bf16(const void* q, const void* k, const void* 
                                       void* stream) {
   return launch<__nv_bfloat16>(q, k, v, o, B, S, T_len, H, KV, hd, scale, softcap, causal, window,
                                device, stream);
+}
+
+// CTAs of the bf16 kernel at head size hd that fit on one SM; a negative CUDA error code on failure.
+REPRO_EXPORT int flash_bf16_ctas_per_sm(int hd) {
+  int n = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  auto query = [&](auto kernel, size_t bytes) {
+    err = allow_smem(kernel, bytes);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, WS_THREADS, bytes);
+  };
+  switch (hd) {
+    case 16: query(flash_wgmma_kernel<16>, WsLayout<16>::bytes); break;
+    case 32: query(flash_wgmma_kernel<32>, WsLayout<32>::bytes); break;
+    case 64: query(flash_wgmma_kernel<64>, WsLayout<64>::bytes); break;
+    case 128: query(flash_wgmma_kernel<128>, WsLayout<128>::bytes); break;
+    case 256: query(flash_wgmma_kernel<256>, WsLayout<256>::bytes); break;
+    default: break;
+  }
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }

@@ -13,9 +13,9 @@ with no unmasked key gives 0.
 
 The plain version materialises the float32 scores (B, KV, H/KV, S, T); the
 kernel never holds more than a 64 x 64 block of them.  For bfloat16 inputs
-the kernel runs both products on the tensor cores and rounds the softmax
-weights P to bfloat16 for P V (2^-9 of each weight); float32 inputs stay
-float32 throughout.  The source, with what bounds it on the H100 and what
+the kernel runs both products on the tensor cores (wgmma, fed by TMA) and
+rounds the softmax weights P to bfloat16 for P V (2^-9 of each weight);
+float32 inputs stay float32 throughout.  The source, with what bounds it on the H100 and what
 the design does about it, is ``csrc/flash_attention.cu``.
 """
 

@@ -8,10 +8,12 @@ the chunk stack and the plan's index vectors and reads the tiles where they
 lie, so the K_un grid (2 GiB at gp_256k) is never gathered into a copy; the
 plain version gathers, then contracts.  ``mb`` may differ from ``m``.
 
-Precision: float32 operands sum in IEEE float32, as the Pallas body does;
-float64 operands stay float64, where the Pallas body casts them to float32.
-The source, with what bounds it on the H100 and what the design does about
-it, is ``csrc/lrgemm_tile.cu``.
+On the card one block of 8 warps takes 8 rows of a task, the blocks in the
+order of the rows in memory; rows on 16-byte boundaries are read as 16-byte
+vectors, an odd ``mb`` one element a lane.  Precision: float32 operands sum in IEEE float32, as the
+Pallas body does; float64 operands stay float64, where the Pallas body casts
+them to float32.  The source, with what bounds it on the H100 and what the
+design does about it, is ``csrc/lrgemm_tile.cu``.
 """
 
 from __future__ import annotations
@@ -61,7 +63,8 @@ def lrgemm_cuda(
     g = a_idx.shape[0]
     out = torch.empty((g, m), dtype=kflat.dtype, device=kflat.device)
     width = 16 // kflat.element_size()  # elements of one 16-byte vector load
-    vec = mb % width == 0 and kflat.data_ptr() % 16 == 0
+    # rows of A and of v on 16-byte boundaries: the kernel's vector loads
+    vec = mb % width == 0 and kflat.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0
     lib = _build.load("lrgemm_tile")
     fn = lib.lrgemm_f32 if kflat.dtype == torch.float32 else lib.lrgemm_f64
     code = fn(

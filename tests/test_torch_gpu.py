@@ -70,12 +70,14 @@ def test_kernels_match_plain(cuda, dtype, g, m, tol):
     "dtype,g,m,tol",
     [(torch.float32, 3, 512, 1e-3), (torch.float32, 4, 100, 1e-3), (torch.float64, 3, 77, 1e-10),
      (torch.float64, 2, 512, 1e-10), (torch.float32, 3, 77, 1e-3), (torch.float32, 2, 256, 1e-3),
-     (torch.float64, 4, 100, 1e-10), (torch.float64, 2, 256, 1e-10)],
+     (torch.float64, 4, 100, 1e-10), (torch.float64, 2, 256, 1e-10),
+     (torch.float32, 2, 2048, 1e-3), (torch.float64, 2, 2048, 1e-10)],
 )
 def test_carry_update_matches_plain(cuda, dtype, g, m, tol):
     """(W - L Y) C^{-T}: the kernel against its plain version, C = chol(I + R R^T / m).
 
-    m = 77 and 100 take the scalar loads in float64 (77 also in float32).
+    m = 77 and 100 take the scalar loads in float64 (77 also in float32);
+    m = 2048 takes a shorter strip than m <= 1472 (float32) and 1440 (float64).
     """
     gen = torch.Generator().manual_seed(3)
     w, l, y, r = (torch.randn(g, m, m, generator=gen, dtype=dtype) / m**0.5 for _ in range(4))
@@ -90,17 +92,27 @@ def test_carry_update_matches_plain(cuda, dtype, g, m, tol):
 
 
 @pytest.mark.parametrize(
-    "dtype,g,m,mb,tol",
-    [(torch.float32, 64, 512, 512, 1e-4), (torch.float32, 7, 100, 60, 1e-4),
-     (torch.float32, 5, 77, 45, 1e-4), (torch.float64, 7, 100, 60, 1e-12),
-     (torch.float64, 3, 512, 384, 1e-12), (torch.float64, 5, 33, 45, 1e-12)],
+    "dtype,g,m,mb,tol,repeated",
+    [(torch.float32, 64, 512, 512, 1e-4, False), (torch.float32, 7, 100, 60, 1e-4, False),
+     (torch.float32, 5, 77, 45, 1e-4, False), (torch.float64, 7, 100, 60, 1e-12, False),
+     (torch.float64, 3, 512, 384, 1e-12, False), (torch.float64, 5, 33, 45, 1e-12, False),
+     (torch.float32, 1, 512, 512, 1e-4, False), (torch.float32, 133, 512, 512, 1e-4, True),
+     (torch.float64, 133, 512, 512, 1e-12, True), (torch.float32, 300, 64, 2048, 1e-4, True),
+     (torch.float32, 9, 100, 45, 1e-4, True), (torch.float64, 270, 128, 256, 1e-12, False)],
 )
-def test_lrgemm_matches_plain(cuda, dtype, g, m, mb, tol):
-    """kflat[a[g]] @ v[b[g]]: odd G, mb != m, odd mb (the scalar path), both types."""
+def test_lrgemm_matches_plain(cuda, dtype, g, m, mb, tol, repeated):
+    """kflat[a[g]] @ v[b[g]]: odd G, mb != m, odd mb (the scalar path), both types.
+
+    G = 1 lies below one wave of the persistent grid (one CTA per SM), G =
+    133 is not a multiple of it; ``repeated`` draws a[g] with repeats.
+    """
     gen = torch.Generator().manual_seed(4)
     kflat = torch.randn(g + 3, m, mb, generator=gen, dtype=dtype).to(cuda)
     v = torch.randn(4, mb, generator=gen, dtype=dtype).to(cuda)
-    a = torch.randperm(g + 3, generator=gen)[:g].to(cuda)
+    if repeated:
+        a = torch.randint(0, g + 3, (g,), generator=gen).to(cuda)
+    else:
+        a = torch.randperm(g + 3, generator=gen)[:g].to(cuda)
     b = torch.randint(0, 4, (g,), generator=gen).to(cuda)
     ops.reset_launch_counts()
     got = ops.lrgemm(kflat, v, a, b)
@@ -113,6 +125,13 @@ def test_lrgemm_matches_plain(cuda, dtype, g, m, mb, tol):
     bad = lrgemm_tile.lrgemm_cuda(kflat, v, a, torch.full_like(b, 4))
     torch.cuda.synchronize()
     assert bool(torch.isnan(bad).all())
+    a_bad, b_bad = a.clone(), b.clone()
+    a_bad[::3], b_bad[1::3] = -1, 4
+    some = lrgemm_tile.lrgemm_cuda(kflat, v, a_bad, b_bad)
+    torch.cuda.synchronize()
+    out_of_range = (a_bad < 0) | (b_bad >= 4)
+    assert bool(torch.isnan(some[out_of_range]).all())
+    assert torch.equal(some[~out_of_range], got[~out_of_range])
 
 
 def test_gp_lowrank_on_the_card_matches_cpu(cuda):
@@ -149,8 +168,23 @@ def test_trail_bf16_operands(cuda, g, m):
 
 
 def test_carry_two_ctas_per_sm(cuda):
-    """Two CTAs of the float32 carry kernel fit on an SM at gp_16k's tile (m = 512)."""
-    assert _build.load("carry_update").carry_update_f32_ctas_per_sm(512) >= 2
+    """Two CTAs of the float32 carry kernel fit on an SM at gp_16k's tile (m = 512), on the 32-row strip."""
+    lib = _build.load("carry_update")
+    assert lib.carry_update_f32_ctas_per_sm(512) >= 2
+    assert lib.carry_update_f32_strip(512) == 32
+    assert [lib.carry_update_f32_strip(m) for m in (1472, 1473, 3232, 3233)] == [32, 16, 16, 8]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_carry_update_past_the_limit_raises(cuda, dtype):
+    """A tile past the shortest strip's limit is refused with ValueError, before any launch."""
+    limit = _build.load("carry_update").carry_update_max_m(int(dtype == torch.float64))
+    assert limit >= (3500 if dtype == torch.float32 else 1700)
+    w = torch.zeros(1, limit + 1, limit + 1, dtype=dtype, device=cuda)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match=f"up to m = {limit}"):
+        ops.carry_update(w, w, w, w)
+    assert ops.launch_counts()["carry_update"] == 0
 
 
 def test_grad_lowrank_nlml_on_the_card_matches_cpu(cuda):
@@ -295,23 +329,41 @@ def test_gp_tiled_matches_monolithic_on_the_card(cuda):
     assert counts["potrf"] == 5 and counts["cov_tiles"] == 3
 
 
-@pytest.mark.parametrize(
-    "dtype,b,s,t,h,kv,hd,causal,softcap,window,tol",
-    [(torch.float32, 2, 100, 100, 4, 2, 16, True, 10.0, None, 5e-5),
-     (torch.float32, 1, 96, 192, 2, 1, 64, False, None, None, 5e-5),
-     (torch.float32, 1, 130, 130, 2, 2, 128, True, None, 37, 5e-5),
-     (torch.bfloat16, 2, 77, 77, 8, 4, 256, True, 50.0, None, 2e-2),
-     (torch.bfloat16, 1, 300, 300, 8, 4, 256, True, 50.0, 100, 2e-2),
-     (torch.bfloat16, 1, 64, 64, 4, 4, 32, True, None, 1, 2e-2)],
+BF16_FLASH_CASES = (
+    # every head size, H / KV = 2 (one CTA takes both query heads of a KV head), softcap
+    [(torch.bfloat16, 2, 77, 77, 8, 4, hd, True, 50.0, None, 2e-2, 1.0) for hd in (16, 32, 64, 128)]
+    # H / KV = 1 (128 rows of one head a CTA) and 16 (pairs of heads), S != T both ways, ragged S and T
+    + [(torch.bfloat16, 1, 200, 333, 4, 4, 128, True, None, None, 2e-2, 1.0),
+       (torch.bfloat16, 2, 333, 200, 16, 1, 64, True, 50.0, None, 2e-2, 1.0),
+       (torch.bfloat16, 1, 190, 100, 2, 1, 256, True, None, 50, 2e-2, 1.0),
+       (torch.bfloat16, 2, 100, 190, 8, 4, 256, False, None, None, 2e-2, 1.0),
+       (torch.bfloat16, 1, 129, 129, 3, 1, 32, True, 30.0, None, 2e-2, 1.0)]
+    # a window of 1 and one as long as S; q x 20, so that the softcap bites
+    + [(torch.bfloat16, 1, 130, 130, 8, 4, 256, True, 50.0, 1, 2e-2, 1.0),
+       (torch.bfloat16, 1, 130, 130, 8, 4, 256, True, 50.0, 130, 2e-2, 1.0),
+       (torch.bfloat16, 2, 256, 256, 8, 4, 256, True, 50.0, None, 2e-2, 20.0),
+       (torch.bfloat16, 1, 300, 300, 2, 2, 64, True, 30.0, 100, 2e-2, 20.0)]
 )
-def test_flash_attention_matches_plain(cuda, dtype, b, s, t, h, kv, hd, causal, softcap, window, tol):
-    """Ragged S, S != T, every head size, softcap and window.
+
+
+@pytest.mark.parametrize(
+    "dtype,b,s,t,h,kv,hd,causal,softcap,window,tol,q_scale",
+    [(torch.float32, 2, 100, 100, 4, 2, 16, True, 10.0, None, 5e-5, 1.0),
+     (torch.float32, 1, 96, 192, 2, 1, 64, False, None, None, 5e-5, 1.0),
+     (torch.float32, 1, 130, 130, 2, 2, 128, True, None, 37, 5e-5, 1.0),
+     (torch.bfloat16, 2, 77, 77, 8, 4, 256, True, 50.0, None, 2e-2, 1.0),
+     (torch.bfloat16, 1, 300, 300, 8, 4, 256, True, 50.0, 100, 2e-2, 1.0),
+     (torch.bfloat16, 1, 64, 64, 4, 4, 32, True, None, 1, 2e-2, 1.0)]
+    + BF16_FLASH_CASES,
+)
+def test_flash_attention_matches_plain(cuda, dtype, b, s, t, h, kv, hd, causal, softcap, window, tol, q_scale):
+    """Ragged S, S != T, every head size, H / KV of 1, 2, 3 and 16, softcap and window.
 
     Tolerance per unit of max(1, |o|): bf16 rounds P (tensor cores) and the
     output (one ulp is up to 2^-7 |o|); float32 sums in another order.
     """
     gen = torch.Generator().manual_seed(6)
-    q = torch.randn(b, s, h, hd, generator=gen).to(cuda, dtype)
+    q = (torch.randn(b, s, h, hd, generator=gen) * q_scale).to(cuda, dtype)
     k, v = (torch.randn(b, t, kv, hd, generator=gen).to(cuda, dtype) for _ in range(2))
     ops.reset_launch_counts()
     got = ops.flash_attention(q, k, v, causal=causal, softcap=softcap, window=window)

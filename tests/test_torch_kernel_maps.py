@@ -1,0 +1,309 @@
+"""The work maps of the port's redesigned CUDA kernels, on the CPU.
+
+CUDA cannot run here, so this file mirrors in Python what the kernels decide
+from their shapes, and checks it:
+
+* ``csrc/flash_attention.cu``, the bf16 kernel: the CTA -> (batch, heads,
+  query rows) map (every row of every head stored once), the key blocks a
+  CTA loads (every unmasked key of its rows), the blocks it takes without
+  the element-wise mask (none of their entries masked), and a plain
+  rendition of its base-2 online softmax, with the rescale of O deferred
+  until P_{n-1} V_{n-1} is added and the softcap as 1 - 2 / (1 + 2^u), held
+  against the Pallas kernel (interpret mode) and the port's plain version;
+* ``csrc/carry_update.cu``: the strip heights that fit shared memory, and
+  the tile limits the wrapper and the notes state;
+* ``csrc/lrgemm_tile.cu``: the block -> (task, rows) map.
+
+``tests/test_torch_gpu.py`` holds the kernels themselves against their
+plain versions on the card.
+"""
+
+import math
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as pallas_flash_attention
+from repro_torch.kernels import carry_update, flash_attention, lrgemm_tile
+
+CSRC = Path(flash_attention.__file__).resolve().parent / "csrc"
+NEG_INF = -(2.0**30)
+LOG2E = 1.4426950408889634
+
+
+def source_int(name: str, source: str) -> int:
+    """The value of ``constexpr <int|size_t> name = <int>;`` in ``csrc/<source>.cu``."""
+    text = (CSRC / f"{source}.cu").read_text()
+    return int(re.search(rf"constexpr (?:int|size_t) {name} = (\d+);", text).group(1))
+
+
+# ---------------------------------------------------------------------------
+# flash attention (bf16 kernel)
+# ---------------------------------------------------------------------------
+
+BQ = BK = 64
+
+
+def flash_ctas(b, s, t, h, kv, causal, window):
+    """The kernel's CTAs in launch order: batch, KV head, two (head, first row, stored) slots, key blocks."""
+    g = h // kv
+    rows = 2 * BQ if g == 1 else BQ
+    n_row_blocks = -(-s // rows)
+    n_units = h if g == 1 else kv * -(-g // 2)
+    per_rb = n_units * b
+    for i in range(n_row_blocks * per_rb):
+        rb = n_row_blocks - 1 - i // per_rb
+        bb, u = divmod(i % per_rb, n_units)
+        if g == 1:
+            kvh = head0 = head1 = u
+            row0 = rb * 2 * BQ
+            keep1 = row0 + BQ < s
+            row1 = row0 + BQ if keep1 else row0
+        else:
+            pairs = -(-g // 2)
+            kvh = u // pairs
+            head0 = kvh * g + 2 * (u % pairs)
+            keep1 = 2 * (u % pairs) + 1 < g
+            head1 = head0 + 1 if keep1 else head0
+            row0 = row1 = rb * BQ
+        last_row = min(row1 + BQ - 1, s - 1)
+        col_lo, col_hi = 0, t - 1
+        if causal:
+            col_hi = min(col_hi, last_row)
+        if window:
+            col_lo = max(0, row0 - window + 1)
+        blk_lo = col_lo // BK
+        n_blk = col_hi // BK - blk_lo + 1 if col_hi >= col_lo else 0
+        yield {"b": bb, "kvh": kvh, "slots": [(head0, row0, True), (head1, row1, keep1)],
+               "blocks": range(blk_lo, blk_lo + n_blk)}
+
+
+def full_block(key0, ra, t, causal, window):
+    """The kernel's ``full``: no entry of keys key0 .. key0 + 63 is masked for rows ra .. ra + 63."""
+    return (key0 + BK <= t and (not causal or key0 + BK - 1 <= ra)
+            and (not window or key0 > ra + BQ - 1 - window))
+
+
+def unmasked(r, c, t, causal, window):
+    return c < t and (not causal or c <= r) and (not window or c > r - window)
+
+
+MAP_SHAPES = [
+    # (B, S, T, H, KV, causal, window): gemma2-2b's heads, H / KV of 1, 3 and 16, ragged S and T, S != T
+    (2, 200, 200, 8, 4, True, None), (1, 333, 200, 16, 1, True, None), (2, 130, 333, 4, 4, True, None),
+    (1, 129, 129, 3, 1, True, 1), (1, 300, 300, 8, 4, True, 100), (2, 100, 190, 8, 4, False, None),
+    (1, 190, 100, 2, 1, True, 50), (1, 257, 257, 2, 2, True, 257),
+]
+
+
+def test_flash_source_constants_are_the_mirrors():
+    assert source_int("BQ", "flash_attention") == BQ and source_int("BK", "flash_attention") == BK
+    assert source_int("CONSUMERS", "flash_attention") == 2
+    text = (CSRC / "flash_attention.cu").read_text()
+    assert "STAGES = HD >= 256 ? 2 : 4" in text
+    # the layout: two Q slots, then the K and V stages, then 1 + 4 STAGES barriers and the base's alignment
+    for hd in flash_attention.HEAD_DIMS:
+        stages = 2 if hd >= 256 else 4
+        tile = 64 * hd * 2
+        assert 2 * tile + 2 * stages * tile + 8 * (1 + 4 * stages) + 1024 <= source_int("MAX_SMEM", "flash_attention")
+
+
+@pytest.mark.parametrize("shape", MAP_SHAPES)
+def test_flash_map_stores_every_row_of_every_head_once(shape):
+    b, s, t, h, kv, causal, window = shape
+    stored = {}
+    for cta in flash_ctas(b, s, t, h, kv, causal, window):
+        for head, row0, keep in cta["slots"]:
+            assert head // (h // kv) == cta["kvh"]
+            if keep:
+                for r in range(row0, min(row0 + BQ, s)):
+                    key = (cta["b"], head, r)
+                    stored[key] = stored.get(key, 0) + 1
+    assert stored == {(bb, hh, r): 1 for bb in range(b) for hh in range(h) for r in range(s)}
+
+
+def test_flash_map_runs_the_longest_query_blocks_first():
+    rows0 = [cta["slots"][0][1] for cta in flash_ctas(4, 2048, 2048, 8, 4, True, None)]
+    assert rows0 == sorted(rows0, reverse=True) and len(rows0) == 4 * 4 * 32
+
+
+@pytest.mark.parametrize("shape", MAP_SHAPES)
+def test_flash_key_blocks_cover_every_unmasked_key_and_full_blocks_mask_nothing(shape):
+    b, s, t, h, kv, causal, window = shape
+    for cta in flash_ctas(b, s, t, h, kv, causal, window):
+        cols = range(cta["blocks"].start * BK, min(cta["blocks"].stop * BK, t))
+        for head, ra, keep in cta["slots"]:
+            for r in range(ra, min(ra + BQ, s)):
+                need = {c for c in range(t) if unmasked(r, c, t, causal, window)}
+                assert need <= set(cols), (cta, r)
+            for blk in cta["blocks"]:
+                if full_block(blk * BK, ra, t, causal, window):
+                    assert all(unmasked(r, c, t, causal, window)
+                               for r in range(ra, min(ra + BQ, s)) for c in range(blk * BK, blk * BK + BK))
+
+
+def capped_log2(x, scale, softcap):
+    """The kernel's scores in base 2: softcap (1 - 2 / (1 + 2^u)) log2(e), u = 2 log2(e) x scale / softcap."""
+    if softcap is None:
+        return x  # scaled in the exponent's FMA
+    e = torch.exp2(x * (2 * LOG2E * scale / softcap))
+    return (softcap * LOG2E) - (2 * softcap * LOG2E) / (1 + e)
+
+
+def flash_rendition(q, k, v, *, causal=True, softcap=None, window=None, round_p=False):
+    """The bf16 kernel's arithmetic on float32 tensors, CTA by CTA, consumer warpgroup by warpgroup."""
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    kf = 1.0 if softcap is not None else scale * LOG2E  # the factor between y and the exponent
+    pad = lambda x, n: torch.cat([x, x.new_zeros((n - x.shape[0],) + x.shape[1:])]) if x.shape[0] < n else x
+    out = torch.full_like(q, float("nan"))
+    for cta in flash_ctas(b, s, t, h, kv, causal, window):
+        bb, kvh = cta["b"], cta["kvh"]
+        for head, ra, keep in cta["slots"]:
+            qs = pad(q[bb, ra:ra + BQ, head], BQ)  # rows past S arrive as zeros
+            m = torch.full((BQ,), NEG_INF)
+            l = torch.zeros(BQ)
+            o = torch.zeros(BQ, hd)
+            prev = None
+            for n, blk in enumerate(cta["blocks"]):
+                key0 = blk * BK
+                kb, vb = (pad(x[bb, key0:key0 + BK, kvh], BK) for x in (k, v))  # keys past T: zeros
+                y = capped_log2(qs @ kb.T, scale, softcap)
+                if not full_block(key0, ra, t, causal, window):
+                    rr = torch.arange(ra, ra + BQ)[:, None]
+                    cc = torch.arange(key0, key0 + BK)[None, :]
+                    ok = (cc < t).expand(BQ, BK).clone()
+                    if causal:
+                        ok &= cc <= rr
+                    if window:
+                        ok &= cc > rr - window
+                    y = y.masked_fill(~ok, float("-inf"))
+                m_new = torch.maximum(m, y.amax(1) * kf)
+                c = torch.exp2(m - m_new)
+                p = torch.exp2(y * kf - m_new[:, None])
+                l = l * c + p.sum(1)
+                if prev is not None:  # P_{n-1} V_{n-1} lands, then O is rescaled
+                    o = (o + prev[0] @ prev[1]) * c[:, None]
+                prev = (p.bfloat16().float() if round_p else p, vb)
+                m = m_new
+            if prev is not None:
+                o = o + prev[0] @ prev[1]
+            if keep:
+                rows = min(BQ, s - ra)
+                out[bb, ra:ra + rows, head] = (o / l.clamp_min(1e-30)[:, None])[:rows]
+    return out
+
+
+@pytest.mark.parametrize("softcap", [None, 10.0])
+def test_flash_rendition_matches_pallas(rng, softcap):
+    b, s, h, kv, hd = 2, 128, 8, 4, 16
+    arrs = [rng.standard_normal((b, s, n, hd)).astype(np.float32) * 2 for n in (h, kv, kv)]
+    want = pallas_flash_attention(*(jnp.asarray(a) for a in arrs), causal=True, softcap=softcap,
+                                  block_q=32, block_k=32)
+    got = flash_rendition(*(torch.from_numpy(a) for a in arrs), softcap=softcap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5)
+
+
+@pytest.mark.parametrize("shape", MAP_SHAPES)
+@pytest.mark.parametrize("softcap", [None, 50.0])
+def test_flash_rendition_matches_the_plain_version(rng, shape, softcap):
+    """float32 throughout at 5e-5 (the reference's tolerance); P rounded to bf16 as the kernel does at 2e-2."""
+    b, s, t, h, kv, causal, window = shape
+    q = torch.from_numpy(rng.standard_normal((b, s, h, 32)).astype(np.float32) * 3)
+    k, v = (torch.from_numpy(rng.standard_normal((b, t, kv, 32)).astype(np.float32)) for _ in range(2))
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal, softcap=softcap, window=window)
+    got = flash_rendition(q, k, v, causal=causal, softcap=softcap, window=window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=5e-5)
+    got16 = flash_rendition(q, k, v, causal=causal, softcap=softcap, window=window, round_p=True)
+    assert float(((got16 - want).abs() / want.abs().clamp_min(1.0)).max()) <= 2e-2
+
+
+def test_softcap_identity_is_exact_to_float32_rounding():
+    """cap (1 - 2 / (1 + 2^(2 log2(e) x / cap))) against cap tanh(x / cap), in float32, |x| up to 40 cap."""
+    cap = np.float32(50.0)
+    x = np.linspace(-2000.0, 2000.0, 400001, dtype=np.float32)
+    u = x * np.float32(2 * LOG2E / 50.0)
+    with np.errstate(over="ignore"):
+        ident = cap - np.float32(2) * cap / (np.float32(1) + np.exp2(u))
+    exact = 50.0 * np.tanh(x.astype(np.float64) / 50.0)
+    assert np.isfinite(ident).all()
+    assert float(np.abs(ident - exact).max()) <= 4 * np.spacing(cap)  # a few ulp of the cap, about 1e-7 of it
+
+
+# ---------------------------------------------------------------------------
+# carry: the strip heights
+# ---------------------------------------------------------------------------
+
+
+def strip_bytes(m, rs, size):
+    """Strip<T, RS>::bytes(m): the strip, two stages of the streamed panel, region R and D_j^T."""
+    threads, cb, bk = (source_int(n, "carry_update") for n in ("THREADS", "CB", "BK"))
+    ch = 16 // size
+    v = min(rs // 8, ch)
+    ty = rs // (2 * v)
+    bn = 2 * v * (threads // ty)
+    lds = -(-m // 32) * 32 + 4
+    return (rs * lds + 2 * bk * (bn + ch) + cb * (rs + v) + cb * (cb + ch)) * size
+
+
+STRIPS = {4: (32, 16, 8), 8: (16, 8)}  # the launcher's strips, tallest first: float32, float64
+
+
+def strip_for(m, size):
+    limit = source_int("MAX_SMEM", "carry_update")
+    return next((rs for rs in STRIPS[size] if strip_bytes(m, rs, size) <= limit), None)
+
+
+def largest_m(rs, size):
+    limit = source_int("MAX_SMEM", "carry_update")
+    m = 1
+    while strip_bytes(m + 1, rs, size) <= limit:
+        m += 1
+    return m
+
+
+@pytest.mark.parametrize("size", [4, 8])
+def test_carry_keeps_the_tall_strip_at_m_512(size):
+    tall = STRIPS[size][0]
+    assert strip_for(512, size) == tall
+    # two CTAs an SM at m = 512 (228 KB of shared memory an SM, 1 KB of it reserved per CTA)
+    assert 2 * (strip_bytes(512, tall, size) + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("size,tall_limit,limit", [(4, 1472, 6816), (8, 1440, 3168)])
+def test_carry_limits_are_the_documented_ones(size, tall_limit, limit):
+    assert largest_m(STRIPS[size][0], size) == tall_limit
+    assert largest_m(STRIPS[size][-1], size) == limit
+    assert strip_for(2048, size) == (16 if size == 4 else 8) and strip_for(limit + 1, size) is None
+    note = (CSRC / "carry_update.cu").read_text()
+    assert str(limit) in carry_update.__doc__ and str(limit) in note and str(tall_limit) in note
+
+
+@pytest.mark.parametrize("size,rs", [(4, 32), (4, 16), (4, 8), (8, 16), (8, 8)])
+def test_carry_strip_thread_tiles_cover_the_strip(size, rs):
+    """V = min(RS / 8, a 16-byte vector): a warp still covers 4 x 8 threads, and the CTA's rows are the strip."""
+    v = min(rs // 8, 16 // size)
+    ty = rs // (2 * v)
+    assert ty % 4 == 0 and (256 // ty) % 8 == 0 and 2 * v * ty == rs
+
+
+# ---------------------------------------------------------------------------
+# LRGEMM: the block map
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("g,m", [(3, 512), (5, 100), (2, 7), (1, 8)])
+def test_lrgemm_blocks_cover_every_row_once_in_memory_order(g, m):
+    warps = source_int("WARPS", "lrgemm_tile")
+    row_blocks = -(-m // warps)
+    seen = []
+    for block in range(g * row_blocks):
+        task, rb = divmod(block, row_blocks)
+        seen += [(task, r) for r in range(rb * warps, min(rb * warps + warps, m))]
+    assert seen == [(task, r) for task in range(g) for r in range(m)]  # with a = arange: addresses ascend
+    assert "8 warps" in lrgemm_tile.__doc__

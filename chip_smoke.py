@@ -10,15 +10,20 @@ Run from the root of a checkout:  python3 chip_smoke.py
             version on its path's own tiles (gp_16k, m = 512, D = 16,
             float32), plus float64 and ragged-edge cases; times the kernel,
             the plain version and one PyTorch call of the same function;
-            POTRF also at float64, at G = 31 and at m = 1024, each beside
+            cov_tiles also at the CROSS launch (1024 tiles); POTRF also at
+            float64, at G = 31 and at m = 1024, each beside
             ``torch.linalg.cholesky``, with its ptxas registers and spills,
-            bitwise-equal repeats and NaN at a non-positive pivot; TRAIL
-            also at the append's launch sizes, against its plain version
-            and beside ``torch.baddbmm``, and
-            TRAIL's and carry's TFLOP/s, ptxas registers and spills (must
-            be 0), CTAs per SM and tensor-core instructions in the float32
-            SASS (must be 0); carry also at m = 2048, past its tallest
-            strip, in float32 and float64;
+            bitwise-equal repeats and NaN at a non-positive pivot; TRSM also
+            at G = 1, at float64, at gp_32k's m = 1024 (G = 1 and 31) and
+            over the cold call's 31 launches (G = 31 ... 1, summed), each
+            beside ``torch.linalg.solve_triangular``, with the strip each
+            launch runs; TRAIL also at the append's launch sizes, against
+            its plain version and beside ``torch.baddbmm``, and
+            TRAIL's and carry's TFLOP/s; for cov_tiles, TRSM (prep and
+            solve), TRAIL and carry the ptxas registers and spills (must
+            be 0) and tensor-core instructions in the float32 SASS (must be
+            0), CTAs per SM for TRAIL and carry; carry also at m = 2048,
+            past its tallest strip, in float32 and float64;
    grad     gradients through the kernels on the card against the CPU's (a
             low-rank NLML in float32 and float64, and a tiled log-det);
             carry_update and
@@ -277,7 +282,7 @@ def phase_build() -> None:
          ptxas=ptxas)
 
 
-def kernel_phases(x_train: np.ndarray, dev: torch.device):
+def kernel_phases(x_train: np.ndarray, x_test: np.ndarray, dev: torch.device):
     """Each kernel against its plain version on the main path's tiles."""
     from repro_torch.core import executor, kernels_math as km, scheduler as sch, tiling
     from repro_torch.kernels import cov_assembly, ops, potrf_tile, trailing_update, trsm_tile
@@ -330,6 +335,7 @@ def kernel_phases(x_train: np.ndarray, dev: torch.device):
          **{k: rows["cov_tiles"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
     check(err <= tol and cross_err <= tol, f"cov_tiles disagrees with its plain version: {err}, {cross_err}")
     check(diag_exact, "cov_tiles: global diagonal is not bitwise v + sigma^2")
+    cov_extra(plan, xc, x_test, params, n, tol, dev)
 
     # --- potrf: the first diagonal tile, G = 1 as the program issues it ---
     packed = torch.zeros_like(k_tiles)
@@ -381,6 +387,7 @@ def kernel_phases(x_train: np.ndarray, dev: torch.device):
          tol_reason="the reference's float32 trsm tolerance (test_trsm_shapes)",
          **{k: rows["trsm"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     check(err <= tol, f"trsm disagrees with its plain version: {err}")
+    trsm_extra(l_stack, b_stack, x_train, x_test, params, tol, dev)
 
     # --- trail: the fused SYRK+GEMM launch of column 0 (496 tiles) -------
     packed.index_copy_(0, bidx, x_panel)
@@ -479,11 +486,11 @@ def trail_label(name: str):
 
 
 def carry_label(name: str):
-    """'float32/rs32/vec' for carry_kernel<float, 32, true>, 'float32/prep' for carry_prep<float>."""
+    """'float32/rs32/vec' for carry_kernel<float, 32, true>, 'float32/prep' for strip::prep<float>."""
     k = re.search(r"carry_kernelI([fd])Li(\d+)ELb([01])E", name)
     if k:
         return f"{_TYPES[k.group(1)]}/rs{k.group(2)}/{'vec' if k.group(3) == '1' else 'scalar'}"
-    k = re.search(r"carry_prepI([fd])E", name)
+    k = re.search(r"5strip4prepI([fd])E", name)
     return f"{_TYPES[k.group(1)]}/prep" if k else None
 
 
@@ -549,6 +556,126 @@ def trail_extra(c_s, a_s, b_s, ms, library_ms, tol, m_tiles, dev):
     check_build_quality("trail", ptxas, mma)
     check(all(v["max_abs_err"] <= tol for v in launches.values()),
           f"trail disagrees with its plain version at an append launch size: {launches}")
+
+
+def cov_label(name: str):
+    """'float32/se/vec' for cov_tiles_kernel<float, SquaredExp<float>, true>, and so on."""
+    k = re.search(r"cov_tiles_kernelI([fd])N\w*?SquaredExpI[fd]EELb([01])E", name)
+    return f"{_TYPES[k.group(1)]}/se/{'vec' if k.group(2) == '1' else 'scalar'}" if k else None
+
+
+def cov_extra(plan, xc, x_test, params, n, tol, dev):
+    """cov_tiles at the CROSS launch of gp_16k's cold call (1024 tiles), its ptxas and SASS."""
+    from repro_torch.core import scheduler as sch, tiling
+    from repro_torch.kernels import _build, cov_assembly, ops
+
+    m, d = TILE, N_FEATURES
+    cross = next(b for lvl in plan.levels for b in lvl if b.op == sch.CROSS)
+    xtc = tiling.pad_features(torch.from_numpy(x_test).to(dev), m)
+    ra, rb = (torch.from_numpy(a).to(dev) for a in (cross.a, cross.b))
+    xa, xb, r0, c0 = xtc[ra], xc[rb], ra * m, rb * m
+    nt = x_test.shape[0]
+
+    def cross_k():
+        return ops.cov_tiles(xa, xb, r0, c0, nt, n, params, symmetric=False)
+
+    got = cross_k()
+    torch.cuda.synchronize()
+    err = max_err(got, cov_assembly.cov_tiles_plain(xa, xb, r0, c0, nt, n, params, symmetric=False))
+    t = xa.shape[0]
+    bnd = bound_ms((xa.numel() + xb.numel() + 4 * t + got.numel()) * 4, t * (2 * d * m * m + 2 * d * 2 * m + 6 * m * m))
+    del got
+    ms = cuda_ms(cross_k, 10)
+    ptxas, mma = ptxas_report("cov_assembly", cov_label), sass_mma_counts("cov_assembly", cov_label)
+    emit("kernel.cov_tiles.extra", cross_shape=[t, m, m, d], cross_max_abs_err=err, tol=tol, cross_ms=ms,
+         cross_bound_ms=bnd[0], cross_bound_by=bnd[1], cross_tb_per_s=t * m * m * 4 / ms / 1e9,
+         ptxas=ptxas, ptxas_lines=[l.strip() for l in _build.build_log("cov_assembly").splitlines() if "Used" in l or "spill" in l],
+         sass_hmma_count=mma)
+    check(err <= tol, f"cov_tiles disagrees with its plain version at the CROSS launch: {err}")
+    check(set(ptxas) == {"float32/se/vec", "float32/se/scalar", "float64/se/vec", "float64/se/scalar"},
+          f"cov_tiles: unexpected kernels in the ptxas report: {sorted(ptxas)}")
+    check_build_quality("cov_tiles", ptxas, mma)
+
+
+def trsm_label(name: str):
+    """'float32/rs8/d32/vec' for trsm_kernel<float, 8, 32, true>, 'float32/prep' for strip::prep<float>."""
+    k = re.search(r"trsm_kernelI([fd])Li(\d+)ELi(\d+)ELb([01])E", name)
+    if k:
+        return f"{_TYPES[k.group(1)]}/rs{k.group(2)}/d{k.group(3)}/{'vec' if k.group(4) == '1' else 'scalar'}"
+    k = re.search(r"5strip4prepI([fd])E", name)
+    return f"{_TYPES[k.group(1)]}/prep" if k else None
+
+
+def trsm_extra(l_stack, b_stack, x_train, x_test, params, tol, dev):
+    """TRSM at the path's other launch sizes, each beside ``torch.linalg.solve_triangular``.
+
+    G = 1 (a sliding-window step's UTRSM launches, 32 a step); the cold
+    call's 31 launches, G = 31, 30, ..., 1, summed; gp_32k's tile, m = 1024
+    (src/repro/configs/gp_msd.py:12), at G = 1 and at its first panel, G =
+    31, from NFIR rows of the data; float64 at G = 31.  With each launch's
+    strip, and the ptxas registers and spills and the SASS's tensor-core
+    instructions of the prep and solve kernels.
+    """
+    from repro_torch.core import tiling
+    from repro_torch.kernels import _build, cov_assembly, ops, trsm_tile
+
+    lib = _build.load("trsm_tile")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def lib_solve(l, b):
+        return torch.linalg.solve_triangular(l.mT, b, upper=True, left=False)
+
+    def case(l, b, reps, tol_case):
+        g, m = b.shape[0], b.shape[1]
+        f64 = b.dtype == torch.float64
+        err = max_err(ops.trsm(l, b), trsm_tile.trsm_plain(l, b))
+        bnd = bound_ms(3 * b.numel() * b.element_size(), g * m**3)
+        rs = lib.trsm_strip(g, m, int(f64), sms)
+        return dict(shape=list(b.shape), dtype=str(b.dtype).split(".")[-1], strip_rows=rs,
+                    stage_rows=lib.trsm_depth(rs, m, int(f64)),
+                    ctas=g * -(-m // rs), max_abs_err=err, tol=tol_case,
+                    ms=cuda_ms(lambda: ops.trsm(l, b), reps), library_ms=cuda_ms(lambda: lib_solve(l, b), reps),
+                    bound_ms=bnd[0], bound_by=bnd[1])
+
+    m = b_stack.shape[1]
+    cases = {"float32_g1_m512": case(l_stack[:1], b_stack[:1], 20, tol)}
+    cases["float64_g31_m512"] = case(l_stack.double(), b_stack.double(), 5, 1e-10 * m)
+    # gp_32k's first panel: 32 tiles of 1024 NFIR rows, the diagonal tile's factor and 31 tiles below it
+    m2 = 2 * TILE
+    x_all = torch.from_numpy(np.concatenate([x_train, x_test])).to(dev)
+    n_all = x_all.shape[0]
+    xc2 = tiling.pad_features(x_all, m2)
+    l2 = torch.linalg.cholesky(cov_assembly.cov_tiles_plain(xc2[:1], xc2[:1], 0, 0, n_all, n_all, params,
+                                                            symmetric=True))
+    g2 = xc2.shape[0] - 1
+    row0 = torch.arange(1, g2 + 1, device=dev) * m2
+    b2 = cov_assembly.cov_tiles_plain(xc2[1:], xc2[:1].expand(g2, m2, -1), row0, 0, n_all, n_all, params,
+                                      symmetric=True)
+    l2 = l2.expand(g2, m2, m2).contiguous()
+    cases["float32_g1_m1024"] = case(l2[:1], b2[:1], 10, tol)
+    cases[f"float32_g{g2}_m1024"] = case(l2, b2, 5, tol)
+    del l2, b2, xc2
+    # the cold call's panels: G = 31, 30, ..., 1 tiles of m = 512
+    sweep = {}
+    for g in range(b_stack.shape[0], 0, -1):
+        l, b = l_stack[:g], b_stack[:g]
+        sweep[g] = dict(strip_rows=lib.trsm_strip(g, m, 0, sms), ms=cuda_ms(lambda: ops.trsm(l, b), 10),
+                        library_ms=cuda_ms(lambda: lib_solve(l, b), 10),
+                        bound_ms=bound_ms(3 * b.numel() * 4, g * m**3)[0])
+    cold = {key: sum(v[key] for v in sweep.values()) for key in ("ms", "library_ms", "bound_ms")}
+    ptxas, mma = ptxas_report("trsm_tile", trsm_label), sass_mma_counts("trsm_tile", trsm_label)
+    emit("kernel.trsm.extra", sms=sms, cases=cases, cold_call_launches=len(sweep), cold_call=cold,
+         cold_call_by_g={g: [v["strip_rows"], v["ms"], v["library_ms"]] for g, v in sweep.items()},
+         max_m={"float32": lib.trsm_max_m(0), "float64": lib.trsm_max_m(1)}, ptxas=ptxas, sass_hmma_count=mma,
+         library_call="torch.linalg.solve_triangular(L^T, B, upper=True, left=False) (cuBLAS)",
+         note="cold_call_by_g: G -> [strip rows, ms, library ms]; the bound of each launch is by operations")
+    for name, c in cases.items():
+        check(c["max_abs_err"] <= c["tol"], f"trsm {name} disagrees with its plain version: {c}")
+    check(cases["float32_g1_m512"]["ctas"] >= 64 and sweep[b_stack.shape[0]]["strip_rows"] == 32,
+          f"trsm: unexpected strips: G = 1 {cases['float32_g1_m512']}, G = 31 {sweep[b_stack.shape[0]]}")
+    check(any(k.endswith("/prep") for k in ptxas), f"trsm: no prep kernel in the ptxas report: {sorted(ptxas)}")
+    check_build_quality("trsm", ptxas, mma)
+    torch.cuda.synchronize()
 
 
 def potrf_cases(a00, diag31, x_train, params, dev):
@@ -915,11 +1042,13 @@ def carry_phase(x_win, y_win, dev):
     check(err <= tol, f"carry_update disagrees with its plain version: {err} > {tol}")
     check(err64 <= tol64, f"carry_update (float64) disagrees with its plain version: {err64} > {tol64}")
     ctas_per_sm = lib.carry_update_f32_ctas_per_sm(m)
+    strip_rows = lib.carry_update_f32_strip(m)
     ptxas, mma = ptxas_report("carry_update", carry_label), sass_mma_counts("carry_update", carry_label)
     emit("kernel.carry_update.extra", shape=list(wc.shape), tflops=3 * g * m**3 / row["ms"] / 1e9,
-         library_tflops=3 * g * m**3 / row["library_ms"] / 1e9, ctas_per_sm=ctas_per_sm, ptxas=ptxas,
-         sass_hmma_count=mma)
-    check(ctas_per_sm >= 2, f"carry_update: {ctas_per_sm} CTAs per SM at m = 512, not two")
+         library_tflops=3 * g * m**3 / row["library_ms"] / 1e9, strip_rows=strip_rows, ctas_per_sm=ctas_per_sm,
+         ptxas=ptxas, sass_hmma_count=mma)
+    check(ctas_per_sm >= 2 and strip_rows == 32,
+          f"carry_update: {ctas_per_sm} CTAs per SM on a {strip_rows}-row strip at m = 512, not two on 32")
     check_build_quality("carry_update", ptxas, mma)
     torch.cuda.synchronize()
     return row
@@ -1761,7 +1890,7 @@ def main() -> None:
     x_win, y_win, _, _ = make_data(N_TRAIN + UPDATE_STEPS * TILE, TILE, N_FEATURES, SEED)
     emit("data.update", rows=N_TRAIN + UPDATE_STEPS * TILE, window=N_TRAIN, steps=UPDATE_STEPS,
          step_rows=TILE, seed=SEED, test_points="the main phase's x_test")
-    rows = kernel_phases(x_train, dev)
+    rows = kernel_phases(x_train, x_test, dev)
     rows["carry_update"] = carry_phase(x_win, y_win, dev)
     phase_grad(dev)
     phase_tf32(x_train, y_train, x_test, dev)

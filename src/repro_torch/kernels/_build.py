@@ -121,7 +121,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "cov_tiles": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _I, _I, _P],
     "potrf": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "trsm": [_P, _P, _P, _I, _I, _I, _P],
+    "trsm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "trail": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "carry_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "lrgemm": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _P],
@@ -136,6 +136,9 @@ _QUERIES = (
     ("carry_update_max_m", [_I], _I),
     ("flash_bf16_ctas_per_sm", [_I], _I),
     ("trail_f32_ctas_per_sm", [_I], _I),
+    ("trsm_depth", [_I, _I, _I], _I),
+    ("trsm_max_m", [_I], _I),
+    ("trsm_strip", [_L, _I, _I, _I], _I),
 )
 
 

@@ -43,6 +43,22 @@ def carry_update_plain(w: torch.Tensor, l: torch.Tensor, y: torch.Tensor, c: tor
     return x.to(w.dtype)
 
 
+def check_strip_limit(op: str, m: int, limit: int, dtype) -> None:
+    """Refuse a tile past the strip solve's range (``csrc/strip_solve.cuh``) before any launch."""
+    if m > limit:
+        raise ValueError(
+            f"{op} takes tiles up to m = {limit} in {dtype} (the shortest strip of rows must fit in shared "
+            f"memory), got m = {m}"
+        )
+
+
+def strip_workspace(c: torch.Tensor):
+    """The strip solve's workspace for a (G, m, m) stack of factors C: C transposed, and the inverse of
+    each 32 x 32 diagonal block, transposed."""
+    g, m = c.shape[0], c.shape[1]
+    return torch.empty_like(c), torch.empty((g, -(-m // 32), 32, 32), dtype=c.dtype, device=c.device)
+
+
 def carry_update_cuda(w: torch.Tensor, l: torch.Tensor, y: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on contiguous (G, m, m) stacks W, L, Y and C."""
     if w.dtype not in (torch.float32, torch.float64) or not (w.dtype == l.dtype == y.dtype == c.dtype):
@@ -65,16 +81,9 @@ def carry_update_cuda(w: torch.Tensor, l: torch.Tensor, y: torch.Tensor, c: torc
     g, m = w.shape[0], w.shape[1]
     f64 = w.dtype == torch.float64
     lib = _build.load("carry_update")
-    limit = lib.carry_update_max_m(int(f64))
-    if m > limit:
-        raise ValueError(
-            f"carry_update takes tiles up to m = {limit} in {w.dtype} (the shortest strip of rows "
-            f"must fit in shared memory), got m = {m}"
-        )
+    check_strip_limit("carry_update", m, lib.carry_update_max_m(int(f64)), w.dtype)
     out = torch.empty_like(w)
-    # workspace: C transposed, and the inverse of each 32 x 32 diagonal block, transposed
-    ct = torch.empty_like(c)
-    dt = torch.empty((g, -(-m // 32), 32, 32), dtype=w.dtype, device=w.device)
+    ct, dt = strip_workspace(c)
     vec = m % (16 // w.element_size()) == 0 and all(t.data_ptr() % 16 == 0 for t in (w, l, y, c, out))
     fn = lib.carry_update_f64 if f64 else lib.carry_update_f32
     code = fn(

@@ -24,8 +24,14 @@ def cov_tiles_plain(
 
 
 def _i32(v, t: int, device) -> torch.Tensor:
-    """A scalar or (T,) integer operand as a contiguous (T,) int32 tensor."""
-    return torch.as_tensor(v, dtype=torch.int32, device=device).expand(t).contiguous()
+    """A scalar or (T,) integer operand as a contiguous (T,) int32 tensor on ``device``.
+
+    A Python integer is filled in on the device: copying it from the host would
+    synchronise the stream (a pageable copy) on every launch.
+    """
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.int32).expand(t).contiguous()
+    return torch.full((t,), int(v), dtype=torch.int32, device=device)
 
 
 def cov_tiles_cuda(

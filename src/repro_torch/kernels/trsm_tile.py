@@ -5,8 +5,17 @@ every panel task of a level against its own diagonal factor L_JJ, so the
 kernel takes a (G, m, m) stack of L beside the (G, m, m) stack of B.  The
 Pallas kernel computes in float32 even for float64 operands; this port keeps
 the operand type (float32 or float64) in the kernel and in the plain version.
-The source, with what bounds it on the H100 and what the design does about
-it, is ``csrc/trsm_tile.cu``.
+
+On the card a call is two launches of the strip solve that the carry kernel
+shares (``csrc/strip_solve.cuh``): a prep that writes L transposed and the
+inverses of its 32 x 32 diagonal blocks into workspace tensors, then one CTA
+per strip of rows of B, solved right-looking in shared memory.  The launcher
+takes the tallest strip (32, 16 or 8 rows in float32, 16 or 8 in float64)
+whose grid still covers the card's SMs, so a launch of one tile runs 8-row
+strips on 64 CTAs at m = 512.  Tiles run up to m = 6816 (float32) and 3168
+(float64), the strip solve's range; past that the wrapper raises
+``ValueError``.  The source, with what bounds it on the H100 and what the
+design does about it, is ``csrc/trsm_tile.cu``.
 """
 
 from __future__ import annotations
@@ -14,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.carry_update import check_strip_limit, strip_workspace
 
 
 def trsm_plain(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -39,11 +49,16 @@ def trsm_cuda(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"trsm takes two (G, m, m) stacks, got {tuple(l.shape)}, {tuple(b.shape)}")
     if not (l.is_contiguous() and b.is_contiguous()):
         raise ValueError("trsm takes contiguous stacks")
-    out = torch.empty_like(b)
+    g, m = b.shape[0], b.shape[1]
+    f64 = b.dtype == torch.float64
     lib = _build.load("trsm_tile")
-    fn = lib.trsm_f32 if b.dtype == torch.float32 else lib.trsm_f64
+    check_strip_limit("trsm", m, lib.trsm_max_m(int(f64)), b.dtype)
+    out = torch.empty_like(b)
+    lt, dt = strip_workspace(l)
+    vec = m % (16 // b.element_size()) == 0 and all(t.data_ptr() % 16 == 0 for t in (l, b, out))
+    fn = lib.trsm_f64 if f64 else lib.trsm_f32
     code = fn(
-        l.data_ptr(), b.data_ptr(), out.data_ptr(), b.shape[0], b.shape[1],
+        l.data_ptr(), b.data_ptr(), lt.data_ptr(), dt.data_ptr(), out.data_ptr(), g, m, int(vec),
         b.device.index, torch.cuda.current_stream(b.device).cuda_stream,
     )
     _build.check(lib, code, "trsm")

@@ -187,6 +187,85 @@ def test_carry_update_past_the_limit_raises(cuda, dtype):
     assert ops.launch_counts()["carry_update"] == 0
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("m", [16, 100, 512, 1024])
+@pytest.mark.parametrize("g", [1, 2, 31])
+def test_trsm_matches_plain(cuda, g, m, dtype, tol):
+    """X L^T = B against the column recurrence, L = chol(I + R R^T / m): every strip height the launcher picks.
+
+    float32 within 1e-3, float64 within 1e-10 m; G = 1 runs the shortest strip on the most CTAs,
+    G = 31 at m >= 512 the tallest; m = 100 takes the scalar copies in neither type (16-byte rows).
+    """
+    gen = torch.Generator().manual_seed(11)
+    r = torch.randn(g, m, m, generator=gen, dtype=dtype)
+    l = potrf_tile.potrf_plain(torch.eye(m, dtype=dtype) + r @ r.mT / m).to(cuda)
+    b = torch.randn(g, m, m, generator=gen, dtype=dtype).to(cuda)
+    ops.reset_launch_counts()
+    got = ops.trsm(l, b)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["trsm"] == 1
+    assert got.dtype == dtype and got.shape == (g, m, m)
+    bound = tol if dtype == torch.float32 else tol * m
+    assert (got - trsm_tile.trsm_plain(l, b)).abs().max() <= bound
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_trsm_strips_and_ragged_tiles(cuda, dtype):
+    """m = 77 takes the scalar copies; the strip follows G and m (the card's SM count) and keeps the limit."""
+    lib = _build.load("trsm_tile")
+    f64 = int(dtype == torch.float64)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert lib.trsm_strip(1, 512, f64, sms) == 8 and lib.trsm_strip(31, 512, f64, sms) == (16 if f64 else 32)
+    assert lib.trsm_max_m(f64) == _build.load("carry_update").carry_update_max_m(f64)
+    gen = torch.Generator().manual_seed(12)
+    for g, m in ((3, 77), (40, 77), (1, 33)):
+        r = torch.randn(g, m, m, generator=gen, dtype=dtype)
+        l = potrf_tile.potrf_plain(torch.eye(m, dtype=dtype) + r @ r.mT / m).to(cuda)
+        b = torch.randn(g, m, m, generator=gen, dtype=dtype).to(cuda)
+        assert (ops.trsm(l, b) - trsm_tile.trsm_plain(l, b)).abs().max() <= (1e-3 if not f64 else 1e-10 * m)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_trsm_past_the_limit_raises(cuda, dtype):
+    """A tile past the strip solve's limit is refused with ValueError, before any launch."""
+    limit = _build.load("trsm_tile").trsm_max_m(int(dtype == torch.float64))
+    assert limit == (6816 if dtype == torch.float32 else 3168)
+    t = torch.zeros(1, limit + 1, limit + 1, dtype=dtype, device=cuda)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match=f"up to m = {limit}"):
+        ops.trsm(t, t)
+    assert ops.launch_counts()["trsm"] == 0
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("d", [1, 3, 16, 40])
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_cov_tiles_matches_plain(cuda, d, symmetric, dtype, tol):
+    """Ragged frontiers, mb != m (a multiple of the store vector, and not), D below, at and past a chunk.
+
+    Values are at most v + sigma^2 = 0.85; the global diagonal of a symmetric tile is bitwise v + sigma^2.
+    """
+    gen = torch.Generator().manual_seed(13)
+    p = km.SEKernelParams(1.3, 0.8, 0.05)
+    for t, m, mb in ((3, 100, 60), (2, 130, 45), (4, 256, 256)):
+        xa = (torch.randn(t, m, d, generator=gen, dtype=dtype) / d**0.5).to(cuda)
+        xb = xa[:, :mb].contiguous()
+        row0 = torch.arange(t) * m
+        col0 = torch.arange(t) * m if symmetric else (torch.arange(t) % 2) * m
+        nvr, nvc = t * m - 13, t * m - 29
+        ops.reset_launch_counts()
+        got = ops.cov_tiles(xa, xb, row0.to(cuda), col0.to(cuda), nvr, nvc, p, symmetric=symmetric)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["cov_tiles"] == 1 and got.shape == (t, m, mb) and got.dtype == dtype
+        want = cov_assembly.cov_tiles_plain(xa, xb, row0.to(cuda), col0.to(cuda), nvr, nvc, p, symmetric=symmetric)
+        assert (got - want).abs().max() <= tol
+        if symmetric:
+            gi = row0[:, None] + torch.arange(mb)  # the diagonal of tile t: rows = cols < mb
+            on = (gi < nvr) & (gi < nvc)
+            diag = torch.diagonal(got[:, :mb, :mb], dim1=-2, dim2=-1).cpu()[on]
+            assert torch.equal(diag, torch.full_like(diag, 0.8 + 0.05))
+
+
 def test_grad_lowrank_nlml_on_the_card_matches_cpu(cuda):
     """The low-rank NLML's gradient in the hyperparameters, through every kernel of the build on the card.
 

@@ -24,6 +24,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
             be 0) and tensor-core instructions in the float32 SASS (must be
             0), CTAs per SM for TRAIL and carry; carry also at m = 2048,
             past its tallest strip, in float32 and float64;
+            kernel.cov_tiles.zoo: cov_tiles for each of the seven registered
+            families, SE-ARD on all 16 features and the three composites of
+            the reference's zoo, at the ASSEMBLE and CROSS launches, each
+            against its plain version at the kernel's stated tolerance, timed
+            beside its bound; SE-ARD also on offset data; ptxas spills and
+            stack frame of every instantiation (must be 0), CTAs per SM;
    grad     gradients through the kernels on the card against the CPU's (a
             low-rank NLML in float32 and float64, and a tiled log-det);
             carry_update and
@@ -46,6 +52,18 @@ Run from the root of a checkout:  python3 chip_smoke.py
             refactorization of the same window;
 7. profile  device time by kernel and the device's idle share in one cold
             ``predict`` and in one sliding-window step (``torch.profiler``);
+7b. train  ``GaussianProcess(kernel="matern52").optimize(steps=3)`` at
+            gp_16k through the blocked reverse mode, every step's launches,
+            the loss curve and parameters against three Adam steps on the
+            float64 dense NLML, seconds per step and peak memory;
+            train.grad: the first step's gradient, each component against
+            the float64 dense NLML's autograd gradient; train.autodiff: the
+            composite's autograd gradient at n = 4096, each component;
+    main.zoo  gp_16k's cold ``predict_with_uncertainty`` with the trained
+            ``matern52`` and with Sum(Scaled(Matern52), White), launches
+            against the plan, mean and variance against a float64 dense
+            solve; timing.train and profile.train: one step's forward
+            program, K^-1 and dense contraction;
 8. kernel.lrgemm  the low-rank tier's kernel at the gp_256k build's shape
             (G = 2048 tiles of 512 x 512, float32) against its plain version,
             plus float64, odd G and mb != m; times it beside ``torch.bmm``
@@ -62,6 +80,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
             low-rank tier against the exact tier at gp_16k;
 11. profile.lowrank  device time by kernel and idle share of a cold build
             and of one step;
+11b. train.lowrank  ``mll.nlml_lowrank`` at gp_256k_lowrank's sizes: value and
+            blocked gradient, each component, against a float64 dense DTC
+            NLML under autograd (the autodiff route measured beside it),
+            then two Adam steps, with lrgemm and cov_tiles counted;
 12. kernel.flash  the flash-attention kernel at gemma2-2b's prefill shape
             (B = 4, S = T = 2048, 8 query heads on 4 KV heads, hd = 256,
             softcap 50, bf16) against its plain version, plus the local
@@ -92,6 +114,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -460,6 +483,9 @@ def ptxas_report(source: str, label) -> dict:
         elif current and "spill stores" in line:
             st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
             found[current].update(spill_store_bytes=int(st), spill_load_bytes=int(ld))
+            frame = re.search(r"(\d+) bytes stack frame", line)
+            if frame:
+                found[current]["stack_frame_bytes"] = int(frame.group(1))
         elif current and "registers" in line:
             found[current]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
             smem = re.search(r"(\d+) bytes smem", line)
@@ -559,9 +585,11 @@ def trail_extra(c_s, a_s, b_s, ms, library_ms, tol, m_tiles, dev):
 
 
 def cov_label(name: str):
-    """'float32/se/vec' for cov_tiles_kernel<float, SquaredExp<float>, true>, and so on."""
-    k = re.search(r"cov_tiles_kernelI([fd])N\w*?SquaredExpI[fd]EELb([01])E", name)
-    return f"{_TYPES[k.group(1)]}/se/{'vec' if k.group(2) == '1' else 'scalar'}" if k else None
+    """'float32/vec/iso' for cov_tiles_kernel<float, VEC = true, ARD = false>, and so on."""
+    k = re.search(r"cov_tiles_kernelI([fd])Lb([01])ELb([01])E", name)
+    if not k:
+        return None
+    return f"{_TYPES[k.group(1)]}/{'vec' if k.group(2) == '1' else 'scalar'}/{'ard' if k.group(3) == '1' else 'iso'}"
 
 
 def cov_extra(plan, xc, x_test, params, n, tol, dev):
@@ -592,7 +620,8 @@ def cov_extra(plan, xc, x_test, params, n, tol, dev):
          ptxas=ptxas, ptxas_lines=[l.strip() for l in _build.build_log("cov_assembly").splitlines() if "Used" in l or "spill" in l],
          sass_hmma_count=mma)
     check(err <= tol, f"cov_tiles disagrees with its plain version at the CROSS launch: {err}")
-    check(set(ptxas) == {"float32/se/vec", "float32/se/scalar", "float64/se/vec", "float64/se/scalar"},
+    check(set(ptxas) == {f"{t}/{v}/{a}" for t in ("float32", "float64") for v in ("vec", "scalar")
+                         for a in ("iso", "ard")},
           f"cov_tiles: unexpected kernels in the ptxas report: {sorted(ptxas)}")
     check_build_quality("cov_tiles", ptxas, mma)
 
@@ -839,23 +868,25 @@ def phase_tf32(x_train, y_train, x_test, dev):
     check(same, "a GaussianProcess computed differently with the caller's TF32 flag on")
 
 
-def dense_reference(x_train, y_train, x_test, dev):
-    """(mean, variance) of a float64 dense solve on the card (a check, not a path of the port)."""
+def dense_reference(x_train, y_train, x_test, dev, kernel=None, params=None):
+    """(mean, variance) of a float64 dense solve on the card (a check, not a path of the port).
+
+    SE at the paper's defaults unless a kernel and its params are given.
+    """
     from repro_torch.core import kernels_math as km
 
-    x64 = torch.as_tensor(x_train, device=dev).double()
-    xt64 = torch.as_tensor(x_test, device=dev).double()
-    y64 = torch.as_tensor(y_train, device=dev).double()
-    p = km.SEKernelParams.paper_defaults()
-    k64 = km.assemble_covariance(x64, p)
+    kernel = km.resolve_kernel(kernel)
+    p = kernel.default_params() if params is None else params
+    x64, xt64, y64 = (torch.as_tensor(a, device=dev).double() for a in (x_train, x_test, y_train))
+    k64 = km.assemble_covariance(x64, p, kernel=kernel)
     l64 = torch.linalg.cholesky(k64)
     del k64
     alpha64 = torch.cholesky_solve(y64[:, None], l64)[:, 0]
-    ks64 = km.assemble_cross_covariance(xt64, x64, p)
+    ks64 = km.assemble_cross_covariance(xt64, x64, p, kernel=kernel)
     mean_ref = ks64 @ alpha64
     v64 = torch.linalg.solve_triangular(l64, ks64.mT, upper=False)
     del ks64, l64
-    var_ref = p.vertical - (v64 * v64).sum(0)
+    var_ref = float(kernel.diag(km.concrete_params(p))) - (v64 * v64).sum(0)
     return mean_ref, var_ref
 
 
@@ -1871,6 +1902,405 @@ def phase_lm_profile(model, cfg, prompts):
                       f"{FLASH_KERNEL_NAMES} among {[r[0][:60] for r in rows[:14]]}")
 
 
+# ---------------------------------------------------------------------------
+# The kernel zoo on the card, and hyperparameter training through the kernels
+# ---------------------------------------------------------------------------
+
+# the reference's zoo (tests/test_kernel_zoo.py::_zoo) at gp_16k's D = 16: the
+# seven registered families at their default params, SE-ARD with distinct
+# lengthscales on all 16 features (the zoo's se_ard2 at this width), and the
+# three composites
+ZOO_COMPOSITES = ("scaled_m52", "sum_m52_white", "prod_se_m32")
+# training: gp_16k, matern52, TRAIN_STEPS Adam steps at TRAIN_LR through the blocked reverse mode;
+# the composite's autodiff gradient at TRAIN_AUTODIFF_N rows
+TRAIN_STEPS = 3
+TRAIN_LR = 0.05
+TRAIN_AUTODIFF_N = 4096
+# the float32 training path against float64 dense Adam (tests/test_mll_grad.py's trajectory rule)
+TRAIN_LOSS_RTOL, TRAIN_LOSS_ATOL, TRAIN_PARAM_RTOL = 1e-3, 1e-2, 2e-2
+
+
+def zoo_cells():
+    """name -> (kernel, params) of every family and composite the cov_tiles kernel is held to."""
+    from repro_torch.core import kernels_math as km
+
+    cells = {name: km.get_kernel(name) for name in sorted(km.KERNEL_REGISTRY)}
+    cells[f"se_ard{N_FEATURES}"] = km.ARDSquaredExponential(ndim=N_FEATURES)
+    cells["scaled_m52"] = km.Scaled(km.Matern52())
+    cells["sum_m52_white"] = km.Sum(km.Scaled(km.Matern52()), km.White())
+    cells["prod_se_m32"] = km.Product(km.SquaredExponential(), km.Matern32())
+    out = {name: (k, k.default_params()) for name, k in cells.items()}
+    ard = out[f"se_ard{N_FEATURES}"][0]
+    out[f"se_ard{N_FEATURES}"] = (ard, km.ARDKernelParams(torch.linspace(0.5, 2.0, N_FEATURES)))
+    return out
+
+
+def cov_zoo_phase(x_train, x_test, dev):
+    """cov_tiles for every family and composite at gp_16k's ASSEMBLE (528 tiles) and CROSS (1024) launches.
+
+    Each against ``cov_tiles_plain`` at the tolerance the kernel states
+    (``cov_assembly.cov_tiles_tolerance``), timed with CUDA events beside its
+    bound (the writes: 528 MiB and 1 GiB); SE-ARD also on data offset by 10,
+    where the plain version's expanded form cancels and the kernel's
+    difference form does not.  Returns {family: row}.
+    """
+    from repro_torch.core import executor, scheduler as sch, tiling
+    from repro_torch.kernels import _build, cov_assembly, ops
+
+    m, d = TILE, N_FEATURES
+    xc = tiling.pad_features(torch.from_numpy(x_train).to(dev), m)
+    xtc = tiling.pad_features(torch.from_numpy(x_test).to(dev), m)
+    plan = executor.program_plan(xc.shape[0], xtc.shape[0], False, None)
+    n, nt = x_train.shape[0], x_test.shape[0]
+    launches = {}
+    for op in (sch.ASSEMBLE, sch.CROSS):
+        bt = next(b for lvl in plan.levels for b in lvl if b.op == op)
+        ra, rb = (torch.from_numpy(a).to(dev) for a in (bt.a, bt.b))
+        xa = (xc if op == sch.ASSEMBLE else xtc)[ra]
+        launches[op] = (xa, xc[rb], ra * m, rb * m, (n, n) if op == sch.ASSEMBLE else (nt, n), op == sch.ASSEMBLE)
+    rows = {}
+    for name, (kern, p) in zoo_cells().items():
+        ard = name.startswith("se_ard")
+        row = {}
+        for op, (xa, xb, r0, c0, (nvr, nvc), sym) in launches.items():
+            def run():
+                return ops.cov_tiles(xa, xb, r0, c0, nvr, nvc, p, symmetric=sym, kernel=kern)
+
+            ops.reset_launch_counts()
+            got = run()
+            torch.cuda.synchronize()
+            one = ops.launch_counts()["cov_tiles"]
+            want = cov_assembly.cov_tiles_plain(xa, xb, r0, c0, nvr, nvc, p, symmetric=sym, kernel=kern)
+            err = max_err(got, want)
+            tol = cov_assembly.cov_tiles_tolerance(kern, p, xa.reshape(-1, d), xb.reshape(-1, d))
+            t, mm, mb = got.shape
+            del got, want
+            nbytes = (xa.numel() + xb.numel() + 4 * t + t * mm * mb) * 4
+            nops = t * ((3 if ard else 2) * d * mm * mb + 2 * d * (mm + mb) + 6 * mm * mb)
+            bnd = bound_ms(nbytes, nops)
+            key = "assemble" if sym else "cross"
+            row[key] = dict(tiles=t, max_abs_err=err, tol=tol, launches_per_call=one, ms=cuda_ms(run, 10),
+                            bound_ms=bnd[0], bound_by=bnd[1])
+            if sym:
+                row[key]["plain_ms"] = cuda_ms(
+                    lambda: cov_assembly.cov_tiles_plain(xa, xb, r0, c0, nvr, nvc, p, symmetric=True, kernel=kern), 1)
+            check(one == 1 and err <= tol, f"cov_tiles {name} at {key}: {one} launches, error {err} > {tol}")
+        rows[name] = row
+    # SE-ARD far from the origin: the plain version's cancellation, the kernel's difference form
+    kern, p = zoo_cells()[f"se_ard{N_FEATURES}"]
+    xa, xb, r0, c0, _, _ = launches[sch.ASSEMBLE]
+    xo_a, xo_b = xa[:64] + 10.0, xb[:64] + 10.0
+    got = ops.cov_tiles(xo_a, xo_b, r0[:64], c0[:64], n, n, p, symmetric=False, kernel=kern)
+    want = cov_assembly.cov_tiles_plain(xo_a, xo_b, r0[:64], c0[:64], n, n, p, symmetric=False, kernel=kern)
+    exact = cov_assembly.cov_tiles_plain(xa[:64].double(), xb[:64].double(), r0[:64], c0[:64], n, n, p,
+                                         symmetric=False, kernel=kern)
+    offset = dict(offset=10.0, tiles=64, kernel_vs_plain=max_err(got, want),
+                  kernel_vs_float64_centred=max_err(got, exact), plain_vs_float64_centred=max_err(want, exact),
+                  tol=cov_assembly.cov_tiles_tolerance(kern, p, xo_a.reshape(-1, d), xo_b.reshape(-1, d)))
+    del got, want, exact
+    lib = _build.load("cov_assembly")
+    ptxas, mma = ptxas_report("cov_assembly", cov_label), sass_mma_counts("cov_assembly", cov_label)
+    ctas = {"float32/vec/iso": lib.cov_tiles_f32_ctas_per_sm(0), "float32/vec/ard": lib.cov_tiles_f32_ctas_per_sm(1)}
+    limits = [lib.cov_tiles_limits(i) for i in range(4)]
+    want_limits = [cov_assembly.MAX_TERMS, cov_assembly.MAX_FACTORS, cov_assembly.MAX_ARD_D,
+                   2 + cov_assembly.MAX_TERMS * (1 + cov_assembly.MAX_FACTORS)]
+    emit("kernel.cov_tiles.zoo", families=rows, ard_offset=offset, ptxas=ptxas, ctas_per_sm=ctas, sass_hmma_count=mma,
+         descriptor_limits=limits,
+         tol_rule=cov_assembly.cov_tiles_tolerance.__doc__.split("\n\n")[1].replace("\n", " ").strip())
+    check(limits == want_limits, f"cov_tiles: the library's descriptor limits {limits} are not the wrapper's {want_limits}")
+    check(offset["kernel_vs_plain"] <= offset["tol"], f"cov_tiles ARD on offset data: {offset}")
+    check(all(v.get("spill_store_bytes") == 0 and v.get("spill_load_bytes") == 0 and v.get("stack_frame_bytes") == 0
+              for v in ptxas.values()), f"cov_tiles: spills or a stack frame in an instantiation: {ptxas}")
+    check(all(c >= 3 for c in ctas.values()), f"cov_tiles: float32 off three CTAs an SM: {ctas}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_zoo(x_train, y_train, x_test, dev, trained):
+    """gp_16k's cold predict_with_uncertainty on the kernels: matern52 at the trained params
+    (``trained``, the GP that phase ``train`` fitted), then Sum(Scaled(Matern52), White) at its defaults."""
+    from repro_torch.core import GaussianProcess, executor
+    from repro_torch.core import kernels_math as km
+    from repro_torch.kernels import ops
+
+    by_op = executor.program_plan(N_TRAIN // TILE, N_TEST // TILE, True, None).launches_by_op()
+    want = {**NO_LAUNCHES, "cov_tiles": sum(by_op.get(o, 0) for o in ("assemble", "cross", "prior")),
+            "potrf": by_op["potrf"], "trsm": by_op["trsm"], "trail": by_op[executor.TRAIL]}
+    total = dict(NO_LAUNCHES)
+    composite = GaussianProcess(x_train, y_train, tile_size=TILE, kernel=km.Sum(km.Scaled(km.Matern52()), km.White()),
+                                device=dev)
+    for name, gp in (("matern52", trained), ("sum_m52_white", composite)):
+        kern = gp.kernel
+        ops.reset_launch_counts()
+        (mean, var), t_cold = wall_s(lambda: gp.predict_with_uncertainty(x_test))
+        got = ops.launch_counts()
+        total = {k: total[k] + got[k] for k in total}
+        mean_ref, var_ref = dense_reference(x_train, y_train, x_test, dev, kern, gp.params)
+        mono = GaussianProcess(x_train, y_train, pipeline="monolithic", kernel=kern, params=gp.params, device=dev)
+        (mean_d, var_d), t_mono = wall_s(lambda: mono.predict_with_uncertainty(x_test))
+        e, dense, mean_bound, var_bound = accuracy_bounds(mean_ref, var_ref, mean_d, var_d)
+        res = {"mean_err_tiled": e(mean, mean_ref), "var_err_tiled": e(var, var_ref), **dense}
+        finite = bool(torch.isfinite(mean).all() and torch.isfinite(var).all())
+        emit("main.zoo", kernel=name, kernel_id=kern.kernel_id(), trained=gp is trained,
+             params=[float(v) for v in km.tree_leaves(gp.params)], launches=got, plan=want, **res,
+             mean_bound=mean_bound, var_bound=var_bound, finite=finite, min_var_tiled=float(var.min()),
+             seconds={"tiled_cold_predict_with_uncertainty": t_cold, "dense_predict_with_uncertainty": t_mono},
+             bound_rule=BOUND_RULE)
+        check(got == want and got["cov_tiles"] > 0, f"main.zoo {name}: launches {got} differ from the plan's {want}")
+        check(finite and mean.shape == var.shape == (N_TEST,), f"main.zoo {name}: non-finite or misshapen outputs")
+        check(res["mean_err_tiled"] <= mean_bound and res["var_err_tiled"] <= var_bound,
+              f"main.zoo {name}: errors {res} above the bounds {mean_bound}, {var_bound}")
+        del mono, mean, var, mean_d, var_d, mean_ref, var_ref
+    del composite
+    torch.cuda.empty_cache()
+    return total
+
+
+def _rel_close(a, b, rtol, atol=0.0):
+    return all(abs(x - y) <= atol + rtol * abs(y) for x, y in zip(a, b))
+
+
+def value_and_grads(fn, params, dtype, dev):
+    """(value, [d value / d leaf]) as floats of ``fn(tree, dtype)``, the params tree's leaves made live in dtype."""
+    from repro_torch.core import kernels_math as km
+
+    leaves, treedef = km.tree_flatten(params)
+    live = [torch.tensor(float(v), dtype=dtype, device=dev, requires_grad=True) for v in leaves]
+    val = fn(km.tree_unflatten(treedef, live), dtype)
+    out = float(val.detach()), [float(g) for g in torch.autograd.grad(val, live)]
+    del val
+    return out
+
+
+def grad_rule(g, g64, gd, rel):
+    """PERF.md section 2's gradient rule, each component on its own: |g_i - g64_i| <= 2 |gd_i - g64_i| + rel |g64_i|.
+
+    Returns (errors, bounds, ok); gd is the dense float32 gradient, g64 the float64 one.
+    """
+    err = [abs(a - b) for a, b in zip(g, g64)]
+    bnd = [2 * abs(c - b) + rel * abs(b) for c, b in zip(gd, g64)]
+    return err, bnd, all(e <= b for e, b in zip(err, bnd))
+
+
+GRAD_RULE = "per component: |g_i - g64_i| <= 2 |g_dense_f32_i - g64_i| + {} |g64_i| (float64 dense autograd)"
+
+
+def phase_train(x_train, y_train, dev):
+    """gp_16k matern52: GaussianProcess.optimize(steps=3) through the blocked reverse mode, on the kernels.
+
+    Held against the same three Adam steps on the float64 dense NLML on the
+    card; the loss curve comes from ``mll.optimize_hyperparameters``, the
+    path ``optimize`` runs, which must land on the same parameters.  Adam
+    normalises each component of the gradient, so the trajectory cannot see
+    a gradient's scale: the first step's gradient is also held, component by
+    component, against autograd of the float64 dense NLML.  Then the
+    composite Sum(Scaled(Matern52), White) (no hand-derived VJP) at n = 4096
+    through autograd of the program, against the same reference.  Returns
+    (launches, the trained GP).
+    """
+    from repro_torch.core import GaussianProcess, executor, mll
+    from repro_torch.core import kernels_math as km
+    from repro_torch.kernels import ops
+
+    per_step = executor.program_plan(N_TRAIN // TILE, 0, False, None).launches_by_op()
+    want = {**NO_LAUNCHES, "cov_tiles": per_step["assemble"], "potrf": per_step["potrf"],
+            "trsm": per_step["trsm"], "trail": per_step[executor.TRAIL]}
+    want = {k: TRAIN_STEPS * v for k, v in want.items()}
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    gp = GaussianProcess(x_train, y_train, tile_size=TILE, kernel="matern52", device=dev)
+    _, t_opt = wall_s(lambda: gp.optimize(steps=TRAIN_STEPS, lr=TRAIN_LR))
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    p_gp = [float(v) for v in km.tree_leaves(gp.params)]
+    (p_t, l_t), t_mll = wall_s(lambda: mll.optimize_hyperparameters(
+        x_train, y_train, km.SEKernelParams.paper_defaults(), steps=TRAIN_STEPS, lr=TRAIN_LR, method="tiled",
+        tile_size=TILE, kernel="matern52", device=dev))
+    (p_64, l_64), t_64 = wall_s(lambda: mll.optimize_hyperparameters(
+        x_train, y_train, km.SEKernelParams.paper_defaults(), steps=TRAIN_STEPS, lr=TRAIN_LR, dtype=torch.float64,
+        method="monolithic", kernel="matern52", device=dev))
+    losses, losses64 = [float(v) for v in l_t], [float(v) for v in l_64]
+    params, params64 = [float(v) for v in km.tree_leaves(p_t)], [float(v) for v in km.tree_leaves(p_64)]
+    emit("train", config="gp_16k", kernel="matern52", steps=TRAIN_STEPS, lr=TRAIN_LR, vjp="custom",
+         launches=launches, plan=want, losses=losses, losses_float64_dense=losses64,
+         params=dict(zip(("lengthscale", "vertical", "noise"), params)),
+         params_float64_dense=dict(zip(("lengthscale", "vertical", "noise"), params64)), params_optimize=p_gp,
+         seconds={"optimize": t_opt, "per_step": t_opt / TRAIN_STEPS, "optimize_hyperparameters": t_mll,
+                  "float64_dense_3_steps": t_64},
+         peak_memory_gib=peak / 2**30,
+         rule=f"losses rtol {TRAIN_LOSS_RTOL} / atol {TRAIN_LOSS_ATOL}, params rtol {TRAIN_PARAM_RTOL} "
+              "(tests/test_mll_grad.py::test_tiled_optimizer_matches_monolithic_trajectory)")
+    check(launches == want, f"train: launches {launches} differ from {TRAIN_STEPS} x the NLML program's {want}")
+    check(_rel_close(losses, losses64, TRAIN_LOSS_RTOL, TRAIN_LOSS_ATOL), f"train: losses {losses} vs {losses64}")
+    check(_rel_close(params, params64, TRAIN_PARAM_RTOL), f"train: params {params} vs {params64}")
+    check(_rel_close(p_gp, params, 1e-5), f"train: GaussianProcess.optimize landed on {p_gp}, the path on {params}")
+    check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+
+    def dense_grads(kern, n, p0):
+        """(float64, float32) dense NLML value and gradient on the first n rows, autograd on the card."""
+        return [value_and_grads(lambda p, d_: mll.negative_log_marginal_likelihood(
+            x_train[:n], y_train[:n], p, dtype=d_, kernel=kern, device=dev), p0, dt, dev)
+            for dt in (torch.float64, torch.float32)]
+
+    # the first step's gradient: nlml_tiled's blocked rule at the starting params, per component
+    p0 = km.SEKernelParams.paper_defaults()
+    v_t, g_t = value_and_grads(lambda p, dt: mll.nlml_tiled(x_train, y_train, p, tile_size=TILE, kernel="matern52",
+                                                            device=dev), p0, torch.float32, dev)
+    (v64, g64), (vd, gd) = dense_grads(km.Matern52(), N_TRAIN, p0)
+    torch.cuda.empty_cache()
+    err, bnd, ok = grad_rule(g_t, g64, gd, 1e-3)
+    emit("train.grad", config="gp_16k", kernel="matern52", vjp="custom", params=["lengthscale", "vertical", "noise"],
+         value=v_t, value_float64_dense=v64, value_float32_dense=vd, grad=g_t, grad_float64_dense=g64,
+         grad_float32_dense=gd, abs_err=err, bound=bnd, rule=GRAD_RULE.format("1e-3"))
+    check(ok, f"train.grad: the first step's gradient {g_t} against float64 {g64}: errors {err} above {bnd}")
+
+    # the composite through autograd of the program
+    kern = km.Sum(km.Scaled(km.Matern52()), km.White())
+    n = TRAIN_AUTODIFF_N
+    names = ["scale", "lengthscale", "vertical", "noise", "white_noise"]
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    v_t, g_t = value_and_grads(lambda p, dt: mll.nlml_tiled(x_train[:n], y_train[:n], p, tile_size=TILE, kernel=kern,
+                                                            device=dev), kern.default_params(), torch.float32, dev)
+    c_auto = ops.launch_counts()
+    peak_auto = torch.cuda.max_memory_allocated() - base
+    for name, c in c_auto.items():
+        launches[name] += c
+    (v64, g64), (vd, gd) = dense_grads(kern, n, kern.default_params())
+    err, bnd, ok = grad_rule(g_t, g64, gd, 1e-3)
+    emit("train.autodiff", kernel=kern.kernel_id(), n=n, tile=TILE, vjp="autodiff", params=names,
+         value=v_t, value_float64_dense=v64, value_float32_dense=vd, grad=g_t, grad_float64_dense=g64,
+         grad_float32_dense=gd, abs_err=err, bound=bnd, launches=c_auto, peak_memory_gib=peak_auto / 2**30,
+         rule=GRAD_RULE.format("1e-3") + " (1e-3: the reference's float32 gradient rtol, tests/test_mll_grad.py)")
+    check(all(c_auto[k] > 0 for k in MAIN_KERNELS), f"train.autodiff: a kernel did not launch: {c_auto}")
+    check(ok, f"train.autodiff: gradient errors {err} above {bnd}")
+    check(abs(v_t - v64) <= 2 * abs(vd - v64) + 1e-5 * abs(v64), f"train.autodiff: value {v_t} vs {v64}")
+    torch.cuda.empty_cache()
+    return launches, gp
+
+
+def phase_train_profile(x_train, y_train, dev):
+    """Where one training step's time goes (gp_16k matern52): forward program, K^-1, dense contraction."""
+    from repro_torch.core import mll, tiling
+    from repro_torch.core import kernels_math as km
+
+    kern = km.Matern52()
+
+    def step():
+        p = [torch.tensor(v, device=dev, requires_grad=True) for v in (1.0, 1.0, 0.1)]
+        val = mll.nlml_tiled(x_train, y_train, km.SEKernelParams(*p), tile_size=TILE, kernel=kern, device=dev)
+        return torch.autograd.grad(val, p)
+
+    step()  # warm
+    pieces = {}
+    p = km.SEKernelParams(1.0, 1.0, 0.1)
+    cfg = mll._Config(TILE, None, None, torch.float32, kern, dev)
+    x, y = (torch.as_tensor(a, device=dev) for a in (x_train, y_train))
+    (val, (lpacked, alpha_c)), pieces["forward_program"] = wall_s(
+        lambda: mll._nlml_forward(cfg, x, y, p))
+    n = y.shape[0]
+    l, pieces["unpack_factor"] = wall_s(lambda: tiling.unpack_lower(lpacked)[:n, :n])
+    kinv, pieces["kinv_cholesky_inverse"] = wall_s(lambda: torch.cholesky_inverse(l))
+    del l
+    _, pieces["dense_contraction"] = wall_s(lambda: mll._nlml_dense_grads(
+        kern, mll._cast(p, torch.float32, dev), x, alpha_c.reshape(-1)[:n], kinv))
+    del kinv
+    _, pieces["whole_step"] = wall_s(step)
+    emit("timing.train", config="gp_16k", kernel="matern52", seconds=pieces,
+         note="host clock around each piece ending in torch.cuda.synchronize(); the backward is the "
+              "factor's unpacking, K^-1 by cholesky_inverse and the contraction")
+    torch.cuda.empty_cache()
+    profile_call("profile.train", "one training step (nlml_tiled + backward), matern52, gp_16k", step)
+    torch.cuda.empty_cache()
+
+
+def dense_dtc_nlml(x, y, u, params, jitter, dtype):
+    """The DTC NLML in whitened form, dense, plain torch (differentiable; a check, not a path of the port)."""
+    from repro_torch.core import kernels_math as km
+
+    x, y, u = (a.to(dtype) for a in (x, y, u))
+    n = y.shape[0]
+    noise = params.noise
+    kuu = km.assemble_covariance(u, params)
+    kuu = kuu + torch.diag_embed((jitter - noise) * torch.ones(u.shape[0], dtype=dtype, device=u.device))
+    luu = torch.linalg.cholesky(kuu)
+    w = torch.linalg.solve_triangular(luu, km.SQUARED_EXPONENTIAL.kfree(params, u, x), upper=False)
+    lb = torch.linalg.cholesky(torch.eye(u.shape[0], dtype=dtype, device=u.device) + (w @ w.mT) / noise)
+    z = torch.linalg.solve_triangular(lb, (w @ y)[:, None], upper=False)
+    quad = torch.sum(y * y) / noise - torch.sum(z * z) / (noise * noise)
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(lb)))
+    return 0.5 * (quad + n * torch.log(noise) + logdet + n * math.log(2.0 * math.pi))
+
+
+def phase_train_lowrank(x_lr, y_lr, dev):
+    """nlml_lowrank at gp_256k_lowrank's sizes: value and gradient against a float64 dense DTC, then Adam.
+
+    The default route (the blocked rule) is held to the rule component by
+    component; the autodiff route through the build is measured beside it
+    (errors, time, peak memory), not held.
+    """
+    from repro_torch.core import lowrank, mll
+    from repro_torch.core import kernels_math as km
+    from repro_torch.kernels import ops
+
+    x, y = torch.from_numpy(x_lr).to(dev), torch.from_numpy(y_lr).to(dev)
+    u = lowrank.select_inducing(x, LR_M_INDUCING)[0]
+    p0 = km.SEKernelParams.paper_defaults()
+
+    def route(vjp):
+        """(value, gradient), seconds and peak memory (GiB) of nlml_lowrank's value and gradient by ``vjp``."""
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got, sec = wall_s(lambda: value_and_grads(lambda p, dt: mll.nlml_lowrank(
+            x, y, p, m_inducing=LR_M_INDUCING, tile_size=TILE, vjp=vjp, device=dev), p0, torch.float32, dev))
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        torch.cuda.empty_cache()
+        return got, sec, peak
+
+    ops.reset_launch_counts()
+    (v_t, g_t), t_vg, peak = route("custom")
+    launches = ops.launch_counts()
+    dense = {}
+    for dt in (torch.float64, torch.float32):
+        dense[dt] = value_and_grads(lambda p, d_: dense_dtc_nlml(x, y, u, p, lowrank.DEFAULT_JITTER, d_), p0, dt, dev)
+        torch.cuda.empty_cache()
+    (v64, g64), (vd, gd) = dense[torch.float64], dense[torch.float32]
+    err, bnd, ok = grad_rule(g_t, g64, gd, 1e-4)
+    (v_a, g_a), t_a, peak_a = route("autodiff")
+    err_a, bnd_a, ok_a = grad_rule(g_a, g64, gd, 1e-4)
+    ops.reset_launch_counts()
+    (p2, l2), t_adam = wall_s(lambda: mll.optimize_hyperparameters(
+        x, y, p0, steps=LR_STEPS, lr=TRAIN_LR, method="lowrank", m_inducing=LR_M_INDUCING, tile_size=TILE,
+        device=dev))
+    c_adam = ops.launch_counts()
+    for k, c in c_adam.items():
+        launches[k] += c
+    emit("train.lowrank", config="gp_256k_lowrank", n=LR_N_TRAIN, m_inducing=LR_M_INDUCING, vjp="custom",
+         params=["lengthscale", "vertical", "noise"], value=v_t, value_float64_dense=v64, value_float32_dense=vd,
+         grad=g_t, grad_float64_dense=g64, grad_float32_dense=gd, abs_err=err, bound=bnd,
+         rel_err_by_component=[abs(a - b) / abs(b) for a, b in zip(g_t, g64)],
+         rel_err_by_component_float32_dense=[abs(a - b) / abs(b) for a, b in zip(gd, g64)],
+         vjp_autodiff={"value": v_a, "grad": g_a, "abs_err": err_a, "within_rule": ok_a, "seconds": t_a,
+                       "peak_memory_gib": peak_a,
+                       "rel_err_by_component": [abs(a - b) / abs(b) for a, b in zip(g_a, g64)]},
+         adam_losses=[float(v) for v in l2], adam_params=[float(v) for v in km.tree_leaves(p2)],
+         launches=launches, seconds={"value_and_grad": t_vg, "adam_steps": t_adam}, peak_memory_gib=peak,
+         rule=GRAD_RULE.format("1e-4") + " against a dense DTC; value: |v - v64| <= 2 |v_dense_f32 - v64| + 1e-6 |v64|")
+    check(launches["lrgemm"] > 0 and launches["cov_tiles"] > 0 and c_adam["lrgemm"] > 0,
+          f"train.lowrank: lrgemm or cov_tiles never launched: {launches}")
+    check(ok, f"train.lowrank: gradient {g_t} against float64 {g64}: errors {err} above {bnd}")
+    check(abs(v_t - v64) <= 2 * abs(vd - v64) + 1e-6 * abs(v64), f"train.lowrank: value {v_t} vs {v64}")
+    check(all(math.isfinite(v) for v in l2) and l2[-1] < l2[0], f"train.lowrank: Adam losses {l2}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA card")
@@ -1891,6 +2321,7 @@ def main() -> None:
     emit("data.update", rows=N_TRAIN + UPDATE_STEPS * TILE, window=N_TRAIN, steps=UPDATE_STEPS,
          step_rows=TILE, seed=SEED, test_points="the main phase's x_test")
     rows = kernel_phases(x_train, x_test, dev)
+    rows["cov_tiles"]["families"] = cov_zoo_phase(x_train, x_test, dev)
     rows["carry_update"] = carry_phase(x_win, y_win, dev)
     phase_grad(dev)
     phase_tf32(x_train, y_train, x_test, dev)
@@ -1909,6 +2340,12 @@ def main() -> None:
     phase_profile(x_train, y_train, x_test, x_win, y_win, dev)
     del x_win, y_win
 
+    # training through the kernels, then the kernel zoo on the main path at the trained params
+    launches_train, trained = phase_train(x_train, y_train, dev)
+    launches_zoo = phase_zoo(x_train, y_train, x_test, dev, trained)
+    del trained
+    phase_train_profile(x_train, y_train, dev)
+
     # gp_256k_lowrank: the low-rank tier at gp_256k's sizes, and a window of one series for its steps
     x_lr, y_lr, x_lt, y_lt = make_data(LR_N_TRAIN, LR_N_TEST, N_FEATURES, SEED)
     x_lw, y_lw, _, _ = make_data(LR_N_TRAIN + LR_STEPS * TILE, TILE, N_FEATURES, SEED)
@@ -1920,7 +2357,9 @@ def main() -> None:
     launches_lowrank = phase_lowrank(x_lr, y_lr, x_lt, x_lw, y_lw, dev)
     phase_lowrank_timing(x_lr, y_lr, x_lt, y_lt, x_lw, y_lw, (x_train, y_train, x_test, y_test), dev)
     phase_lowrank_profile(x_lr, y_lr, x_lt, x_lw, y_lw, dev)
-    del x_lr, y_lr, x_lt, y_lt, x_lw, y_lw
+    del x_lt, y_lt, x_lw, y_lw
+    launches_train_lowrank = phase_train_lowrank(x_lr, y_lr, dev)
+    del x_lr, y_lr
 
     # gemma2-2b served at full width: the flash kernel, then the serving path
     rows["flash_attention"] = flash_phase(dev)
@@ -1934,7 +2373,8 @@ def main() -> None:
     path_of["carry_update"] = "update"
     path_of["lrgemm"] = "lowrank"
     path_of["flash_attention"] = "lm"
-    by_path = {"main": launches, "update": launches_update, "lowrank": launches_lowrank, "lm": launches_lm}
+    by_path = {"main": launches, "update": launches_update, "lowrank": launches_lowrank, "lm": launches_lm,
+               "zoo": launches_zoo, "train": launches_train, "train_lowrank": launches_train_lowrank}
     kernels = [
         {"name": name, "launches": by_path[path_of[name]][name], **row,
          "launches_by_path": {path: counts[name] for path, counts in by_path.items()}}

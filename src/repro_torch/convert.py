@@ -1,6 +1,6 @@
 """Carry hyperparameters and cached states across from the JAX package.
 
-The JAX package's ``SEKernelParams``, ``PosteriorState`` and
+The JAX package's kernel params trees, ``PosteriorState`` and
 ``LowRankState``, and its language models' parameter trees, hold JAX
 arrays; the caller hands their leaves over as numpy arrays (``np.asarray(leaf)``),
 so this module needs neither JAX nor the ``repro`` package.  The tensors it
@@ -28,6 +28,25 @@ def params_from_numpy(lengthscale, vertical, noise) -> km.SEKernelParams:
     """
     return km.SEKernelParams(
         float(np.asarray(lengthscale)), float(np.asarray(vertical)), float(np.asarray(noise))
+    )
+
+
+def kernel_params_from_numpy(kernel, leaves):
+    """The params tree of any registered family or composite from the JAX tree's leaves.
+
+    ``leaves`` are the JAX params pytree's leaves as numpy arrays, in JAX's
+    order (``[np.asarray(l) for l in jax.tree.leaves(params)]``: dataclass
+    fields in declaration order, tuple items in order), which is the port's
+    :func:`repro_torch.core.kernels_math.tree_flatten` order.  A 0-d leaf
+    becomes a Python float, a vector leaf (ARD lengthscales) a tensor copy.
+    """
+    kernel = km.resolve_kernel(kernel)
+    template, treedef = km.tree_flatten(kernel.default_params())
+    leaves = [np.asarray(leaf) for leaf in leaves]
+    if len(leaves) != len(template):
+        raise ValueError(f"{kernel.kernel_id()} has {len(template)} hyperparameter leaves, got {len(leaves)}")
+    return km.tree_unflatten(
+        treedef, [float(a) if a.ndim == 0 else torch.from_numpy(np.array(a)) for a in leaves]
     )
 
 

@@ -25,6 +25,10 @@ of refactorizing; a cold cache, an unaligned ``forget`` or a numerical
 failure (:class:`repro_torch.core.update.CholeskyUpdateError`) invalidates
 the cache so that the next prediction refactorizes.
 
+``nlml`` / ``log_marginal_likelihood`` read the cached state, and
+``optimize`` fits the hyperparameters by Adam on the NLML of the GP's own
+path (:mod:`repro_torch.core.mll`).
+
 ``method="lowrank"`` (with ``m_inducing``) runs the tiled Nystrom/DTC tier
 of :mod:`repro_torch.core.lowrank` instead, and takes precedence over
 ``pipeline``/``fused``: an O(n m^2) cold build of an m-point inner system,
@@ -45,16 +49,16 @@ import torch
 
 from repro_torch.core import kernels_math as km
 from repro_torch.core import lowrank
+from repro_torch.core import mll
 from repro_torch.core import predict as pred
 from repro_torch.core import update as upd
 from repro_torch.device import resolve_device
 
 
 def _params_key(params):
-    """Hashable digest of a hyperparameter dataclass (host bytes of each field)."""
+    """Hashable digest of a params tree (host bytes of each leaf, at any depth)."""
     return tuple(
-        torch.as_tensor(getattr(params, f.name)).detach().cpu().numpy().tobytes()
-        for f in dataclasses.fields(params)
+        torch.as_tensor(leaf).detach().cpu().numpy().tobytes() for leaf in km.tree_leaves(params)
     )
 
 
@@ -439,6 +443,56 @@ class GaussianProcess:
     def predict_with_uncertainty(self, x_test) -> Tuple[torch.Tensor, torch.Tensor]:
         mean, sigma = self.predict_full_cov(x_test)
         return mean, torch.diagonal(sigma)
+
+    # -- hyperparameters ----------------------------------------------------
+
+    @_ieee_on_device
+    def nlml(self) -> torch.Tensor:
+        """Negative log marginal likelihood from the cached state.
+
+        Tiled: the quadratic term from the cached alpha chunks and the
+        log-determinant from the packed factor's diagonal tiles, with no
+        dense refactorization (:func:`mll.nlml_from_state`); low-rank: the
+        Woodbury form of the cached Nystrom state in whitened coordinates
+        (:func:`lowrank.whitened_nlml`, the value ``optimize`` trains);
+        monolithic: the dense reference.
+        """
+        if self.method == "lowrank":
+            return lowrank.whitened_nlml(self.lowrank_posterior())
+        if self.pipeline == "monolithic":
+            return mll.negative_log_marginal_likelihood(
+                self.x_train, self.y_train, self.params, dtype=self.dtype, kernel=self.kernel,
+                device=self.device,
+            )
+        return mll.nlml_from_state(self.posterior(), self.y_train, dtype=self.dtype)
+
+    def log_marginal_likelihood(self) -> torch.Tensor:
+        """``-nlml()``: on the tiled pipeline it reuses the cached posterior."""
+        return -self.nlml()
+
+    @_ieee_on_device
+    def optimize(self, steps: int = 100, lr: float = 0.05, *, method: Optional[str] = None) -> "GaussianProcess":
+        """Fit the hyperparameters by Adam on the NLML (:func:`mll.optimize_hyperparameters`).
+
+        ``method`` defaults to the GP's own path: ``method="lowrank"`` trains
+        the Nystrom NLML, ``pipeline="tiled"`` the tiled program (no dense
+        Cholesky; the same tile_size, n_streams and update_dtype as
+        prediction), ``pipeline="monolithic"`` the dense reference.  The
+        cache is invalidated: the factor belongs to the old hyperparameters.
+        """
+        if method is None:
+            if self.method == "lowrank":
+                method = "lowrank"
+            else:
+                method = "tiled" if self.pipeline == "tiled" else "monolithic"
+        self.params, _ = mll.optimize_hyperparameters(
+            self.x_train, self.y_train, self.params, steps=steps, lr=lr, dtype=self.dtype,
+            method=method, tile_size=self.tile_size, n_streams=self.n_streams,
+            update_dtype=self.update_dtype, kernel=self.kernel, m_inducing=self.m_inducing,
+            strategy=self.strategy, inducing=self.inducing, jitter=self.jitter, device=self.device,
+        )
+        self.invalidate_cache()
+        return self
 
     def _prep(self, x_test) -> torch.Tensor:
         x_test = torch.as_tensor(x_test, device=self.device).to(self.dtype)

@@ -1,4 +1,4 @@
-"""Gaussian-process covariance math: the kernel contract, SE, and plain assembly.
+"""Gaussian-process covariance math: the kernel registry, its params trees, and plain assembly.
 
 The paper (Eq. 1) uses the squared-exponential kernel
 
@@ -6,9 +6,12 @@ The paper (Eq. 1) uses the squared-exponential kernel
 
 with lengthscale ``l``, vertical lengthscale ``v`` and noise variance
 ``sigma^2``.  The paper divides by ``2*l`` (not ``2*l**2``); the port keeps
-that convention exactly, as the JAX package does.
+that convention exactly, as the JAX package does, and every other
+stationary family keeps it too (``lengthscale`` scales *squared* distances).
 
-A kernel is a frozen dataclass implementing:
+Beyond SE the registry holds Matérn 1/2, 3/2 and 5/2, the rational
+quadratic, per-dimension ARD and white noise, and ``Sum`` / ``Product`` /
+``Scaled`` compose them.  A kernel is a frozen dataclass implementing:
 
   * ``kfree(params, xa, xb)`` — the noise-free covariance block (torch ops,
     leading batch axes allowed);
@@ -16,28 +19,41 @@ A kernel is a frozen dataclass implementing:
   * ``diag(params)`` — the exact ``kfree(x, x)``; assembly pins the global
     diagonal to ``diag + noise`` instead of trusting the cancellation-prone
     expanded distance form;
-  * ``default_params()``.
+  * ``default_params()``, ``base_ndims(params)`` and, where
+    ``analytic_vjp`` is set (SE, Matérn 5/2), the hand-derived
+    ``kfree_vjp``.
 
-Hyperparameters are a small dataclass of floats or 0-d tensors.  The
-registry holds ``"se"``; the other families of the JAX package's zoo come
-with a later slice.  Padding contract: rows/cols with global index
-``>= n_valid`` become identity (training covariance) or zero (cross/prior
-covariance), so the padded system solves the unpadded one exactly.
+Hyperparameters are a params *tree*: small dataclasses whose leaves are
+floats or tensors (0-d, or (D,) for ARD lengthscales), nested in tuples by
+``Sum``/``Product`` and in ``ScaledParams.inner``.  :func:`tree_flatten`,
+:func:`tree_unflatten` and :func:`tree_map` walk them.  Padding contract:
+rows/cols with global index ``>= n_valid`` become identity (training
+covariance) or zero (cross/prior covariance), so the padded system solves
+the unpadded one exactly.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, ClassVar, Optional, Union
+import math
+from typing import Any, Callable, ClassVar, List, Optional, Tuple, Union
 
 import torch
 
 Scalar = Union[float, torch.Tensor]
 
 
+# ---------------------------------------------------------------------------
+# Hyperparameter trees
+# ---------------------------------------------------------------------------
+
+
 @dataclasses.dataclass(frozen=True)
 class SEKernelParams:
-    """Hyperparameters of the paper's SE kernel (Eq. 1): floats or 0-d tensors."""
+    """Hyperparameters of the paper's SE kernel (Eq. 1): floats or 0-d tensors.
+
+    Also the params of the Matérn families, which have the same three knobs.
+    """
 
     lengthscale: Scalar = 1.0
     vertical: Scalar = 1.0
@@ -50,10 +66,129 @@ class SEKernelParams:
 
     def as_floats(self) -> "SEKernelParams":
         """The same parameters as Python floats (reads a 0-d tensor to the host)."""
-        return SEKernelParams(*(
-            float(v.detach()) if isinstance(v, torch.Tensor) else float(v)
-            for v in (self.lengthscale, self.vertical, self.noise)
-        ))
+        return concrete_params(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class RQKernelParams:
+    """Rational-quadratic hyperparameters (an SE mixture over lengthscales)."""
+
+    lengthscale: Scalar = 1.0
+    vertical: Scalar = 1.0
+    noise: Scalar = 0.1
+    alpha: Scalar = 1.0  # mixture concentration; RQ -> SE as alpha -> inf
+
+
+@dataclasses.dataclass(frozen=True)
+class ARDKernelParams:
+    """SE-ARD hyperparameters: one lengthscale per feature dimension (a (D,) tensor)."""
+
+    lengthscales: Any = dataclasses.field(default_factory=lambda: torch.ones(1))
+    vertical: Scalar = 1.0
+    noise: Scalar = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class WhiteKernelParams:
+    """White-noise hyperparameter: the observation-noise variance."""
+
+    noise: Scalar = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class ScaledParams:
+    """Params of ``Scaled``: an output scale wrapping the child's params tree."""
+
+    scale: Scalar = 1.0
+    inner: Any = None
+
+
+def _is_node(tree) -> bool:
+    return isinstance(tree, (tuple, list)) or (
+        dataclasses.is_dataclass(tree) and not isinstance(tree, type)
+    )
+
+
+def tree_flatten(tree) -> Tuple[List[Any], Any]:
+    """(leaves, treedef) of a params tree: dataclass fields and tuple items, depth first."""
+    if isinstance(tree, (tuple, list)):
+        parts = [tree_flatten(c) for c in tree]
+        return [l for p in parts for l in p[0]], (type(tree), None, tuple(p[1] for p in parts))
+    if _is_node(tree):
+        names = tuple(f.name for f in dataclasses.fields(tree))
+        parts = [tree_flatten(getattr(tree, n)) for n in names]
+        return [l for p in parts for l in p[0]], (type(tree), names, tuple(p[1] for p in parts))
+    return [tree], None
+
+
+def tree_unflatten(treedef, leaves):
+    """Inverse of :func:`tree_flatten`."""
+    it = iter(leaves)
+
+    def build(td):
+        if td is None:
+            return next(it)
+        cls, names, children = td
+        built = [build(c) for c in children]
+        return cls(built) if names is None else cls(**dict(zip(names, built)))
+
+    return build(treedef)
+
+
+def tree_leaves(tree) -> List[Any]:
+    return tree_flatten(tree)[0]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of ``rest``)."""
+    leaves, td = tree_flatten(tree)
+    others = [tree_flatten(r)[0] for r in rest]
+    return tree_unflatten(td, [fn(*ls) for ls in zip(leaves, *others)])
+
+
+class TensorLeaves:
+    """A params tree split into its tensor leaves (autograd operands) and the rest, which stay bound."""
+
+    def __init__(self, params):
+        self.leaves, self.treedef = tree_flatten(params)
+        self.slots = [i for i, leaf in enumerate(self.leaves) if isinstance(leaf, torch.Tensor)]
+
+    def values(self):
+        return [self.leaves[i] for i in self.slots]
+
+    def rebuild(self, values):
+        """The tree with ``values`` in place of its tensor leaves."""
+        filled = list(self.leaves)
+        for i, v in zip(self.slots, values):
+            filled[i] = v
+        return tree_unflatten(self.treedef, filled)
+
+    def pick(self, tree):
+        """The leaves of ``tree`` (the same structure) at the tensor slots."""
+        leaves = tree_leaves(tree)
+        return [leaves[i] for i in self.slots]
+
+
+def concrete_params(params):
+    """The params tree as host values: 0-d leaves as floats, vector leaves as float tuples.
+
+    Reads tensors to the host (detached).  The CUDA kernel takes these as
+    runtime scalars; the result is for reading, not for :func:`tree_map`
+    (a vector leaf becomes a tuple).
+    """
+
+    def conv(leaf):
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach()
+            return float(leaf) if leaf.ndim == 0 else tuple(float(v) for v in leaf.reshape(-1).cpu())
+        return leaf if leaf is None else float(leaf)
+
+    return tree_map(conv, params)
+
+
+# ---------------------------------------------------------------------------
+# Distance helpers
+# ---------------------------------------------------------------------------
 
 
 def sq_dists(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -69,10 +204,37 @@ def sq_dists(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     return torch.clamp(n1sq + n2sq - 2.0 * cross, min=0.0)
 
 
+def _safe_sqrt(d2: torch.Tensor) -> torch.Tensor:
+    """sqrt with a zero (not NaN) gradient at d2 == 0 (double-where trick)."""
+    pos = d2 > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, d2, torch.ones_like(d2))), torch.zeros_like(d2))
+
+
+def _zeros_like_leaf(leaf):
+    return torch.zeros_like(leaf) if isinstance(leaf, torch.Tensor) else 0.0
+
+
+def _xgrads(w, xa, xb):
+    """Cotangents of xa, xb from w = g * dk/d(d2): d(d2)/dxa = 2 (xa - xb) rowwise."""
+    g_xa = 2.0 * (torch.sum(w, dim=1, keepdim=True) * xa - w @ xb)
+    g_xb = 2.0 * (torch.sum(w, dim=0)[:, None] * xb - w.T @ xa)
+    return g_xa, g_xb
+
+
+# ---------------------------------------------------------------------------
+# The kernel registry
+# ---------------------------------------------------------------------------
+
+
 class Kernel:
-    """Base of the kernel contract (see the module docstring)."""
+    """Base of the kernel contract (see the module docstring).
+
+    ``analytic_vjp`` marks kernels with a hand-derived dK/dtheta
+    (``kfree_vjp``); the others train through autograd of the program.
+    """
 
     name: ClassVar[str] = "kernel"
+    analytic_vjp: ClassVar[bool] = False
 
     def default_params(self):
         raise NotImplementedError
@@ -86,12 +248,31 @@ class Kernel:
     def diag(self, params):
         return params.vertical
 
+    def base_ndims(self, params):
+        """Per-leaf base rank of the params tree (0 for scalars, 1 for ARD lengthscales)."""
+        return tree_map(lambda _: 0, params)
+
+    def kfree_vjp(self, params, xa, xb, g):
+        """Hand-derived VJP of ``sum(g * kfree(params, xa, xb))``, one (n1, n2) block.
+
+        Returns ``(g_params, g_xa, g_xb)``; the ``noise`` leaf of
+        ``g_params`` is zero (kfree is noise-free).  Only kernels with
+        ``analytic_vjp`` provide it.
+        """
+        raise NotImplementedError(
+            f"{self.name} has no hand-derived kfree VJP (analytic_vjp is {self.analytic_vjp})"
+        )
+
+    def kernel_id(self) -> str:
+        return self.name
+
 
 @dataclasses.dataclass(frozen=True)
 class SquaredExponential(Kernel):
     """The paper's kernel: k = v * exp(-d2 / (2 l)); ``l`` enters unsquared."""
 
     name: ClassVar[str] = "se"
+    analytic_vjp: ClassVar[bool] = True
 
     def default_params(self) -> SEKernelParams:
         return SEKernelParams.paper_defaults()
@@ -99,10 +280,227 @@ class SquaredExponential(Kernel):
     def kfree(self, params, xa, xb):
         return params.vertical * torch.exp(-0.5 / params.lengthscale * sq_dists(xa, xb))
 
+    def kfree_vjp(self, params, xa, xb, g):
+        l, v = params.lengthscale, params.vertical
+        d2 = sq_dists(xa, xb)
+        gk = g * (v * torch.exp(-0.5 / l * d2))
+        g_l = torch.sum(gk * d2) / (2.0 * l * l)
+        g_v = torch.sum(gk) / v
+        # dk/d(d2) = -k / (2 l)
+        g_xa, g_xb = _xgrads(-gk / (2.0 * l), xa, xb)
+        return SEKernelParams(g_l, g_v, _zeros_like_leaf(params.noise)), g_xa, g_xb
+
+
+@dataclasses.dataclass(frozen=True)
+class Matern12(Kernel):
+    """Matérn nu=1/2 (exponential): k = v * exp(-r), r^2 = d2 / l."""
+
+    name: ClassVar[str] = "matern12"
+
+    def default_params(self) -> SEKernelParams:
+        return SEKernelParams.paper_defaults()
+
+    def kfree(self, params, xa, xb):
+        r = _safe_sqrt(sq_dists(xa, xb) / params.lengthscale)
+        return params.vertical * torch.exp(-r)
+
+
+@dataclasses.dataclass(frozen=True)
+class Matern32(Kernel):
+    """Matérn nu=3/2: k = v * (1 + sqrt(3) r) exp(-sqrt(3) r)."""
+
+    name: ClassVar[str] = "matern32"
+
+    def default_params(self) -> SEKernelParams:
+        return SEKernelParams.paper_defaults()
+
+    def kfree(self, params, xa, xb):
+        s = math.sqrt(3.0) * _safe_sqrt(sq_dists(xa, xb) / params.lengthscale)
+        return params.vertical * (1.0 + s) * torch.exp(-s)
+
+
+@dataclasses.dataclass(frozen=True)
+class Matern52(Kernel):
+    """Matérn nu=5/2: k = v * (1 + sqrt(5) r + 5 r^2 / 3) exp(-sqrt(5) r)."""
+
+    name: ClassVar[str] = "matern52"
+    analytic_vjp: ClassVar[bool] = True
+
+    def default_params(self) -> SEKernelParams:
+        return SEKernelParams.paper_defaults()
+
+    def kfree(self, params, xa, xb):
+        s = math.sqrt(5.0) * _safe_sqrt(sq_dists(xa, xb) / params.lengthscale)
+        return params.vertical * (1.0 + s + s * s / 3.0) * torch.exp(-s)
+
+    def kfree_vjp(self, params, xa, xb, g):
+        l, v = params.lengthscale, params.vertical
+        s = math.sqrt(5.0) * _safe_sqrt(sq_dists(xa, xb) / l)
+        e = torch.exp(-s)
+        g_v = torch.sum(g * (1.0 + s + s * s / 3.0) * e)
+        # dk/dl = v s^2 (1 + s) e^{-s} / (6 l)   (via ds/dl = -s / (2 l))
+        g_l = torch.sum(g * s * s * (1.0 + s) * e) * v / (6.0 * l)
+        # dk/d(d2) = -(5 v / (6 l)) (1 + s) e^{-s}: finite at d2 == 0
+        w = g * (-(5.0 * v / (6.0 * l)) * (1.0 + s) * e)
+        g_xa, g_xb = _xgrads(w, xa, xb)
+        return SEKernelParams(g_l, g_v, _zeros_like_leaf(params.noise)), g_xa, g_xb
+
+
+@dataclasses.dataclass(frozen=True)
+class RationalQuadratic(Kernel):
+    """RQ: k = v * (1 + d2 / (2 alpha l))^-alpha — an SE lengthscale mixture."""
+
+    name: ClassVar[str] = "rq"
+
+    def default_params(self) -> RQKernelParams:
+        return RQKernelParams()
+
+    def kfree(self, params, xa, xb):
+        base = 1.0 + sq_dists(xa, xb) / (2.0 * params.alpha * params.lengthscale)
+        return params.vertical * torch.exp(-params.alpha * torch.log(base))
+
+
+@dataclasses.dataclass(frozen=True)
+class ARDSquaredExponential(Kernel):
+    """SE with one lengthscale per feature dim: k = v * exp(-0.5 sum d_i^2 / l_i).
+
+    The plain version scales the features by 1/sqrt(l) and takes the
+    expanded-form distance; the CUDA kernel computes sum (a_d - b_d)^2 / l_d
+    as the Pallas body does (``csrc/cov_assembly.cu``).
+    """
+
+    ndim: int = 1
+
+    name: ClassVar[str] = "se_ard"
+
+    def default_params(self) -> ARDKernelParams:
+        return ARDKernelParams(lengthscales=torch.ones(self.ndim))
+
+    def kfree(self, params, xa, xb):
+        ls = torch.as_tensor(params.lengthscales, dtype=xa.dtype, device=xa.device)
+        inv = 1.0 / torch.sqrt(ls)
+        return params.vertical * torch.exp(-0.5 * sq_dists(xa * inv, xb * inv))
+
+    def base_ndims(self, params) -> ARDKernelParams:
+        return ARDKernelParams(lengthscales=1, vertical=0, noise=0)
+
+    def kernel_id(self) -> str:
+        return f"se_ard{self.ndim}"
+
+
+@dataclasses.dataclass(frozen=True)
+class White(Kernel):
+    """White observation noise: zero off the diagonal, ``noise`` on it (through the pin)."""
+
+    name: ClassVar[str] = "white"
+
+    def default_params(self) -> WhiteKernelParams:
+        return WhiteKernelParams()
+
+    def kfree(self, params, xa, xb):
+        return xa.new_zeros(xa.shape[:-1] + (xb.shape[-2],))
+
+    def diag(self, params):
+        return 0.0
+
+
+@dataclasses.dataclass(frozen=True, init=False)
+class Sum(Kernel):
+    """k = sum of children; params is the tuple of the children's params trees."""
+
+    children: tuple
+
+    name: ClassVar[str] = "sum"
+
+    def __init__(self, *children: Kernel):
+        object.__setattr__(self, "children", tuple(children))
+
+    def default_params(self) -> tuple:
+        return tuple(c.default_params() for c in self.children)
+
+    def kfree(self, params, xa, xb):
+        parts = [c.kfree(p, xa, xb) for c, p in zip(self.children, params)]
+        return sum(parts[1:], parts[0])
+
+    def noise(self, params):
+        return sum(c.noise(p) for c, p in zip(self.children, params))
+
+    def diag(self, params):
+        return sum(c.diag(p) for c, p in zip(self.children, params))
+
+    def base_ndims(self, params) -> tuple:
+        return tuple(c.base_ndims(p) for c, p in zip(self.children, params))
+
+    def kernel_id(self) -> str:
+        return "sum(" + ",".join(c.kernel_id() for c in self.children) + ")"
+
+
+@dataclasses.dataclass(frozen=True, init=False)
+class Product(Kernel):
+    """k = product of the children's noise-free parts; the children's noise is ignored."""
+
+    children: tuple
+
+    name: ClassVar[str] = "product"
+
+    def __init__(self, *children: Kernel):
+        object.__setattr__(self, "children", tuple(children))
+
+    def default_params(self) -> tuple:
+        return tuple(c.default_params() for c in self.children)
+
+    def kfree(self, params, xa, xb):
+        out = self.children[0].kfree(params[0], xa, xb)
+        for c, p in zip(self.children[1:], params[1:]):
+            out = out * c.kfree(p, xa, xb)
+        return out
+
+    def noise(self, params):
+        return 0.0
+
+    def diag(self, params):
+        out = self.children[0].diag(params[0])
+        for c, p in zip(self.children[1:], params[1:]):
+            out = out * c.diag(p)
+        return out
+
+    def base_ndims(self, params) -> tuple:
+        return tuple(c.base_ndims(p) for c, p in zip(self.children, params))
+
+    def kernel_id(self) -> str:
+        return "prod(" + ",".join(c.kernel_id() for c in self.children) + ")"
+
+
+@dataclasses.dataclass(frozen=True)
+class Scaled(Kernel):
+    """k = scale * child (scale multiplies kfree, diag and the child's noise)."""
+
+    inner: Kernel
+
+    name: ClassVar[str] = "scaled"
+
+    def default_params(self) -> ScaledParams:
+        return ScaledParams(scale=1.0, inner=self.inner.default_params())
+
+    def kfree(self, params, xa, xb):
+        return params.scale * self.inner.kfree(params.inner, xa, xb)
+
+    def noise(self, params):
+        return params.scale * self.inner.noise(params.inner)
+
+    def diag(self, params):
+        return params.scale * self.inner.diag(params.inner)
+
+    def base_ndims(self, params) -> ScaledParams:
+        return ScaledParams(scale=0, inner=self.inner.base_ndims(params.inner))
+
+    def kernel_id(self) -> str:
+        return f"scaled({self.inner.kernel_id()})"
+
 
 SQUARED_EXPONENTIAL = SquaredExponential()  # the default kernel everywhere
 
-KERNEL_REGISTRY: dict[str, Callable[..., Kernel]] = {"se": SquaredExponential}
+KERNEL_REGISTRY: dict[str, Callable[..., Kernel]] = {}
 
 
 def register_kernel(name: str, factory: Callable[..., Kernel]) -> None:
@@ -120,6 +518,12 @@ def get_kernel(name: str, **kwargs) -> Kernel:
     return factory(**kwargs)
 
 
+for _cls in (
+    SquaredExponential, Matern12, Matern32, Matern52, RationalQuadratic, ARDSquaredExponential, White,
+):
+    register_kernel(_cls.name, _cls)
+
+
 def resolve_kernel(kernel) -> Kernel:
     """None -> the SE default; a registry name -> its instance; else as-is."""
     if kernel is None:
@@ -127,6 +531,66 @@ def resolve_kernel(kernel) -> Kernel:
     if isinstance(kernel, str):
         return get_kernel(kernel)
     return kernel
+
+
+# ---------------------------------------------------------------------------
+# The normal form the CUDA kernel evaluates
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Factor:
+    """One leaf of a product term: ``family`` of a distance, with its host-side scalars.
+
+    ``family`` is "se", "matern12", "matern32", "matern52", "rq" or "ard";
+    ``lengthscale`` is l (for "ard" the tuple of per-dimension l), ``alpha``
+    RQ's concentration.
+    """
+
+    family: str
+    lengthscale: Any
+    alpha: float = 0.0
+
+
+def normal_form(kernel: Kernel, params) -> List[Tuple[float, Tuple[Factor, ...]]]:
+    """kfree as a sum of products of leaves: ``[(coef, (factor, ...)), ...]`` on the host.
+
+    ``Scaled`` and each leaf's ``vertical`` multiply ``coef``; ``Product``
+    distributes over ``Sum``; White contributes nothing off the pinned
+    diagonal (its kfree is zero), so a term holding it is dropped.
+    ``params`` is read through :func:`concrete_params`.
+    """
+    return _normal_form(resolve_kernel(kernel), concrete_params(params))
+
+
+_ISOTROPIC = {SquaredExponential: "se", Matern12: "matern12", Matern32: "matern32", Matern52: "matern52"}
+
+
+def _normal_form(kernel, p):
+    if type(kernel) in _ISOTROPIC:
+        return [(p.vertical, (Factor(_ISOTROPIC[type(kernel)], p.lengthscale),))]
+    if isinstance(kernel, RationalQuadratic):
+        return [(p.vertical, (Factor("rq", p.lengthscale, p.alpha),))]
+    if isinstance(kernel, ARDSquaredExponential):
+        ls = p.lengthscales if isinstance(p.lengthscales, tuple) else (p.lengthscales,)
+        return [(p.vertical, (Factor("ard", ls),))]
+    if isinstance(kernel, White):
+        return []
+    if isinstance(kernel, Scaled):
+        return [(p.scale * c, f) for c, f in _normal_form(kernel.inner, p.inner)]
+    if isinstance(kernel, Sum):
+        return [t for c, cp in zip(kernel.children, p) for t in _normal_form(c, cp)]
+    if isinstance(kernel, Product):
+        terms = [(1.0, ())]
+        for c, cp in zip(kernel.children, p):
+            terms = [(c1 * c2, f1 + f2) for c1, f1 in terms for c2, f2 in _normal_form(c, cp)]
+        return terms
+    raise ValueError(f"kernel {kernel.kernel_id()!r} has no normal form for the CUDA kernel")
+
+
+# ---------------------------------------------------------------------------
+# Plain tile assembly
+# ---------------------------------------------------------------------------
 
 
 def _diag_value(kernel: Kernel, params, dtype, device) -> torch.Tensor:
@@ -159,18 +623,28 @@ def cov_tile(
     """
     kernel = resolve_kernel(kernel)
     k = kernel.kfree(params, xa, xb)
+    diagval = _diag_value(kernel, params, k.dtype, k.device) if symmetric else None
+    return mask_tiles(k, row0, col0, n_valid_r, n_valid_c, symmetric, diagval)
+
+
+def mask_tiles(k, row0, col0, n_valid_r, n_valid_c, symmetric: bool, diagval=None) -> torch.Tensor:
+    """The masks of :func:`cov_tile` on kfree tiles ``k`` (..., m, mb).
+
+    Symmetric: the global diagonal becomes ``diagval`` and the padded
+    region the identity; otherwise the padded region becomes zero.
+    """
     dev = k.device
 
     def col(v):  # (...,) -> (..., 1, 1) so it broadcasts over the tile
         v = torch.as_tensor(v, device=dev)
         return v.reshape(v.shape + (1, 1))
 
-    gi = col(row0) + torch.arange(xa.shape[-2], device=dev)[:, None]
-    gj = col(col0) + torch.arange(xb.shape[-2], device=dev)[None, :]
+    gi = col(row0) + torch.arange(k.shape[-2], device=dev)[:, None]
+    gj = col(col0) + torch.arange(k.shape[-1], device=dev)[None, :]
     on_diag = gi == gj
     valid = (gi < col(n_valid_r)) & (gj < col(n_valid_c))
     if symmetric:
-        k = torch.where(on_diag, _diag_value(kernel, params, k.dtype, dev), k)
+        k = torch.where(on_diag, diagval, k)
         return torch.where(valid, k, on_diag.to(k.dtype))
     return torch.where(valid, k, torch.zeros((), dtype=k.dtype, device=dev))
 

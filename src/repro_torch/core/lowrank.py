@@ -36,7 +36,8 @@ same shape), and solves gamma = L_uu^-T B^-1 c_w, so that B and the
 right-hand side come from one W; the mean then agrees with the dense
 float32 SGPR pipeline.  ``c_chunks`` is kept as the reference computes it
 (K_un y), for :func:`nlml_from_lowrank_state`, and the head is the
-reference's.
+reference's; :func:`whitened_nlml` takes the NLML's quadratic term in the
+same whitened coordinates as gamma.
 
 :func:`absorb` adds (``sign=+1``) or removes (``sign=-1``) a block of
 training rows through the rank-m inner system in O(b m^2 + m^3); the
@@ -45,9 +46,9 @@ inducing set stays fixed.  A removal that leaves B indefinite raises
 
 The plain products of the JAX package (the Gram of W, the head's mean and
 covariance contractions) stay ``torch.matmul``/``torch.einsum``, with TF32
-off on the card.  The problem axis B, ragged ``n_valid``, the Woodbury
-NLML's gradient and training come with later slices;
-:func:`nlml_from_lowrank_state` is the value only.
+off on the card.  The problem axis B and ragged ``n_valid`` come with a
+later slice; the NLML's gradient and training are
+:func:`repro_torch.core.mll.nlml_lowrank`.
 """
 
 from __future__ import annotations
@@ -395,18 +396,36 @@ def predict_from_lowrank_state(
     return mean, cov[:nt, :nt]
 
 
-def nlml_from_lowrank_state(state: LowRankState) -> torch.Tensor:
-    """Woodbury / matrix-determinant-lemma NLML from the cached pieces (value only):
-
-        0.5 [ s^-2 y^T y - s^-4 c^T A^-1 c + n log s^2 + log det B + n log 2 pi ]
-    """
+def _woodbury_nlml(state: LowRankState, ctac: torch.Tensor) -> torch.Tensor:
+    """0.5 [ s^-2 y^T y - s^-4 c^T A^-1 c + n log s^2 + log det B + n log 2 pi ], given c^T A^-1 c."""
     noise = _noise(state.kernel, state.params, state.c_chunks)
     inv = 1.0 / noise
-    quad = inv * state.yty - inv * inv * torch.sum(state.c_chunks * state.gamma)
+    quad = inv * state.yty - inv * inv * ctac
     logdet_b = triangular.logdet_from_factor(state.lb_packed, state.u_chunks.shape[0])
     nv = torch.as_tensor(float(state.n), dtype=noise.dtype, device=noise.device)
     log2pi = torch.as_tensor(math.log(2.0 * math.pi), dtype=noise.dtype, device=noise.device)
     return 0.5 * (quad + nv * torch.log(noise) + logdet_b + nv * log2pi)
+
+
+def nlml_from_lowrank_state(state: LowRankState) -> torch.Tensor:
+    """Woodbury / matrix-determinant-lemma NLML from the cached pieces, the
+    reference's formula: c^T A^-1 c = c . gamma (a state carried over from
+    the JAX package holds the reference's c and gamma)."""
+    return _woodbury_nlml(state, torch.sum(state.c_chunks * state.gamma))
+
+
+def whitened_nlml(state: LowRankState) -> torch.Tensor:
+    """The same NLML with c^T A^-1 c = |L_B^-1 c_w|^2, in the whitened
+    coordinates that gamma is solved in: the value that
+    ``GaussianProcess.nlml()`` returns and
+    :func:`repro_torch.core.mll.nlml_lowrank` trains.
+
+    c . gamma pairs c = K_un y with a gamma solved from c_w = W y, and
+    L_uu's conditioning amplifies their float32 disagreement, which this
+    form does not have.
+    """
+    z = executor.run_solve(state.lb_packed, state.c_w, lower=True, device=state.device)
+    return _woodbury_nlml(state, torch.sum(z * z))
 
 
 def predict_lowrank(

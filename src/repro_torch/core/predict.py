@@ -273,6 +273,41 @@ def predict_fused(
     return result, state
 
 
+def nlml_program_env(
+    x_train,
+    y_train,
+    params,
+    m: int,
+    *,
+    n_streams: Optional[int] = None,
+    update_dtype=None,
+    dtype=None,
+    kernel=None,
+    device="cuda",
+):
+    """Run the NLML prefix of the fused program: the prediction program with zero test tiles.
+
+    ``q_tiles = 0`` reduces the whole-pipeline DAG to assembly, the
+    factorization and both substitutions.  Returns ``(env, yc)``: the
+    buffer environment, whose ``packed`` is the factor (log-determinant
+    head) and ``alpha`` the weight chunks (quadratic-term head,
+    ``sum(yc * env["alpha"])``), and the padded target chunks ``yc``.
+    Differentiable by autograd: the buffers are written in place by
+    ``index_copy_``/``index_add_``, and the tile ops keep their gradients
+    (:mod:`repro_torch.kernels.ops`).
+    """
+    dev = resolve_device(device)
+    kernel = km.resolve_kernel(kernel)
+    n = x_train.shape[-2]
+    xc, yc, _ = _prepare(x_train, y_train, None, m, dtype, dev)
+    xtc = xc.new_zeros((0, m, xc.shape[-1]))
+    env = executor.run_program(
+        xc, yc, xtc, params, n, 0,
+        n_streams=n_streams, update_dtype=update_dtype, kernel=kernel, device=dev,
+    )
+    return env, yc
+
+
 def predict(x_train, y_train, x_test, params, m: int, **kwargs):
     """Tiled GP prediction: the fused whole-pipeline program (see predict_fused)."""
     return predict_fused(x_train, y_train, x_test, params, m, **kwargs)

@@ -119,7 +119,7 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "cov_tiles": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _I, _I, _P],
+    "cov_tiles": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _D, _I, _I, _P],
     "potrf": [_P, _P, _P, _P, _I, _I, _I, _P],
     "trsm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "trail": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -132,6 +132,8 @@ _SIGNATURES = {
 # launch-geometry queries some libraries export: (name, argtypes, restype)
 _QUERIES = (
     ("carry_update_f32_ctas_per_sm", [_I], _I),
+    ("cov_tiles_f32_ctas_per_sm", [_I], _I),
+    ("cov_tiles_limits", [_I], _I),
     ("carry_update_f32_strip", [_I], _I),
     ("carry_update_max_m", [_I], _I),
     ("flash_bf16_ctas_per_sm", [_I], _I),

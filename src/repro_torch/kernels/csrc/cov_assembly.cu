@@ -1,27 +1,58 @@
-// Covariance-tile assembly, batched, for the squared-exponential family.
+// Covariance-tile assembly, batched, for every registered kernel family.
 //
 // Replaces: repro/kernels/cov_assembly.py::_cov_tile_kernel (through
 // cov_tiles), the Pallas kernel behind the ASSEMBLE, CROSS and PRIOR tasks of
-// the fused prediction program.
+// the fused prediction program, whose body evaluates any family's
+// kernel.kfree with the hyperparameters baked in as constants.
 //
 // Computes, for every tile t of a stack, the (m x mb) block
-//     K[i, j] = v * exp(coef * max(|a_i|^2 + |b_j|^2 - 2 a_i.b_j, 0)),
-//     coef = -0.5 / l   (the paper's l enters unsquared)
-// with a = xa[t] (m, D), b = xb[t] (mb, D), masked by the global indices
-// gi = row0[t] + i, gj = col0[t] + j against nvr[t] / nvc[t]:
-//   symmetric: gi == gj -> diagval (bitwise v + sigma^2), invalid -> identity;
+//     K[i, j] = k(d2(a_i, b_j)),   a = xa[t] (m, D), b = xb[t] (mb, D),
+// masked by the global indices gi = row0[t] + i, gj = col0[t] + j against
+// nvr[t] / nvc[t]:
+//   symmetric: gi == gj -> diagval (bitwise diag + noise of the whole kernel
+//              tree, summed on the host), invalid -> identity;
 //   otherwise: invalid -> 0.
-// The distance is the reference's expanded form, clamped at 0 (not
-// sum (a - b)^2), so that the ports agree on offset data.  Hyperparameters
-// arrive as runtime scalars, not compile-time constants as in the Pallas
-// kernel, so one build serves every parameter value.
+//
+// The family.  The host writes the kernel tree as a short sum of products of
+// scaled leaves (Scaled multiplies, Product distributes over Sum, White's
+// kfree is zero off the pinned diagonal and drops out):
+//     k(d2) = sum_t coef_t prod_f leaf_f(d2)
+// and passes it as a small by-value descriptor (Family: family ids and runtime
+// scalars, at most MAX_TERMS terms of MAX_FACTORS factors), so one build
+// serves every composite and every parameter value.  The leaves are functions
+// of d2 alone:
+//     SE   exp(-d2 / (2 l))
+//     M12  exp(-r),                        r = sqrt(d2 / l)
+//     M32  (1 + r) exp(-r),                r = sqrt(3 d2 / l)
+//     M52  (1 + r + r^2 / 3) exp(-r),      r = sqrt(5 d2 / l)
+//     RQ   exp(-alpha log(1 + d2 / (2 alpha l)))   (the reference's form)
+// with sqrt(0) = 0 (the forward of _safe_sqrt).  float32 takes exp, sqrt and
+// log on the MUFU (ex2/sqrt/lg2.approx, the SE scale times log2 e formed on
+// the host); float64 keeps exp, sqrt and log.  A kernel of one scaled leaf
+// takes that leaf's tight epilogue; anything else takes the generic loop
+// over the descriptor.  The descriptor is a __grid_constant__ parameter, read
+// in place from the constant bank (no copy to local memory).
+//
+// The distance.  Isotropic families use the reference's expanded form
+// |a|^2 + |b|^2 - 2 a.b, clamped at 0 (not sum (a - b)^2), so that the ports
+// agree on offset data.  ARD (per-dimension lengthscales) computes what the
+// Pallas body computes, sum_d (a_d - b_d)^2 / l_d in the difference form, in
+// its own instantiation (ARD = true, inverse lengthscales in the descriptor,
+// at most MAX_ARD_D features); its leaf is SE with l = 1.  The plain torch
+// version scales the features by 1/sqrt(l) and takes the expanded form, so
+// on data far from the origin the two differ by the expanded form's
+// cancellation (ROADMAP.md section 3).  A composite that mixes an ARD leaf
+// with isotropic leaves, or two ARD leaves with different lengthscales, runs
+// one launch per distance and the wrapper combines the tiles
+// (kernels/cov_assembly.py); every other kernel runs in one launch.
 //
 // What bounds it on the H100: the writes.  A tile reads 2*m*D values and
 // writes m*mb; at m = 512, D = 16 that is 64 KiB in and 1 MiB out (the
 // ASSEMBLE launch of gp_16k writes 528 MiB, its CROSS launch 1 GiB), and the
-// arithmetic, 2 D FMA-halves and one exponential an element, stays below the
-// FP32 and MUFU rates that the card's 3.35 TB/s write stream (data sheet)
-// allows, if it is cheap per element.
+// arithmetic, D FMAs an element plus the family's epilogue (SE: one FMUL and
+// one MUFU; Matérn: three MUFU), stays below the FP32 and MUFU rates that the
+// card's 3.35 TB/s write stream (data sheet) allows only if it is cheap per
+// element.
 //
 // Design: a CTA of 256 threads computes a 128 x 128 block (64 x 64 in
 // float64) on the register-blocked layout of gemm_core.cuh: each thread owns
@@ -31,16 +62,16 @@
 // SM (the product is FMA-bound at D = 16: with two CTAs an SM it did not
 // overlap the stores).  The block's feature rows are staged k-major once per
 // chunk of up to KC features; the k loop runs over D itself, and the row and
-// column norms come out of the same staged features.  The epilogue forms d2
-// = na + nb - 2 a.b, clamps it, applies the family's functor (float32:
-// ex2.approx of (coef log2 e) d2, the scaled coefficient formed on the host;
-// float64: exp), the masks and the diagonal pin (skipped for blocks that are
+// column norms come out of the same staged features.  The epilogue turns the
+// accumulators into d2 in place, applies the family to all of them (one
+// switch per half on the descriptor's kind, so the tight leaf loops carry no
+// per-element branch), then the masks and the diagonal pin (skipped for blocks
 // wholly valid and off the global diagonal), and writes each thread's V
 // consecutive columns with one 16-byte streaming store (st.global.cs), so
 // that every warp writes four whole 128-byte lines a store.  mb not a
-// multiple of the vector takes the scalar-store instantiation.  The family is
-// a template parameter (an epilogue functor of d2): only
-// SE is built.
+// multiple of the vector takes the scalar-store instantiation.  (Fusing the
+// family into the store loop, one instantiation per leaf, spilled at the
+// 80-register cap of three CTAs an SM.)
 #include <climits>
 #include <cstdint>
 
@@ -53,32 +84,124 @@ constexpr int THREADS = 256;
 constexpr int TY = 16, TX = 16;  // the thread grid of the product core
 constexpr int KC = 32;           // features staged per chunk
 
+// The descriptor's limits and the leaf ids (kernels/cov_assembly.py writes the same numbers).
+constexpr int MAX_TERMS = 4, MAX_FACTORS = 3, MAX_ARD_D = 64;
+constexpr int N_INTS = 2 + MAX_TERMS + MAX_TERMS * MAX_FACTORS;
+enum Leaf : int { SE = 0, M12 = 1, M32 = 2, M52 = 3, RQ = 4, COMPOSITE = 5 };
+
+template <typename T>
+struct Family {
+  int kind;     // a single scaled leaf (SE ... RQ: coef[0], s[0], a[0]) or COMPOSITE
+  int n_terms;  // COMPOSITE: sum over n_terms of coef[t] prod_q leaf(fam[t][q])
+  int nf[MAX_TERMS];
+  int fam[MAX_TERMS * MAX_FACTORS];
+  T coef[MAX_TERMS];
+  T s[MAX_TERMS * MAX_FACTORS];  // the leaf's distance scale (see leaf())
+  T a[MAX_TERMS * MAX_FACTORS];  // RQ: -alpha
+  T inv_l[MAX_ARD_D];            // ARD: 1 / l_d
+};
+
 __device__ __forceinline__ float ex2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
+__device__ __forceinline__ float lg2_approx(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float y;
+  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
-// The squared-exponential family as an epilogue functor of d2.  float32 takes
-// v 2^((coef log2 e) d2) on the MUFU; float64 keeps exp.
+// exp, sqrt and log of the leaves: float32 on the MUFU, float64 in IEEE double.
 template <typename T>
-struct SquaredExp;
+struct Math;
 
 template <>
-struct SquaredExp<float> {
-  float coef_log2e, vertical;
-  static SquaredExp make(double coef, double vertical) {
-    return {static_cast<float>(coef * 1.4426950408889634), static_cast<float>(vertical)};
+struct Math<float> {
+  static constexpr bool kLog2 = true;  // scales of exponentials carry log2 e (host)
+  __device__ static __forceinline__ float exp_scaled(float x) { return ex2_approx(x); }
+  __device__ static __forceinline__ float exp_neg(float r) { return ex2_approx(-1.4426950408889634f * r); }
+  __device__ static __forceinline__ float root(float x) { return sqrt_approx(x); }
+  __device__ static __forceinline__ float pow_scaled(float base, float a) { return ex2_approx(a * lg2_approx(base)); }
+};
+
+template <>
+struct Math<double> {
+  static constexpr bool kLog2 = false;
+  __device__ static __forceinline__ double exp_scaled(double x) { return exp(x); }
+  __device__ static __forceinline__ double exp_neg(double r) { return exp(-r); }
+  __device__ static __forceinline__ double root(double x) { return sqrt(x); }
+  __device__ static __forceinline__ double pow_scaled(double base, double a) { return exp(a * log(base)); }
+};
+
+// One leaf at d2, without its coefficient.  s: SE -1/(2 l) (float32: times
+// log2 e); Matérn nu: (2 nu) / l, so r = sqrt(s d2); RQ: 1 / (2 alpha l).
+template <int L, typename T>
+__device__ __forceinline__ T leaf(T d2, T s, T a) {
+  using M = Math<T>;
+  if (L == SE) return M::exp_scaled(s * d2);
+  if (L == RQ) return M::pow_scaled(fma(s, d2, T(1)), a);
+  const T r = M::root(s * d2);
+  const T e = M::exp_neg(r);
+  if (L == M12) return e;
+  if (L == M32) return (T(1) + r) * e;
+  return fma(r, fma(r, T(1) / T(3), T(1)), T(1)) * e;  // M52
+}
+
+// The generic sum of products, for COMPOSITE.
+template <typename T>
+__device__ __forceinline__ T composite(const Family<T>& f, T d2) {
+  T sum = T(0);
+#pragma unroll 1
+  for (int t = 0; t < f.n_terms; ++t) {
+    T prod = f.coef[t];
+#pragma unroll 1
+    for (int q = 0; q < f.nf[t]; ++q) {
+      const int i = t * MAX_FACTORS + q;
+      const T s = f.s[i], a = f.a[i];
+      switch (f.fam[i]) {
+        case SE: prod *= leaf<SE>(d2, s, a); break;
+        case M12: prod *= leaf<M12>(d2, s, a); break;
+        case M32: prod *= leaf<M32>(d2, s, a); break;
+        case M52: prod *= leaf<M52>(d2, s, a); break;
+        default: prod *= leaf<RQ>(d2, s, a); break;
+      }
+    }
+    sum += prod;
   }
-  __device__ __forceinline__ float operator()(float d2) const { return vertical * ex2_approx(coef_log2e * d2); }
-};
+  return sum;
+}
 
-template <>
-struct SquaredExp<double> {
-  double coef, vertical;
-  static SquaredExp make(double coef, double vertical) { return {coef, vertical}; }
-  __device__ __forceinline__ double operator()(double d2) const { return vertical * exp(coef * d2); }
-};
+template <int L, typename T, int R, int C>
+__device__ __forceinline__ void apply_leaf(const Family<T>& f, T (&k)[R][C]) {
+  const T c = f.coef[0], s = f.s[0], a = f.a[0];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) k[i][j] = c * leaf<L>(k[i][j], s, a);
+}
+
+// d2 -> the family's value, in place; one branch on the kind for the whole block.
+template <typename T, int R, int C>
+__device__ __forceinline__ void apply_family(const Family<T>& f, T (&k)[R][C]) {
+  switch (f.kind) {
+    case SE: apply_leaf<SE>(f, k); break;
+    case M12: apply_leaf<M12>(f, k); break;
+    case M32: apply_leaf<M32>(f, k); break;
+    case M52: apply_leaf<M52>(f, k); break;
+    case RQ: apply_leaf<RQ>(f, k); break;
+    default:
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < C; ++j) k[i][j] = composite(f, k[i][j]);
+  }
+}
 
 // One 16-byte streaming store of V consecutive outputs.
 __device__ __forceinline__ void store_cs(float* p, const float (&v)[4]) {
@@ -94,12 +217,13 @@ __device__ __forceinline__ void store_cs(double* p, const double (&v)[2]) {
 // an SM (two for float64 and for the scalar stores, which need more
 // registers).  Features are staged once when D fits one chunk; past KC, each
 // half stages the chunks again.
-template <typename T, class F, bool VEC>
+template <typename T, bool VEC, bool ARD>
 __global__ void __launch_bounds__(THREADS, VEC && sizeof(T) == 4 ? 3 : 2) cov_tiles_kernel(
     const T* __restrict__ xa, const T* __restrict__ xb,
     const int* __restrict__ row0, const int* __restrict__ col0,
     const int* __restrict__ nvr, const int* __restrict__ nvc,
-    T* __restrict__ out, int m, int mb, int d, F family, T diagval, int symmetric) {
+    T* __restrict__ out, int m, int mb, int d, const __grid_constant__ Family<T> family, T diagval,
+    int symmetric) {
   using TL = gemm::Tile<T, TY, TX>;
   constexpr int V = TL::V, BM = TL::BM, BN = TL::BN, LDA = TL::LDA, LDB = TL::LDB;
   static_assert(BM + BN <= THREADS, "one thread per row and per column norm");
@@ -144,7 +268,7 @@ __global__ void __launch_bounds__(THREADS, VEC && sizeof(T) == 4 ? 3 : 2) cov_ti
         }
         __syncthreads();
       }
-      if (half == 0) {
+      if (!ARD && half == 0) {
         if (tid < BM) {
           for (int k = 0; k < kc; ++k) nrm = fma(as[k * LDA + tid], as[k * LDA + tid], nrm);
         } else if (tid < BM + BN) {
@@ -157,13 +281,25 @@ __global__ void __launch_bounds__(THREADS, VEC && sizeof(T) == 4 ? 3 : 2) cov_ti
         gemm::ldsv<V>(as + k * LDA + half * (BM / 2) + tl.ty * V, a);
         gemm::ldsv<V>(bs + k * LDB + tl.tx * V, b);
         gemm::ldsv<V>(bs + k * LDB + BN / 2 + tl.tx * V, b + V);
+        if (ARD) {
+          // sum_d (a_d - b_d)^2 / l_d, the Pallas body's difference form
+          const T il = family.inv_l[d0 + k];
 #pragma unroll
-        for (int i = 0; i < V; ++i)
+          for (int i = 0; i < V; ++i)
 #pragma unroll
-          for (int j = 0; j < 2 * V; ++j) acc[i][j] = fma(a[i], b[j], acc[i][j]);
+            for (int j = 0; j < 2 * V; ++j) {
+              const T df = a[i] - b[j];
+              acc[i][j] = fma(df * il, df, acc[i][j]);
+            }
+        } else {
+#pragma unroll
+          for (int i = 0; i < V; ++i)
+#pragma unroll
+            for (int j = 0; j < 2 * V; ++j) acc[i][j] = fma(a[i], b[j], acc[i][j]);
+        }
       }
     }
-    if (half == 0) {
+    if (!ARD && half == 0) {
       if (tid < BM) {
         na[tid] = nrm;
       } else if (tid < BM + BN) {
@@ -172,11 +308,24 @@ __global__ void __launch_bounds__(THREADS, VEC && sizeof(T) == 4 ? 3 : 2) cov_ti
       __syncthreads();
     }
 
+    if (!ARD) {
+      // d2 = |a|^2 + |b|^2 - 2 a.b, clamped at 0, in place (ARD's accumulator already is d2)
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const T nav = na[tl.row(half * V + i)];
+#pragma unroll
+        for (int j = 0; j < 2 * V; ++j) {
+          const T d2 = fma(T(-2), acc[i][j], nav + nb[tl.col(j)]);
+          acc[i][j] = d2 < T(0) ? T(0) : d2;
+        }
+      }
+    }
+    apply_family(family, acc);
+
 #pragma unroll
     for (int i = 0; i < V; ++i) {
       const int r = tl.row(half * V + i);
       if (r_base + r >= m) continue;
-      const T nav = na[r];
       const int gi = gr0 + r;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -184,8 +333,7 @@ __global__ void __launch_bounds__(THREADS, VEC && sizeof(T) == 4 ? 3 : 2) cov_ti
         T k[V];
 #pragma unroll
         for (int e = 0; e < V; ++e) {
-          const T d2 = fma(T(-2), acc[i][h * V + e], nav + nb[c + e]);
-          k[e] = family(d2 < T(0) ? T(0) : d2);
+          k[e] = acc[i][h * V + e];
           if (!plain) {
             const int gj = gc0 + c + e;
             const bool on_diag = gi == gj;
@@ -212,21 +360,55 @@ __global__ void __launch_bounds__(THREADS, VEC && sizeof(T) == 4 ? 3 : 2) cov_ti
 }
 
 template <typename T>
+Family<T> make_family(const int* ints, const double* reals, int d) {
+  constexpr int NF = MAX_TERMS * MAX_FACTORS;
+  const double log2e = Math<T>::kLog2 ? 1.4426950408889634 : 1.0;
+  Family<T> f{};
+  f.kind = ints[0];
+  f.n_terms = ints[1];
+  for (int t = 0; t < MAX_TERMS; ++t) {
+    f.nf[t] = ints[2 + t];
+    f.coef[t] = static_cast<T>(reals[t]);
+  }
+  for (int i = 0; i < NF; ++i) {
+    const int fam = ints[2 + MAX_TERMS + i];
+    const double l = reals[MAX_TERMS + i], alpha = reals[MAX_TERMS + NF + i];
+    f.fam[i] = fam;
+    double s = 0.0, a = 0.0;
+    switch (fam) {
+      case SE: s = -0.5 / l * log2e; break;
+      case M12: s = 1.0 / l; break;
+      case M32: s = 3.0 / l; break;
+      case M52: s = 5.0 / l; break;
+      case RQ: s = 1.0 / (2.0 * alpha * l); a = -alpha; break;
+      default: break;
+    }
+    f.s[i] = static_cast<T>(s);
+    f.a[i] = static_cast<T>(a);
+  }
+  for (int k = 0; k < MAX_ARD_D; ++k)
+    f.inv_l[k] = k < d ? static_cast<T>(1.0 / reals[MAX_TERMS + 2 * NF + k]) : T(0);
+  return f;
+}
+
+template <typename T>
 int launch(const void* xa, const void* xb, const void* row0, const void* col0,
            const void* nvr, const void* nvc, void* out, int n_tiles, int m,
-           int mb, int d, double coef, double vertical, double diagval,
+           int mb, int d, const int* ints, const double* reals, int ard, double diagval,
            int symmetric, int device, void* stream) {
   cudaError_t err = repro_set_device(device);
   if (err != cudaSuccess) return err;
   if (n_tiles == 0 || m == 0 || mb == 0) return cudaSuccess;
+  if (ard && d > MAX_ARD_D) return cudaErrorInvalidValue;
   using TL = gemm::Tile<T, TY, TX>;
   const long long blocks =
       static_cast<long long>(n_tiles) * ((m + TL::BM - 1) / TL::BM) * ((mb + TL::BN - 1) / TL::BN);
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   // 16-byte stores need rows of whole vectors and an aligned base
   const bool vec = mb % TL::V == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const auto family = SquaredExp<T>::make(coef, vertical);
-  auto kernel = vec ? cov_tiles_kernel<T, SquaredExp<T>, true> : cov_tiles_kernel<T, SquaredExp<T>, false>;
+  const Family<T> family = make_family<T>(ints, reals, d);
+  auto kernel = ard ? (vec ? cov_tiles_kernel<T, true, true> : cov_tiles_kernel<T, false, true>)
+                    : (vec ? cov_tiles_kernel<T, true, false> : cov_tiles_kernel<T, false, false>);
   kernel<<<static_cast<int>(blocks), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(xa), static_cast<const T*>(xb),
       static_cast<const int*>(row0), static_cast<const int*>(col0),
@@ -237,20 +419,33 @@ int launch(const void* xa, const void* xb, const void* row0, const void* col0,
 
 }  // namespace
 
+// Resident CTAs an SM of the float32 vector-store instantiation (isotropic or ARD distance).
+REPRO_EXPORT int cov_tiles_f32_ctas_per_sm(int ard) {
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, ard ? cov_tiles_kernel<float, true, true> : cov_tiles_kernel<float, true, false>, THREADS, 0);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+// The descriptor's limits, for the wrapper to check against its own.
+REPRO_EXPORT int cov_tiles_limits(int which) {
+  return which == 0 ? MAX_TERMS : which == 1 ? MAX_FACTORS : which == 2 ? MAX_ARD_D : N_INTS;
+}
+
 REPRO_EXPORT int cov_tiles_f32(const void* xa, const void* xb, const void* row0,
                                const void* col0, const void* nvr, const void* nvc,
                                void* out, int n_tiles, int m, int mb, int d,
-                               double coef, double vertical, double diagval,
+                               const int* ints, const double* reals, int ard, double diagval,
                                int symmetric, int device, void* stream) {
   return launch<float>(xa, xb, row0, col0, nvr, nvc, out, n_tiles, m, mb, d,
-                       coef, vertical, diagval, symmetric, device, stream);
+                       ints, reals, ard, diagval, symmetric, device, stream);
 }
 
 REPRO_EXPORT int cov_tiles_f64(const void* xa, const void* xb, const void* row0,
                                const void* col0, const void* nvr, const void* nvc,
                                void* out, int n_tiles, int m, int mb, int d,
-                               double coef, double vertical, double diagval,
+                               const int* ints, const double* reals, int ard, double diagval,
                                int symmetric, int device, void* stream) {
   return launch<double>(xa, xb, row0, col0, nvr, nvc, out, n_tiles, m, mb, d,
-                        coef, vertical, diagval, symmetric, device, stream);
+                        ints, reals, ard, diagval, symmetric, device, stream);
 }

@@ -19,26 +19,29 @@ On a CUDA tensor an op launches its hand-written kernel or raises; on a CPU
 tensor it runs the kernel's plain version.  No ``try`` falls back from one
 to the other.  Each op carries a plain integer ``launches`` that it bumps
 where it launches its kernel, and nowhere else, so a run can show that it
-went through the kernels (:func:`launch_counts`).
+went through the kernels (:func:`launch_counts`); ``cov_tiles``' count is
+``cov_assembly.cov_tiles_cuda.launches``, bumped per launch, since a
+composite that mixes distances launches once per distance.
 
 Gradients, as the reference's ``_with_ref_vjp`` keeps them: when grad mode
 is on and an operand requires grad, ``potrf``, ``trsm``, ``trail``,
 ``lrgemm`` and ``cov_tiles`` run through :class:`_RefGrad`, whose forward is
 the kernel (the plain version on the CPU) and whose backward differentiates
 the op's differentiable reference (:data:`GRAD_REFS`; for ``cov_tiles`` the
-plain tile, whose hyperparameters the kernel reads as floats) on the saved
-inputs.  Otherwise they launch exactly as without autograd.
+plain tile, whose hyperparameters the kernel reads as floats; every tensor
+leaf of the params tree is an operand) on the saved inputs.  Otherwise they
+launch exactly as without autograd.
 ``carry_update`` and ``flash_attention`` have no backward in the reference:
 on the card they raise rather than return a detached result.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Dict
 
 import torch
 
+from repro_torch.core import kernels_math as km
 from repro_torch.kernels import carry_update as _carry
 from repro_torch.kernels import cov_assembly as _cov
 from repro_torch.kernels import flash_attention as _flash
@@ -165,19 +168,17 @@ def cov_tiles(
             xa, xb, row0, col0, n_valid_r, n_valid_c, params,
             symmetric=symmetric, kernel=kernel,
         )
-    # the hyperparameters that are tensors are operands of _RefGrad, the rest stay bound
-    names = [f.name for f in dataclasses.fields(params) if isinstance(getattr(params, f.name), torch.Tensor)]
+    # every tensor leaf of the params tree, at any depth, is an operand of _RefGrad; the rest stay bound
+    split = km.TensorLeaves(params)
 
     def bound(fn):
         def tiles(xa, xb, *values):
-            p = dataclasses.replace(params, **dict(zip(names, values)))
+            p = split.rebuild(values)
             return fn(xa, xb, row0, col0, n_valid_r, n_valid_c, p, symmetric=symmetric, kernel=kernel)
         return tiles
 
-    out = _run("cov_tiles", bound(_cov.cov_tiles_cuda), xa, xb, *(getattr(params, n) for n in names),
-               ref=bound(_cov.cov_tiles_plain))
-    cov_tiles.launches += 1
-    return out
+    # the launches are counted where they happen, in cov_assembly (one per distance of a mixed composite)
+    return _run("cov_tiles", bound(_cov.cov_tiles_cuda), xa, xb, *split.values(), ref=bound(_cov.cov_tiles_plain))
 
 
 def carry_update(w: torch.Tensor, l: torch.Tensor, y: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -211,8 +212,9 @@ def flash_attention(
     return out
 
 
+# what holds each kernel's count: the op, or for cov_tiles the CUDA wrapper, which may launch more than once a call
 KERNEL_OPS = {
-    "cov_tiles": cov_tiles, "potrf": potrf, "trsm": trsm, "trail": trail,
+    "cov_tiles": _cov.cov_tiles_cuda, "potrf": potrf, "trsm": trsm, "trail": trail,
     "carry_update": carry_update, "lrgemm": lrgemm, "flash_attention": flash_attention,
 }
 for _op in KERNEL_OPS.values():

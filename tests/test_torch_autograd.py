@@ -245,11 +245,16 @@ def test_lrgemm_gradient_matches_jax():
 
 @pytest.fixture
 def cov_on_card(monkeypatch):
-    """``ops.cov_tiles`` on its card route, with the plain tile, detached, as the kernel."""
+    """``ops.cov_tiles`` on its card route, with the plain tile, detached, as the kernel.
+
+    The stand-in counts its call as the CUDA wrapper counts its launch.
+    """
     calls = []
+    launcher = ops._cov.cov_tiles_cuda
 
     def kernel(xa, xb, *args, **kw):
         calls.append(torch.is_grad_enabled())
+        launcher.launches += 1
         return _cov_detached(xa, xb, *args, **kw)
 
     monkeypatch.setattr(ops, "_on_cuda", lambda t, op: True)

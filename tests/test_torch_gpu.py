@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from repro_torch import configs
-from repro_torch.core import GaussianProcess, executor, lowrank, tiling, triangular
+from repro_torch.core import GaussianProcess, executor, lowrank, mll, tiling, triangular
 from repro_torch.core import kernels_math as km
 from repro_torch.kernels import (
     _build, carry_update, cov_assembly, flash_attention, lrgemm_tile, ops, potrf_tile, trailing_update, trsm_tile,
@@ -470,3 +470,130 @@ def test_gemma2_two_layers_full_width_prefill_on_the_card_matches_cpu(cuda):
     assert [c["k"].shape[1] for c in caches] == [64, 103]
     for c, w in zip(caches, want_caches):
         assert (c["k"].cpu() - w["k"]).abs().max() <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# The kernel zoo and hyperparameter training on the card
+# ---------------------------------------------------------------------------
+
+
+def _zoo_cell(name):
+    """(kernel, params) of a cell of the reference's zoo, with params away from the defaults."""
+    se, m52 = km.SEKernelParams(1.3, 0.8, 0.05), km.SEKernelParams(0.7, 1.2, 0.05)
+    return {
+        "se": (km.SquaredExponential(), se),
+        "matern12": (km.Matern12(), se),
+        "matern32": (km.Matern32(), m52),
+        "matern52": (km.Matern52(), m52),
+        "rq": (km.RationalQuadratic(), km.RQKernelParams(1.1, 0.9, 0.05, 0.7)),
+        "se_ard": (km.ARDSquaredExponential(), km.ARDKernelParams(torch.tensor([1.4]), 0.9, 0.05)),
+        "white": (km.White(), km.WhiteKernelParams(0.2)),
+        "se_ard2": (km.ARDSquaredExponential(ndim=2), km.ARDKernelParams(torch.tensor([0.7, 1.6]), 1.1, 0.05)),
+        "scaled_m52": (km.Scaled(km.Matern52()), km.ScaledParams(1.7, m52)),
+        "sum_m52_white": (km.Sum(km.Scaled(km.Matern52()), km.White()),
+                          (km.ScaledParams(1.7, m52), km.WhiteKernelParams(0.2))),
+        "prod_se_m32": (km.Product(km.SquaredExponential(), km.Matern32()), (se, m52)),
+        # mixed distances: one launch per distance, combined by the wrapper
+        "sum_ard2_m52": (km.Sum(km.ARDSquaredExponential(ndim=2), km.Matern52()),
+                         (km.ARDKernelParams(torch.tensor([0.7, 1.6]), 1.1, 0.05), m52)),
+    }[name]
+
+
+ZOO_CELLS = ["se", "matern12", "matern32", "matern52", "rq", "se_ard", "white", "se_ard2", "scaled_m52",
+             "sum_m52_white", "prod_se_m32", "sum_ard2_m52"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("name", ZOO_CELLS)
+def test_cov_tiles_zoo_matches_plain(cuda, name, symmetric, dtype):
+    """Every family and composite against the plain tile, at the kernel's stated tolerance.
+
+    D = 2 (ARD's cells) or 3, ragged frontiers, mb != m; the global diagonal of a symmetric tile is
+    bitwise diag + noise.  One ops call is one counted launch, or one per distance where a composite
+    mixes an ARD distance with the isotropic one.
+    """
+    kern, p = _zoo_cell(name)
+    d = 2 if "ard2" in name else 3
+    gen = torch.Generator().manual_seed(ZOO_CELLS.index(name))
+    for t, m, mb in ((3, 100, 60), (2, 130, 45)):
+        xa = (torch.randn(t, m, d, generator=gen, dtype=dtype) / d**0.5).to(cuda)
+        xb = xa[:, :mb].contiguous()
+        row0 = (torch.arange(t) * m).to(cuda)
+        col0 = row0 if symmetric else ((torch.arange(t) % 2) * m).to(cuda)
+        nvr, nvc = t * m - 13, t * m - 29
+        ops.reset_launch_counts()
+        got = ops.cov_tiles(xa, xb, row0, col0, nvr, nvc, p, symmetric=symmetric, kernel=kern)
+        torch.cuda.synchronize()
+        launches = 2 if name == "sum_ard2_m52" else 1
+        assert ops.launch_counts()["cov_tiles"] == launches and got.shape == (t, m, mb) and got.dtype == dtype
+        want = cov_assembly.cov_tiles_plain(xa, xb, row0, col0, nvr, nvc, p, symmetric=symmetric, kernel=kern)
+        assert (got - want).abs().max() <= cov_assembly.cov_tiles_tolerance(kern, p, xa[0], xb[0])
+        if symmetric:
+            pc = km.concrete_params(p)
+            dv = torch.tensor(float(kern.diag(pc)) + float(kern.noise(pc)), dtype=dtype)
+            gi = row0.cpu()[:, None] + torch.arange(mb)
+            on = (gi < nvr) & (gi < nvc)
+            diag = torch.diagonal(got[:, :mb, :mb], dim1=-2, dim2=-1).cpu()[on]
+            assert torch.equal(diag, dv.expand_as(diag))
+
+
+def _train_data(n, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, 3, generator=gen) / 2
+    return x, torch.sin(x.sum(-1)) + 0.1 * torch.randn(n, generator=gen)
+
+
+@pytest.mark.parametrize("name,vjp", [("se", "custom"), ("matern52", "custom"), ("matern52", "autodiff"),
+                                      ("sum_m52_white", "autodiff")])
+def test_nlml_tiled_grad_on_the_card_matches_cpu(cuda, name, vjp):
+    """The tiled NLML and its gradient (n = 600, tile 128, padded) through cov_tiles, POTRF, TRSM and TRAIL."""
+    x, y = _train_data(600, 3)
+    kern, p0 = _zoo_cell(name)
+
+    def grads(device):
+        leaves, treedef = km.tree_flatten(p0)
+        live = [torch.tensor(float(l), device=device, requires_grad=True) for l in leaves]
+        val = mll.nlml_tiled(x, y, km.tree_unflatten(treedef, live), tile_size=128, vjp=vjp, kernel=kern,
+                             device=device)
+        return float(val.detach()), [float(g) for g in torch.autograd.grad(val, live, allow_unused=True)]
+
+    ops.reset_launch_counts()
+    v_card, g_card = grads(cuda)
+    counts = ops.launch_counts()
+    v_cpu, g_cpu = grads("cpu")
+    assert all(counts[k] > 0 for k in ("cov_tiles", "potrf", "trsm", "trail")), counts
+    assert v_card == pytest.approx(v_cpu, rel=1e-5)
+    scale = max(abs(g) for g in g_cpu)
+    assert max(abs(a - b) for a, b in zip(g_card, g_cpu)) <= 1e-4 * scale
+
+
+def test_gp_optimize_on_the_card_matches_cpu(cuda):
+    """Five Adam steps of a matern52 GP (n = 512, tile 128) on the card and on the CPU."""
+    x, y = _train_data(512, 4)
+    gps = [GaussianProcess(x, y, tile_size=128, kernel="matern52", device=dev) for dev in (cuda, "cpu")]
+    for gp in gps:
+        gp.optimize(steps=5, lr=0.05)
+    for a, b in zip(km.tree_leaves(gps[0].params), km.tree_leaves(gps[1].params)):
+        assert float(a) == pytest.approx(float(b), rel=1e-4)
+    assert float(gps[0].nlml()) == pytest.approx(float(gps[1].nlml()), rel=1e-5)
+
+
+def test_nlml_lowrank_grad_on_the_card_matches_cpu(cuda):
+    """The blocked low-rank rule (n = 2048, m_inducing 256, tile 128) through cov_tiles and LRGEMM."""
+    x, y = _train_data(2048, 5)
+
+    def grads(device, dtype):
+        p = [torch.tensor(v, dtype=dtype, device=device, requires_grad=True) for v in (1.0, 1.0, 0.1)]
+        val = mll.nlml_lowrank(x, y, km.SEKernelParams(*p), m_inducing=256, tile_size=128, dtype=dtype,
+                               device=device)
+        return [float(g) for g in torch.autograd.grad(val, p)]
+
+    ops.reset_launch_counts()
+    got = grads(cuda, torch.float32)
+    assert ops.launch_counts()["lrgemm"] > 0 and ops.launch_counts()["cov_tiles"] > 0
+    want = grads("cpu", torch.float32)
+    scale = max(abs(w) for w in want)
+    assert max(abs(a - b) for a, b in zip(got, want)) <= 1e-4 * scale
+    for a, b in zip(grads(cuda, torch.float64), grads("cpu", torch.float64)):
+        assert abs(a - b) <= 1e-8 * max(1.0, abs(b))

@@ -84,6 +84,28 @@ Run from the root of a checkout:  python3 chip_smoke.py
             blocked gradient, each component, against a float64 dense DTC
             NLML under autograd (the autodiff route measured beside it),
             then two Adam steps, with lrgemm and cov_tiles counted;
+11c. fleets  kernel.cov_tiles.per_problem: cov_tiles with per-problem
+            hyperparameters (a 16-row table) at fleet.batch's ASSEMBLE launch
+            (16 problems x 36 tiles), SE, Matérn 5/2 and Sum(Scaled(Matern52),
+            White) against the plain version, beside the same stack with
+            shared params and its bound; fleet.batch: ``GPBatch`` of 16
+            problems of n = 4096, n̂ = 1024 (seeds 0 ... 15), cold and warm
+            ``predict_with_uncertainty`` and ``nlml`` with the launches
+            against the plan, against a loop of single GPs and each problem
+            against a float64 dense solve; fleet.batch.train: ``optimize``
+            (3 matern52 steps, (B,) leaves) against float64 dense Adam per
+            problem, with a step's forward / K^-1 / contraction split;
+            fleet.batch.update: ``update(512)`` then ``forget(512)`` warm
+            (carry on B x G tiles) against a cold rebuild;
+            fleet.batch.lowrank: ``GPBatch(method="lowrank")`` of 8 problems
+            of n = 32768, m_inducing 1024, against a float64 dense DTC each;
+            fleet.ragged: ``GPFleet`` of 32 sizes log-uniform in [512,
+            16384] (fig11's skewed mix), pow2 buckets, cold calls and
+            ``predict_each`` against single GPs, the smallest and largest
+            problem of each bucket against float64, then ragged arrivals that
+            migrate two problems, warm, against a cold rebuild;
+            timing.fleet and profile.fleet*: cold calls beside their loops,
+            in turns, and one cold call of each under ``torch.profiler``;
 12. kernel.flash  the flash-attention kernel at gemma2-2b's prefill shape
             (B = 4, S = T = 2048, 8 query heads on 4 KV heads, hd = 256,
             softcap 50, bf16) against its plain version, plus the local
@@ -111,6 +133,7 @@ that holds this script without the package.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -324,8 +347,10 @@ def kernel_phases(x_train: np.ndarray, x_test: np.ndarray, dev: torch.device):
     xa, xb, r0, c0 = xc[ra], xc[rb], ra * m, rb * m
     n = x_train.shape[0]
 
+    table = ops.cov_descriptor(None, params, d, torch.float32, dev)  # built once a run, as the executor builds it
+
     def cov_k():
-        return ops.cov_tiles(xa, xb, r0, c0, n, n, params, symmetric=True)
+        return ops.cov_tiles(xa, xb, r0, c0, n, n, params, symmetric=True, table=table)
 
     def cov_p():
         return cov_assembly.cov_tiles_plain(xa, xb, r0, c0, n, n, params, symmetric=True)
@@ -604,8 +629,10 @@ def cov_extra(plan, xc, x_test, params, n, tol, dev):
     xa, xb, r0, c0 = xtc[ra], xc[rb], ra * m, rb * m
     nt = x_test.shape[0]
 
+    table = ops.cov_descriptor(None, params, d, torch.float32, dev)
+
     def cross_k():
-        return ops.cov_tiles(xa, xb, r0, c0, nt, n, params, symmetric=False)
+        return ops.cov_tiles(xa, xb, r0, c0, nt, n, params, symmetric=False, table=table)
 
     got = cross_k()
     torch.cuda.synchronize()
@@ -1944,7 +1971,7 @@ def cov_zoo_phase(x_train, x_test, dev):
     where the plain version's expanded form cancels and the kernel's
     difference form does not.  Returns {family: row}.
     """
-    from repro_torch.core import executor, scheduler as sch, tiling
+    from repro_torch.core import executor, kernels_math as km, scheduler as sch, tiling
     from repro_torch.kernels import _build, cov_assembly, ops
 
     m, d = TILE, N_FEATURES
@@ -1962,9 +1989,10 @@ def cov_zoo_phase(x_train, x_test, dev):
     for name, (kern, p) in zoo_cells().items():
         ard = name.startswith("se_ard")
         row = {}
+        table = ops.cov_descriptor(kern, p, d, torch.float32, dev)
         for op, (xa, xb, r0, c0, (nvr, nvc), sym) in launches.items():
             def run():
-                return ops.cov_tiles(xa, xb, r0, c0, nvr, nvc, p, symmetric=sym, kernel=kern)
+                return ops.cov_tiles(xa, xb, r0, c0, nvr, nvc, p, symmetric=sym, kernel=kern, table=table)
 
             ops.reset_launch_counts()
             got = run()
@@ -2001,9 +2029,10 @@ def cov_zoo_phase(x_train, x_test, dev):
     lib = _build.load("cov_assembly")
     ptxas, mma = ptxas_report("cov_assembly", cov_label), sass_mma_counts("cov_assembly", cov_label)
     ctas = {"float32/vec/iso": lib.cov_tiles_f32_ctas_per_sm(0), "float32/vec/ard": lib.cov_tiles_f32_ctas_per_sm(1)}
-    limits = [lib.cov_tiles_limits(i) for i in range(4)]
+    limits = [lib.cov_tiles_limits(i) for i in range(6)]
     want_limits = [cov_assembly.MAX_TERMS, cov_assembly.MAX_FACTORS, cov_assembly.MAX_ARD_D,
-                   2 + cov_assembly.MAX_TERMS * (1 + cov_assembly.MAX_FACTORS)]
+                   2 + cov_assembly.MAX_TERMS * (1 + cov_assembly.MAX_FACTORS), cov_assembly.TABLE_WIDTH,
+                   km.DESC_DIAG]
     emit("kernel.cov_tiles.zoo", families=rows, ard_offset=offset, ptxas=ptxas, ctas_per_sm=ctas, sass_hmma_count=mma,
          descriptor_limits=limits,
          tol_rule=cov_assembly.cov_tiles_tolerance.__doc__.split("\n\n")[1].replace("\n", " ").strip())
@@ -2301,6 +2330,556 @@ def phase_train_lowrank(x_lr, y_lr, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Fleets: GPBatch (B problems of one size) and GPFleet (ragged sizes, buckets)
+# ---------------------------------------------------------------------------
+
+# fleet.batch: B = 16 problems of gp_16k's family cut to n = 4096 (fig9's batched fleet at the H100's tile)
+FLEET_B, FLEET_N, FLEET_NT = 16, 4096, 1024
+# fleet.batch.lowrank: B = 8 problems of n = 32768 on the Nystrom tier
+FLEET_LR_B, FLEET_LR_N, FLEET_LR_NT, FLEET_LR_M = 8, 32768, 2048, 1024
+# fleet.ragged: fig11's skewed mix, B = 32 sizes log-uniform in [512, 16384]
+RAGGED_B, RAGGED_LO, RAGGED_HI, RAGGED_NT = 32, 512, 16384, 1024
+# a fleet against the same problems run one by one on the card: float32 both, with the sums of
+# other launch geometries (B * G tiles, a bucket's padded capacity) rounding in another order
+FLEET_VS_SINGLE_TOL = 1e-3
+
+
+def fleet_data(b, n, nt, seed0):
+    """B problems of ``make_data`` with seeds seed0 + i, stacked: x (B, n, D), y (B, n), x_test, y_test."""
+    parts = [make_data(n, nt, N_FEATURES, seed0 + i) for i in range(b)]
+    return tuple(np.stack(p) for p in zip(*parts))
+
+
+def skewed_sizes(b, lo, hi, rng):
+    """fig11's mix (benchmarks/fig11_ragged_fleet.py): log-uniform sizes in [lo, hi], both ends pinned."""
+    ns = np.exp(rng.uniform(np.log(lo), np.log(hi), b)).astype(int)
+    ns[ns < lo] = lo
+    ns[0], ns[-1] = lo, hi
+    return np.sort(ns)
+
+
+def fleet_single_errors(mean, var, singles):
+    """Largest |fleet - single GP| of the means and the variances over the problems."""
+    em = max(max_err(mean[i], s[0]) for i, s in enumerate(singles))
+    ev = max(max_err(var[i], s[1]) for i, s in enumerate(singles))
+    return em, ev
+
+
+def fleet_accuracy(idx, xs, ys, xt, mean, var, dev):
+    """Each listed problem of a fleet against a float64 dense solve, under the main phase's rule."""
+    from repro_torch.core import GaussianProcess
+
+    out = []
+    for i in idx:
+        mean_ref, var_ref = dense_reference(xs[i], ys[i], xt[i], dev)
+        mono = GaussianProcess(xs[i], ys[i], pipeline="monolithic", device=dev)
+        mean_d, var_d = mono.predict_with_uncertainty(xt[i])
+        e, dense, mean_bound, var_bound = accuracy_bounds(mean_ref, var_ref, mean_d, var_d)
+        row = dict(problem=int(i), n=int(len(ys[i])), mean_err=e(mean[i], mean_ref), var_err=e(var[i], var_ref),
+                   mean_bound=mean_bound, var_bound=var_bound, **dense)
+        out.append(row)
+        check(row["mean_err"] <= mean_bound and row["var_err"] <= var_bound,
+              f"fleet problem {i} (n = {len(ys[i])}) outside the accuracy rule: {row}")
+    return out
+
+
+FLEET_CHECKED = ("cov_tiles", "potrf", "trsm", "trail", "carry_update", "lrgemm")
+
+
+@contextlib.contextmanager
+def widest_launches():
+    """Within the block, a copy of the operands of each kernel op's widest launch (the most tiles).
+
+    The ops are wrapped where the executor looks them up, in
+    ``repro_torch.kernels.ops``; every call goes on to the op itself, which
+    launches as it always does.  An op bumps its count under its module
+    name, the wrapper's while the block runs: the wrapper carries a count,
+    added to the op's on the way out.  Yields ``{op: (tiles, args,
+    kwargs)}``, filled as the block runs.
+    """
+    from repro_torch.kernels import ops
+
+    kept, originals = {}, {name: getattr(ops, name) for name in FLEET_CHECKED}
+
+    def copied(v):
+        return v.clone() if isinstance(v, torch.Tensor) else v
+
+    def wrap(name, op):
+        def capture(*args, **kw):
+            g = (args[2] if name == "lrgemm" else args[0]).shape[0]
+            if g > kept.get(name, (0,))[0]:
+                kept[name] = (g, [copied(a) for a in args], {k: copied(v) for k, v in kw.items()})
+            return op(*args, **kw)
+        capture.launches = 0
+        return capture
+
+    for name, op in originals.items():
+        setattr(ops, name, wrap(name, op))
+    try:
+        yield kept
+    finally:
+        for name, op in originals.items():
+            if hasattr(op, "launches"):
+                op.launches += getattr(ops, name).launches
+            setattr(ops, name, op)
+
+
+def held_to_plain(path, kept, dev):
+    """Each kept launch through its op and its plain version, at the tolerance of the kernel's main row.
+
+    cov_tiles 1e-5 (SE; the fleet paths run SE), POTRF 1e-4 m, TRSM and
+    TRAIL 1e-3, the carry 1e-3 and LRGEMM 1e-4 times max(1, max|plain|).
+    Also the TRSM strip and the TRAIL variant the launch's tile count
+    picked.  Fails on a disagreement; returns ``{op: row}``.
+    """
+    from repro_torch.core import kernels_math as km
+    from repro_torch.kernels import (_build, carry_update, cov_assembly, lrgemm_tile, ops, potrf_tile,
+                                     trailing_update, trsm_tile)
+
+    def trail_plain(c, a, b, update_dtype=None):
+        if update_dtype is not None:
+            a, b = a.to(update_dtype), b.to(update_dtype)
+        return trailing_update.trail_plain(c, a, b)
+
+    def cov_plain(*args, table=None, **kw):
+        return cov_assembly.cov_tiles_plain(*args, **kw)
+
+    plain = {"cov_tiles": cov_plain, "potrf": potrf_tile.potrf_plain, "trsm": trsm_tile.trsm_plain,
+             "trail": trail_plain, "carry_update": carry_update.carry_update_plain, "lrgemm": lrgemm_tile.lrgemm_plain}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = {}
+    for name, (g, args, kw) in sorted(kept.items()):
+        got = getattr(ops, name)(*args, **kw)
+        want = plain[name](*args, **kw)
+        err = max_err(got, want)
+        scale = max(1.0, float(want.abs().max()))
+        m = args[0].shape[1]
+        tol = {"cov_tiles": 1e-5, "potrf": 1e-4 * m, "trsm": 1e-3, "trail": 1e-3,
+               "carry_update": 1e-3 * scale, "lrgemm": 1e-4 * scale}[name]
+        row = dict(tiles=g, shape=list(got.shape), max_abs_err=err, tol=tol)
+        if name == "cov_tiles":
+            row["symmetric"] = kw["symmetric"]
+            check(isinstance(km.resolve_kernel(kw.get("kernel")), km.SquaredExponential),
+                  f"{path}: cov_tiles checked at SE's tolerance on another family")
+        if name == "trsm":
+            row["strip_rows"] = _build.load("trsm_tile").trsm_strip(g, m, int(got.dtype == torch.float64), sms)
+        if name == "trail":
+            row["variant_big_vec"] = trailing_update.trail_variant(g, m, args[1].dtype)
+        rows[name] = row
+        del got, want
+        check(err <= tol, f"{path}: {name} at its widest launch ({g} tiles) disagrees with its plain version: {row}")
+    kept.clear()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def cov_per_problem_phase(xb, dev):
+    """cov_tiles with per-problem hyperparameters at fleet.batch's ASSEMBLE launch (B = 16 x 36 tiles).
+
+    Per-problem lengthscales 0.5 ... 2.0 (the kernel's table holds 16 rows)
+    for SE, Matérn 5/2 and Sum(Scaled(Matern52), White), each against
+    ``cov_tiles_plain`` at the kernel's stated tolerance (the largest over
+    the problems), timed beside its bound (the writes, 576 MiB) and beside
+    the same stack with shared params (a table of one row).
+    """
+    from repro_torch.core import executor, kernels_math as km, scheduler as sch, tiling
+    from repro_torch.kernels import cov_assembly, ops
+
+    m, d = TILE, N_FEATURES
+    xc = tiling.pad_features(torch.from_numpy(xb).to(dev), m)  # (B, M, m, D)
+    b, m_tiles = xc.shape[:2]
+    asm = next(bt for lvl in executor.program_plan(m_tiles, 0, False, None).levels for bt in lvl
+               if bt.op == sch.ASSEMBLE)
+    ra, rb = (torch.from_numpy(a).to(dev) for a in (asm.a, asm.b))
+    g = ra.shape[0]
+    xa = xc.index_select(1, ra).reshape(b * g, m, d)
+    xbb = xc.index_select(1, rb).reshape(b * g, m, d)
+    r0, c0 = (ra * m).repeat(b), (rb * m).repeat(b)
+    t, n = b * g, xb.shape[1]
+    ls = torch.linspace(0.5, 2.0, b, device=dev)
+
+    def cells(l):
+        return {
+            "se": ("se", km.SEKernelParams(l, 1.0, 0.1)),
+            "matern52": ("matern52", km.SEKernelParams(l, 1.0, 0.1)),
+            "sum_m52_white": (km.Sum(km.Scaled(km.Matern52()), km.White()),
+                              (km.ScaledParams(1.0, km.SEKernelParams(l, 1.0, 0.1)), km.WhiteKernelParams(0.1))),
+        }
+
+    nbytes = (xa.numel() + xbb.numel() + 4 * t + t * m * m) * 4
+    bnd = bound_ms(nbytes, t * (2 * d * m * m + 2 * d * 2 * m + 6 * m * m))
+    rows = {}
+    for name, (kern, p) in cells(ls).items():
+        shared_p = cells(1.0)[name][1]
+        table = ops.cov_descriptor(kern, p, d, torch.float32, dev)
+        shared = ops.cov_descriptor(kern, shared_p, d, torch.float32, dev)
+
+        def run(params=p, tab=table):
+            return ops.cov_tiles(xa, xbb, r0, c0, n, n, params, symmetric=True, kernel=kern, table=tab)
+
+        ops.reset_launch_counts()
+        got = run()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()["cov_tiles"]
+        want = cov_assembly.cov_tiles_plain(xa, xbb, r0, c0, n, n, p, symmetric=True, kernel=kern)
+        err = max_err(got, want)
+        del got, want
+        tol = max(cov_assembly.cov_tiles_tolerance(kern, km.gather_params(p, i, kern), xa[i * g:(i + 1) * g].reshape(-1, d),
+                                                   xbb[i * g:(i + 1) * g].reshape(-1, d)) for i in range(b))
+        rows[name] = dict(tiles=t, problems=table.problems, table_rows=int(table.launches[0].table.shape[0]),
+                          launches_per_call=launches, max_abs_err=err, tol=tol, ms=cuda_ms(run, 10),
+                          shared_params_ms=cuda_ms(lambda: run(shared_p, shared), 10),
+                          plain_ms=cuda_ms(lambda: cov_assembly.cov_tiles_plain(
+                              xa, xbb, r0, c0, n, n, p, symmetric=True, kernel=kern), 1),
+                          bound_ms=bnd[0], bound_by=bnd[1])
+        check(launches == 1 and table.problems == b, f"cov_tiles per-problem {name}: {launches} launches, "
+              f"{table.problems} table rows")
+        check(err <= tol, f"cov_tiles per-problem {name}: error {err} above {tol}")
+    emit("kernel.cov_tiles.per_problem", shape=[t, m, m, d], problems=b, tiles_per_problem=g,
+         lengthscales="0.5 ... 2.0, one per problem", families=rows,
+         tol_rule="cov_assembly.cov_tiles_tolerance, the largest over the problems' own params")
+    torch.cuda.empty_cache()
+    return rows["se"]
+
+
+def phase_fleet_batch(xb, yb, xtb, dev):
+    """fleet.batch: GPBatch cold and warm against a loop of single GPs and a float64 dense solve."""
+    from repro_torch.core import GaussianProcess, GPBatch, executor
+    from repro_torch.kernels import ops
+
+    b = xb.shape[0]
+    by_op = executor.program_plan(FLEET_N // TILE, FLEET_NT // TILE, True, None).launches_by_op()
+    want_cold = {**NO_LAUNCHES, "cov_tiles": sum(by_op.get(o, 0) for o in ("assemble", "cross", "prior")),
+                 "potrf": by_op["potrf"], "trsm": by_op["trsm"], "trail": by_op[executor.TRAIL]}
+    want_warm = {**NO_LAUNCHES, "cov_tiles": 2}
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    fleet = GPBatch(xb, yb, tile_size=TILE, device=dev)
+    (mean, var), t_cold = wall_s(lambda: fleet.predict_with_uncertainty(xtb))
+    c_cold = ops.launch_counts()
+    ops.reset_launch_counts()
+    (mean_w, var_w), t_warm = wall_s(lambda: fleet.predict_with_uncertainty(xtb))
+    c_warm = ops.launch_counts()
+    nl, t_nlml = wall_s(fleet.nlml)
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {k: c_cold[k] + c_warm[k] for k in c_cold}
+    gps = [GaussianProcess(xb[i], yb[i], tile_size=TILE, device=dev) for i in range(b)]
+    singles, t_loop = wall_s(lambda: [gp.predict_with_uncertainty(xtb[i]) for i, gp in enumerate(gps)])
+    nl_single = [float(gp.nlml()) for gp in gps]
+    em, ev = fleet_single_errors(mean, var, singles)
+    emw, evw = fleet_single_errors(mean_w, var_w, singles)
+    nl_err = max(abs(float(a) - s) / abs(s) for a, s in zip(nl, nl_single))
+    acc = fleet_accuracy(range(b), xb, yb, xtb, mean, var, dev)
+    finite = all(bool(torch.isfinite(a).all()) for a in (mean, var, mean_w, var_w, nl))
+    emit("fleet.batch", config=f"GPBatch B = {b}, n = {FLEET_N}, n_test = {FLEET_NT}, tile {TILE}, D = {N_FEATURES}, SE "
+         "at gp_16k's parameters, float32", launches_cold=c_cold, plan_cold=want_cold, launches_warm=c_warm,
+         plan_warm=want_warm, vs_single_gps={"mean": em, "var": ev, "warm_mean": emw, "warm_var": evw,
+                                              "nlml_rel": nl_err, "tol": FLEET_VS_SINGLE_TOL},
+         accuracy=acc, bound_rule=BOUND_RULE, finite=finite,
+         shapes=[list(t.shape) for t in (mean, var, nl)],
+         seconds={"cold_predict_with_uncertainty": t_cold, "warm_predict_with_uncertainty": t_warm, "nlml": t_nlml,
+                  "loop_of_single_gps_cold": t_loop},
+         problems_per_s={"batch_cold": b / t_cold, "batch_warm": b / t_warm, "loop_cold": b / t_loop},
+         peak_memory_gib=peak / 2**30)
+    check(c_cold == want_cold and c_warm == want_warm, f"fleet.batch launches {c_cold}, {c_warm} differ from the "
+          f"plan's {want_cold}, {want_warm}")
+    check(finite and list(mean.shape) == [b, FLEET_NT], "fleet.batch: non-finite or misshapen outputs")
+    check(max(em, ev, emw, evw) <= FLEET_VS_SINGLE_TOL and nl_err <= 1e-5,
+          f"fleet.batch against single GPs: {em}, {ev}, {emw}, {evw}, nlml {nl_err}")
+    del fleet, gps, singles
+    torch.cuda.empty_cache()
+    # each kernel's widest launch of a cold call (after the counts were read), against its plain version
+    with widest_launches() as kept:
+        GPBatch(xb, yb, tile_size=TILE, device=dev).predict_with_uncertainty(xtb)
+    plain = held_to_plain("fleet.batch", kept, dev)
+    emit("fleet.batch.kernels", widest_launches=plain)
+    return launches, plain
+
+
+def phase_fleet_train(xb, yb, dev):
+    """fleet.batch.train: GPBatch(kernel="matern52").optimize(3 steps), each problem against float64 dense Adam."""
+    from repro_torch.core import GPBatch, mll, tiling
+    from repro_torch.core import kernels_math as km
+    from repro_torch.kernels import ops
+
+    b = xb.shape[0]
+    kern = km.Matern52()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    fleet = GPBatch(xb, yb, tile_size=TILE, kernel="matern52", device=dev)
+    _, t_opt = wall_s(lambda: fleet.optimize(steps=TRAIN_STEPS, lr=TRAIN_LR))
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    p_fleet = [v.tolist() for v in km.tree_leaves(fleet.params)]
+    (p_t, l_t), t_mll = wall_s(lambda: mll.optimize_hyperparameters_batched(
+        xb, yb, km.SEKernelParams.paper_defaults(), steps=TRAIN_STEPS, lr=TRAIN_LR, tile_size=TILE,
+        kernel="matern52", device=dev))
+    losses, params = l_t.T.tolist(), [v.tolist() for v in km.tree_leaves(p_t)]
+    rows, t_64 = [], 0.0
+    for i in range(b):
+        (p64, l64), t = wall_s(lambda: mll.optimize_hyperparameters(
+            xb[i], yb[i], km.SEKernelParams.paper_defaults(), steps=TRAIN_STEPS, lr=TRAIN_LR, dtype=torch.float64,
+            method="monolithic", kernel="matern52", device=dev))
+        t_64 += t
+        mine = [params[k][i] for k in range(3)]
+        rows.append(dict(losses=losses[i], losses_float64_dense=[float(v) for v in l64], params=mine,
+                         params_float64_dense=[float(v) for v in km.tree_leaves(p64)]))
+        check(_rel_close(losses[i], rows[-1]["losses_float64_dense"], TRAIN_LOSS_RTOL, TRAIN_LOSS_ATOL),
+              f"fleet.batch.train problem {i}: losses {rows[-1]}")
+        check(_rel_close(mine, rows[-1]["params_float64_dense"], TRAIN_PARAM_RTOL), f"fleet.batch.train problem {i}: {rows[-1]}")
+    check(all(_rel_close(a, c, 1e-5) for a, c in zip(p_fleet, params)), "fleet.batch.train: GPBatch.optimize "
+          f"landed on {p_fleet}, the path on {params}")
+    check(all(len(v) == b for v in p_fleet), "fleet.batch.train: the leaves are not per-problem")
+    check(all(launches[k] > 0 for k in MAIN_KERNELS), f"fleet.batch.train: a kernel did not launch: {launches}")
+    # one step's pieces: the forward program, K^-1 of the B factors, the per-problem contraction
+    cfg = mll._Config(TILE, None, None, torch.float32, kern, dev)
+    x, y = (torch.as_tensor(a, device=dev) for a in (xb, yb))
+    n = y.shape[1]
+    pb = km.broadcast_params(km.SEKernelParams.paper_defaults(), b, kern, dtype=torch.float32, device=dev)
+    pieces = {}
+    (_, (lp, al)), pieces["forward_program"] = wall_s(lambda: mll._nlml_forward(cfg, x, y, pb))
+    kinv, pieces["kinv_unpack_and_cholesky_inverse"] = wall_s(
+        lambda: torch.cholesky_inverse(tiling.unpack_lower(lp)[:, :n, :n]))
+    alpha = al.reshape(b, -1)[:, :n]
+    _, pieces["dense_contraction"] = wall_s(lambda: [mll._nlml_dense_grads(
+        kern, km.gather_params(pb, i, kern), x[i], alpha[i], kinv[i]) for i in range(b)])
+    del kinv, lp, al
+    emit("fleet.batch.train", config=f"GPBatch B = {b}, n = {FLEET_N}, tile {TILE}, matern52", steps=TRAIN_STEPS,
+         lr=TRAIN_LR, vjp="custom", launches=launches, problems=rows, params_optimize=p_fleet,
+         seconds={"optimize": t_opt, "per_step": t_opt / TRAIN_STEPS, "optimize_hyperparameters_batched": t_mll,
+                  "float64_dense_adam_all_problems": t_64, "one_step_pieces": pieces},
+         peak_memory_gib=peak / 2**30,
+         rule=f"per problem: losses rtol {TRAIN_LOSS_RTOL} / atol {TRAIN_LOSS_ATOL}, params rtol {TRAIN_PARAM_RTOL} "
+              "(the train phase's rule)")
+    del fleet
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_fleet_update(xw, yw, xtb, dev):
+    """fleet.batch.update: update(512 rows a problem), then forget(512), warm, against a cold rebuild."""
+    from repro_torch.core import GPBatch
+    from repro_torch.kernels import ops
+
+    n = FLEET_N
+    fleet = GPBatch(xw[:, :n], yw[:, :n], tile_size=TILE, device=dev)
+    fleet.predict(xtb)
+    ops.reset_launch_counts()
+    _, t_update = wall_s(lambda: fleet.update(xw[:, n:n + TILE], yw[:, n:n + TILE]))
+    warm_after_update = fleet._cache_warm()
+    _, t_forget = wall_s(lambda: fleet.forget(TILE))
+    warm_after_forget = fleet._cache_warm()
+    mean, t_predict = wall_s(lambda: fleet.predict(xtb))
+    launches = ops.launch_counts()
+    cold, t_cold = wall_s(lambda: GPBatch(xw[:, TILE:n + TILE], yw[:, TILE:n + TILE], tile_size=TILE,
+                                          device=dev).predict(xtb))
+    err = max_err(mean, cold)
+    scale = float(cold.abs().max())
+    emit("fleet.batch.update", config=f"GPBatch B = {xw.shape[0]}, window n = {n}, tile {TILE}", step_rows=TILE,
+         launches=launches, warm=[warm_after_update, warm_after_forget], warm_vs_cold_mean_err=err,
+         tol=FLEET_VS_SINGLE_TOL * max(1.0, scale),
+         seconds={"update": t_update, "forget": t_forget, "warm_predict": t_predict, "cold_rebuild_predict": t_cold})
+    check(warm_after_update and warm_after_forget, "fleet.batch.update fell back to a refactorization")
+    check(launches["carry_update"] > 0 and launches["potrf"] > 0, f"fleet.batch.update: launches {launches}")
+    check(err <= FLEET_VS_SINGLE_TOL * max(1.0, scale), f"fleet.batch.update: warm against cold {err}")
+    del fleet
+    torch.cuda.empty_cache()
+    # the widest launch of each kernel in a warm update and forget (the carry's is forget's UCARRY)
+    fleet = GPBatch(xw[:, :n], yw[:, :n], tile_size=TILE, device=dev)
+    fleet.predict(xtb)
+    with widest_launches() as kept:
+        fleet.update(xw[:, n:n + TILE], yw[:, n:n + TILE])
+        fleet.forget(TILE)
+    del fleet
+    plain = held_to_plain("fleet.batch.update", kept, dev)
+    emit("fleet.batch.update.kernels", widest_launches=plain)
+    check("carry_update" in plain, "fleet.batch.update: no carry launch was held to its plain version")
+    return launches, plain
+
+
+def phase_fleet_lowrank(dev):
+    """fleet.batch.lowrank: GPBatch(method="lowrank") of B = 8 x n = 32768, each problem against a float64 DTC."""
+    from repro_torch.core import GPBatch
+    from repro_torch.kernels import ops
+
+    xl, yl, xtl, _ = fleet_data(FLEET_LR_B, FLEET_LR_N, FLEET_LR_NT, SEED)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    fleet = GPBatch(xl, yl, tile_size=TILE, method="lowrank", m_inducing=FLEET_LR_M, device=dev)
+    (mean, var), t_cold = wall_s(lambda: fleet.predict_with_uncertainty(xtl))
+    mean_w, t_warm = wall_s(lambda: fleet.predict(xtl))
+    launches = ops.launch_counts()
+    nl = fleet.nlml()
+    peak = torch.cuda.max_memory_allocated() - base
+    u = fleet.lowrank_posterior().u_chunks.reshape(FLEET_LR_B, -1, N_FEATURES)[:, :FLEET_LR_M]
+    rows = []
+    for i in range(FLEET_LR_B):
+        errs, dense, mean_bound, var_bound = lowrank_accuracy(
+            {"mean": mean[i], "var": var[i], "mean_warm": mean_w[i]}, xl[i], yl[i], xtl[i], u[i], dev)
+        rows.append(dict(problem=i, **errs, mean_bound=mean_bound, var_bound=var_bound, **dense))
+        check(errs["mean"] <= mean_bound and errs["mean_warm"] <= mean_bound and errs["var"] <= var_bound,
+              f"fleet.batch.lowrank problem {i}: {rows[-1]}")
+    emit("fleet.batch.lowrank", config=f"GPBatch B = {FLEET_LR_B}, n = {FLEET_LR_N}, n_test = {FLEET_LR_NT}, "
+         f"m_inducing = {FLEET_LR_M}, tile {TILE}", launches=launches, accuracy=rows,
+         nlml_finite=bool(torch.isfinite(nl).all()), bound_rule=BOUND_RULE.replace("torch.linalg.cholesky", "DTC"),
+         seconds={"cold_predict_with_uncertainty": t_cold, "warm_predict": t_warm},
+         problems_per_s={"cold": FLEET_LR_B / t_cold, "warm": FLEET_LR_B / t_warm}, peak_memory_gib=peak / 2**30)
+    check(launches["lrgemm"] > 0 and all(launches[k] > 0 for k in MAIN_KERNELS), f"fleet.batch.lowrank: {launches}")
+    del fleet, u
+    torch.cuda.empty_cache()
+    # the widest launch of each kernel of a cold call, LRGEMM's with the per-problem offset index vectors
+    with widest_launches() as kept:
+        GPBatch(xl, yl, tile_size=TILE, method="lowrank", m_inducing=FLEET_LR_M, device=dev).predict(xtl)
+    plain = held_to_plain("fleet.batch.lowrank", kept, dev)
+    emit("fleet.batch.lowrank.kernels", widest_launches=plain)
+    check("lrgemm" in plain, "fleet.batch.lowrank: no LRGEMM launch was held to its plain version")
+    return launches, plain
+
+
+def ragged_data():
+    """fleet.ragged's 32 problems (sizes from fig11's skewed mix, seed SEED) and a shared test block."""
+    ns = skewed_sizes(RAGGED_B, RAGGED_LO, RAGGED_HI, np.random.default_rng(SEED))
+    data = [make_data(int(n), RAGGED_NT, N_FEATURES, SEED + i) for i, n in enumerate(ns)]
+    xs, ys = [d[0] for d in data], [d[1] for d in data]
+    shared = data[0][2]
+    rng = np.random.default_rng(SEED + 1)
+    each = [d[2][: int(k)] for d, k in zip(data, rng.integers(RAGGED_NT // 8, RAGGED_NT + 1, RAGGED_B))]
+    return ns, xs, ys, shared, each
+
+
+def phase_fleet_ragged(dev):
+    """fleet.ragged: GPFleet over 32 skewed sizes against single GPs and float64, then a migrating update."""
+    from repro_torch.core import GaussianProcess, GPFleet, executor, tiling
+    from repro_torch.kernels import ops
+
+    ns, xs, ys, shared, each = ragged_data()
+    assign = tiling.bucket_problems(ns, TILE)
+    per_bucket = {}
+    for cap, idx in assign.items():
+        by_op = executor.program_plan(cap, 0, False, None).launches_by_op()
+        per_bucket[cap] = {**NO_LAUNCHES, "cov_tiles": by_op["assemble"] + 2, "potrf": by_op["potrf"],
+                           "trsm": by_op.get("trsm", 0), "trail": by_op.get(executor.TRAIL, 0)}
+    want = {k: sum(p[k] for p in per_bucket.values()) for k in NO_LAUNCHES}
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    fleet = GPFleet(xs, ys, tile_size=TILE, device=dev)
+    (mean, var), t_cold = wall_s(lambda: fleet.predict_with_uncertainty(shared))
+    c_cold = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    each_out, t_each = wall_s(lambda: fleet.predict_each(each))
+    launches = ops.launch_counts()
+    gps = [GaussianProcess(x, y, tile_size=TILE, device=dev) for x, y in zip(xs, ys)]
+    singles, t_loop = wall_s(lambda: [gp.predict_with_uncertainty(shared) for gp in gps])
+    em, ev = fleet_single_errors(mean, var, singles)
+    e_each = max(max_err(m, gp.predict(xt)) for m, gp, xt in zip(each_out, gps, each))
+    del gps, singles
+    torch.cuda.empty_cache()
+    picks = sorted({i for idx in assign.values() for i in (idx[0], idx[-1])})
+    acc = fleet_accuracy(picks, xs, ys, [shared] * RAGGED_B, mean, var, dev)
+    # ragged arrivals: two problems pushed just past their bucket's capacity, the rest small
+    rng = np.random.default_rng(SEED + 2)
+    # the others stay inside their bucket (the largest is full at RAGGED_HI)
+    arrive = [min(int(k), cap_of(assign, i) * TILE - int(ns[i])) for i, k in enumerate(rng.integers(0, 300, RAGGED_B))]
+    movers = [idx[-1] for cap, idx in assign.items() if cap < max(assign)][-2:]
+    for i in movers:
+        arrive[i] = cap_of(assign, i) * TILE - int(ns[i]) + 100
+    x_new, y_new, _, _ = make_data(sum(arrive), 1, N_FEATURES, SEED + 100)  # one series, cut into the arrivals
+    cuts = np.cumsum([0] + arrive)
+    xa = [x_new[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    ya = [y_new[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    ops.reset_launch_counts()
+    _, t_update = wall_s(lambda: fleet.update(xa, ya))
+    warm = all(b.state is not None for b in fleet._buckets.values())
+    moved = [i for i in range(RAGGED_B) if cap_of(fleet.bucket_assignment(), i) != cap_of(assign, i)]
+    after, t_after = wall_s(lambda: fleet.predict(shared))
+    c_update = ops.launch_counts()
+    cold, t_rebuild = wall_s(lambda: GPFleet(fleet._xs, fleet._ys, tile_size=TILE, device=dev).predict(shared))
+    e_update = max_err(after, cold)
+    emit("fleet.ragged", config=f"GPFleet B = {RAGGED_B}, sizes log-uniform in [{RAGGED_LO}, {RAGGED_HI}] "
+         f"(benchmarks/fig11_ragged_fleet.py::skewed_sizes, seed {SEED}), n_test = {RAGGED_NT} shared, tile {TILE}, "
+         "pow2 buckets", sizes=[int(n) for n in ns], buckets={cap: len(idx) for cap, idx in assign.items()},
+         launches_cold=c_cold, plan_cold=want, launches_per_bucket_plan=per_bucket,
+         vs_single_gps={"mean": em, "var": ev, "predict_each_mean": e_each, "tol": FLEET_VS_SINGLE_TOL},
+         accuracy=acc, bound_rule=BOUND_RULE,
+         update={"arrivals": arrive, "migrated": moved, "warm": warm, "launches": c_update,
+                 "warm_vs_cold_mean_err": e_update, "buckets_after": {c: len(i) for c, i in fleet.bucket_assignment().items()}},
+         seconds={"cold_predict_with_uncertainty": t_cold, "predict_each_warm": t_each, "loop_of_single_gps_cold": t_loop,
+                  "update": t_update, "warm_predict_after_update": t_after, "cold_rebuild_predict": t_rebuild},
+         problems_per_s={"fleet_cold": RAGGED_B / t_cold, "loop_cold": RAGGED_B / t_loop},
+         peak_memory_gib=peak / 2**30)
+    check(c_cold == want, f"fleet.ragged: launches {c_cold} differ from the buckets' plans {want}")
+    check(max(em, ev, e_each) <= FLEET_VS_SINGLE_TOL, f"fleet.ragged against single GPs: {em}, {ev}, {e_each}")
+    check(len(moved) >= 2 and warm, f"fleet.ragged update: migrated {moved}, warm {warm}")
+    check(e_update <= FLEET_VS_SINGLE_TOL, f"fleet.ragged update: warm against cold {e_update}")
+    del fleet
+    torch.cuda.empty_cache()
+    total = {k: launches[k] + c_update[k] for k in launches}
+    # the widest launch of each kernel of a cold call (the largest bucket's) and of the migrating update
+    fleet = GPFleet(xs, ys, tile_size=TILE, device=dev)
+    with widest_launches() as kept:
+        fleet.predict_with_uncertainty(shared)
+    plain = {"cold": held_to_plain("fleet.ragged", kept, dev)}
+    with widest_launches() as kept:
+        fleet.update(xa, ya)
+    del fleet
+    plain["update"] = held_to_plain("fleet.ragged.update", kept, dev)
+    emit("fleet.ragged.kernels", widest_launches=plain)
+    return total, {k: max(r[k]["max_abs_err"] for r in plain.values() if k in r)
+                   for k in set(plain["cold"]) | set(plain["update"])}
+
+
+def cap_of(assign, i):
+    return next(cap for cap, idx in assign.items() if i in idx)
+
+
+def phase_fleet_timing(xb, yb, xtb, dev):
+    """Cold GPBatch and GPFleet calls beside their loops of single GPs, in turns; then their profiles."""
+    from repro_torch.core import GaussianProcess, GPBatch, GPFleet
+
+    b = xb.shape[0]
+    times = {"batch_cold": [], "batch_loop_cold": [], "ragged_cold": [], "ragged_loop_cold": []}
+    for order in ("fleet", "loop", "loop", "fleet"):
+        if order == "fleet":
+            times["batch_cold"].append(wall_s(lambda: GPBatch(xb, yb, tile_size=TILE, device=dev)
+                                              .predict_with_uncertainty(xtb))[1])
+        else:
+            times["batch_loop_cold"].append(wall_s(lambda: [
+                GaussianProcess(xb[i], yb[i], tile_size=TILE, device=dev).predict_with_uncertainty(xtb[i])
+                for i in range(b)])[1])
+    ns, xs, ys, shared, _ = ragged_data()
+    for order in ("fleet", "loop", "loop", "fleet"):
+        if order == "fleet":
+            times["ragged_cold"].append(wall_s(lambda: GPFleet(xs, ys, tile_size=TILE, device=dev)
+                                               .predict_with_uncertainty(shared))[1])
+        else:
+            times["ragged_loop_cold"].append(wall_s(lambda: [
+                GaussianProcess(x, y, tile_size=TILE, device=dev).predict_with_uncertainty(shared)
+                for x, y in zip(xs, ys)])[1])
+    emit("timing.fleet", seconds=times, order="fleet, loop, loop, fleet (batch, then ragged)",
+         problems_per_s={k: [(b if k.startswith("batch") else RAGGED_B) / t for t in v] for k, v in times.items()},
+         note="host clock around calls ending in torch.cuda.synchronize(); cold calls build the fleet's factors")
+    torch.cuda.empty_cache()
+    batch = GPBatch(xb, yb, tile_size=TILE, device=dev)
+    profile_call("profile.fleet", f"GPBatch.predict_with_uncertainty (cold), B = {b} x n = {FLEET_N}",
+                 lambda: batch.predict_with_uncertainty(xtb))
+    del batch
+    torch.cuda.empty_cache()
+    ragged = GPFleet(xs, ys, tile_size=TILE, device=dev)
+    profile_call("profile.fleet_ragged", f"GPFleet.predict_with_uncertainty (cold), B = {RAGGED_B} skewed sizes",
+                 lambda: ragged.predict_with_uncertainty(shared))
+    del ragged
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA card")
@@ -2311,6 +2890,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
+    t_start = time.perf_counter()
     smi = phase_env()
     phase_build()
     x_train, y_train, x_test, y_test = make_data(N_TRAIN, N_TEST, N_FEATURES, SEED)
@@ -2361,6 +2941,29 @@ def main() -> None:
     launches_train_lowrank = phase_train_lowrank(x_lr, y_lr, dev)
     del x_lr, y_lr
 
+    # fleets: GPBatch (per-problem cov_tiles, predictions, training, streaming, the low-rank tier) and GPFleet
+    xb, yb, xtb, _ = fleet_data(FLEET_B, FLEET_N, FLEET_NT, SEED)
+    emit("data.fleet", batch=dict(problems=FLEET_B, n_train=FLEET_N, n_test=FLEET_NT, seeds=f"{SEED} ... {SEED + FLEET_B - 1}"),
+         lowrank=dict(problems=FLEET_LR_B, n_train=FLEET_LR_N, n_test=FLEET_LR_NT, m_inducing=FLEET_LR_M),
+         ragged=dict(problems=RAGGED_B, sizes=f"log-uniform in [{RAGGED_LO}, {RAGGED_HI}]", n_test=RAGGED_NT),
+         features=N_FEATURES, tile_size=TILE)
+    rows["cov_tiles"]["per_problem"] = cov_per_problem_phase(xb, dev)
+    launches_fleet, plain = phase_fleet_batch(xb, yb, xtb, dev)
+    errs_fleet = [{k: r["max_abs_err"] for k, r in plain.items()}]
+    launches_extra = phase_fleet_train(xb, yb, dev)
+    launches_fleet = {k: launches_fleet[k] + launches_extra[k] for k in launches_fleet}
+    for launches_extra, plain in (phase_fleet_update(*fleet_data(FLEET_B, FLEET_N + TILE, FLEET_NT, SEED)[:2], xtb, dev),
+                                  phase_fleet_lowrank(dev)):
+        launches_fleet = {k: launches_fleet[k] + launches_extra[k] for k in launches_fleet}
+        errs_fleet.append({k: r["max_abs_err"] for k, r in plain.items()})
+    launches_ragged, errs_ragged = phase_fleet_ragged(dev)
+    # each kernel's largest error at the fleet paths' own widest launches (fleet.*.kernels)
+    errs_by_path = {"fleet": {k: max(e[k] for e in errs_fleet if k in e) for k in FLEET_CHECKED
+                              if any(k in e for e in errs_fleet)},
+                    "fleet_ragged": errs_ragged}
+    phase_fleet_timing(xb, yb, xtb, dev)
+    del xb, yb, xtb
+
     # gemma2-2b served at full width: the flash kernel, then the serving path
     rows["flash_attention"] = flash_phase(dev)
     model, cfg, prompts, launches_lm = phase_lm(dev)
@@ -2374,12 +2977,15 @@ def main() -> None:
     path_of["lrgemm"] = "lowrank"
     path_of["flash_attention"] = "lm"
     by_path = {"main": launches, "update": launches_update, "lowrank": launches_lowrank, "lm": launches_lm,
-               "zoo": launches_zoo, "train": launches_train, "train_lowrank": launches_train_lowrank}
+               "zoo": launches_zoo, "train": launches_train, "train_lowrank": launches_train_lowrank,
+               "fleet": launches_fleet, "fleet_ragged": launches_ragged}
     kernels = [
         {"name": name, "launches": by_path[path_of[name]][name], **row,
-         "launches_by_path": {path: counts[name] for path, counts in by_path.items()}}
+         "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
+         "max_abs_err_by_path": {path: errs[name] for path, errs in errs_by_path.items() if name in errs}}
         for name, row in rows.items()
     ]
+    emit("total", seconds=time.perf_counter() - t_start, note="the script's wall time, the kernels' build included")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Carry hyperparameters and cached states across from the JAX package.
 
 The JAX package's kernel params trees, ``PosteriorState`` and
-``LowRankState``, and its language models' parameter trees, hold JAX
+``LowRankState`` (of one problem, or stacked by a ``GPBatch`` or a
+``GPFleet`` bucket), and its language models' parameter trees, hold JAX
 arrays; the caller hands their leaves over as numpy arrays (``np.asarray(leaf)``),
 so this module needs neither JAX nor the ``repro`` package.  The tensors it
 builds keep the numpy dtypes and go to ``device``.
@@ -24,7 +25,7 @@ def params_from_numpy(lengthscale, vertical, noise) -> km.SEKernelParams:
     """SE hyperparameters from the leaves of the JAX ``SEKernelParams``.
 
     Each leaf (a numpy scalar, 0-d array or Python float) becomes a Python
-    float, the form the port's kernels take as runtime scalars.
+    float.
     """
     return km.SEKernelParams(
         float(np.asarray(lengthscale)), float(np.asarray(vertical)), float(np.asarray(noise))
@@ -38,7 +39,8 @@ def kernel_params_from_numpy(kernel, leaves):
     order (``[np.asarray(l) for l in jax.tree.leaves(params)]``: dataclass
     fields in declaration order, tuple items in order), which is the port's
     :func:`repro_torch.core.kernels_math.tree_flatten` order.  A 0-d leaf
-    becomes a Python float, a vector leaf (ARD lengthscales) a tensor copy.
+    becomes a Python float, a vector leaf (ARD lengthscales, or a fleet's
+    per-problem (B,) leaf) a tensor copy.
     """
     kernel = km.resolve_kernel(kernel)
     template, treedef = km.tree_flatten(kernel.default_params())
@@ -48,6 +50,11 @@ def kernel_params_from_numpy(kernel, leaves):
     return km.tree_unflatten(
         treedef, [float(a) if a.ndim == 0 else torch.from_numpy(np.array(a)) for a in leaves]
     )
+
+
+def _params_to(params, dev):
+    """The params tree with its tensor leaves moved to ``dev``."""
+    return km.tree_map(lambda l: l.to(dev) if isinstance(l, torch.Tensor) else l, params)
 
 
 def posterior_state_from_numpy(
@@ -60,6 +67,7 @@ def posterior_state_from_numpy(
     beta=None,
     y_chunks=None,
     *,
+    n_valid=None,
     kernel=None,
     device="cuda",
 ) -> PosteriorState:
@@ -67,7 +75,11 @@ def posterior_state_from_numpy(
 
     ``lpacked`` (T, m, m), ``alpha`` (M, m), ``x_chunks`` (M, m, D) and the
     optional ``beta`` / ``y_chunks`` (M, m) are numpy arrays; ``params``
-    comes from :func:`params_from_numpy`.
+    comes from :func:`params_from_numpy` or :func:`kernel_params_from_numpy`.
+    A stacked state of a ``GPBatch`` or of a ``GPFleet`` bucket has the
+    leading B axis on every array, per-problem leaves (B,) in ``params``,
+    and, for a ragged bucket, ``n_valid`` (B,) frontiers (``n`` is then the
+    bucket's capacity).
     """
     dev = resolve_device(device)
 
@@ -75,15 +87,22 @@ def posterior_state_from_numpy(
         return None if a is None else torch.from_numpy(np.array(a)).to(dev)
 
     lp, al, xc = t(lpacked), t(alpha), t(x_chunks)
-    m_tiles = xc.shape[0]
-    if lp.shape != (m_tiles * (m_tiles + 1) // 2, m, m) or al.shape != (m_tiles, m):
+    lead = xc.shape[:-3]
+    m_tiles = xc.shape[-3]
+    if xc.ndim not in (3, 4) or lp.shape != lead + (m_tiles * (m_tiles + 1) // 2, m, m) \
+            or al.shape != lead + (m_tiles, m):
         raise ValueError(
             f"inconsistent state: lpacked {tuple(lp.shape)}, alpha {tuple(al.shape)}, "
             f"x_chunks {tuple(xc.shape)} for tile size {m}"
         )
+    nv = None
+    if n_valid is not None:
+        nv = torch.from_numpy(np.asarray(n_valid, np.int32).reshape(-1).copy()).to(dev)
+        if not lead or nv.shape != lead:
+            raise ValueError(f"n_valid {tuple(nv.shape)} needs a stacked state of {lead} problems")
     return PosteriorState(
-        lpacked=lp, alpha=al, x_chunks=xc, n=int(n), m=int(m), params=params,
-        beta=t(beta), y_chunks=t(y_chunks), kernel=km.resolve_kernel(kernel),
+        lpacked=lp, alpha=al, x_chunks=xc, n=int(n), m=int(m), params=_params_to(params, dev),
+        beta=t(beta), y_chunks=t(y_chunks), n_valid=nv, kernel=km.resolve_kernel(kernel),
     )
 
 
@@ -105,12 +124,14 @@ def lowrank_state_from_numpy(
     kernel=None,
     device="cuda",
 ) -> LowRankState:
-    """The port's :class:`LowRankState` from the fields of a single-problem JAX one.
+    """The port's :class:`LowRankState` from the fields of a JAX one.
 
     ``u_chunks`` (MU, m, D), the packed (T, m, m) stores ``luu_packed``,
     ``b_packed`` and ``lb_packed``, ``c_chunks`` / ``gamma`` (MU, m) and the
     scalar ``yty`` are numpy arrays; ``mu_valid`` is None or the count of
-    distinct inducing points; ``params`` comes from :func:`params_from_numpy`.
+    distinct inducing points; ``params`` comes from :func:`params_from_numpy`
+    or :func:`kernel_params_from_numpy`.  A ``GPBatch`` state has the
+    leading B axis on every array (``yty`` (B,)) and may have (B,) leaves.
     The field the port adds, ``c_w = L_uu^-1 c``, is solved from them.
     """
     dev = resolve_device(device)
@@ -120,20 +141,24 @@ def lowrank_state_from_numpy(
 
     uc, c, g = t(u_chunks), t(c_chunks), t(gamma)
     stores = [t(a) for a in (luu_packed, b_packed, lb_packed)]
-    mu_tiles = uc.shape[0]
-    shape = (mu_tiles * (mu_tiles + 1) // 2, m, m)
-    if any(a.shape != shape for a in stores) or c.shape != (mu_tiles, m) or g.shape != c.shape:
+    lead = uc.shape[:-3]
+    mu_tiles = uc.shape[-3]
+    shape = lead + (mu_tiles * (mu_tiles + 1) // 2, m, m)
+    if any(a.shape != shape for a in stores) or c.shape != lead + (mu_tiles, m) or g.shape != c.shape:
         raise ValueError(
             f"inconsistent state: u_chunks {tuple(uc.shape)}, stores "
             f"{[tuple(a.shape) for a in stores]}, c_chunks {tuple(c.shape)}, gamma "
             f"{tuple(g.shape)} for tile size {m}"
         )
+    mv = None if mu_valid is None else np.asarray(mu_valid).reshape(-1)
+    if mv is not None and len(set(mv.tolist())) != 1:
+        raise ValueError(f"per-problem inducing counts {mv.tolist()} belong to a ragged state (not ported)")
     return LowRankState(
         u_chunks=uc, luu_packed=stores[0], b_packed=stores[1], lb_packed=stores[2],
         c_chunks=c, gamma=g, c_w=executor.run_solve(stores[0], c, lower=True, device=dev),
-        yty=t(yty).reshape(()), n=int(n), m=int(m),
-        m_inducing=int(m_inducing), params=params, jitter=float(jitter),
-        mu_valid=None if mu_valid is None else int(np.asarray(mu_valid)),
+        yty=t(yty).reshape(lead), n=int(n), m=int(m),
+        m_inducing=int(m_inducing), params=_params_to(params, dev), jitter=float(jitter),
+        mu_valid=None if mv is None else int(mv[0]),
         kernel=km.resolve_kernel(kernel),
     )
 

@@ -26,8 +26,20 @@ family as one ``lrgemm`` kernel launch (``run_lowrank_contraction``).
 The buffers of a run are updated in place (``index_copy_`` /
 ``index_add_``) where the JAX executor used functional ``.at[].set`` /
 ``.at[].add``; every entry point works on its own copies of its inputs.
-The port is single-problem so far: the problem-batch axis, the mesh and the
-telemetry hooks of the JAX executor come with later slices.
+
+**Problem batching.**  Every buffer may carry a leading problem axis B: B
+independent GPs of one tile geometry run through the same lru-cached Plan
+(a plan depends on the tile counts, never on B).  Gathers and scatters move
+from axis 0 to axis 1, and each batched launch covers B x G tiles: the
+default dispatch, ``batch_dispatch="flat"``, folds B into the kernel's own
+batch axis (one launch of B * G tiles, problem-major), ``"vmap"`` keeps the
+reference's second mode as one launch per problem (a ctypes kernel cannot
+sit under ``torch.vmap``).  Hyperparameters may be shared or per-problem
+((B,) leaves, read by the cov_tiles kernel from a device table built once a
+run), and the validity frontiers ``n_valid``/``nt_valid`` may be (B,) int32
+device tensors (a ragged fleet's bucket), expanded per tile on the device
+and never read back inside a program.  The mesh and the telemetry hooks of
+the JAX executor come with later slices.
 """
 
 from __future__ import annotations
@@ -246,19 +258,57 @@ def m_tiles_of_packed(packed: torch.Tensor) -> int:
     return m_tiles
 
 
-def _env_ops(device: torch.device):
-    """(take, put, add) accessors on axis 0 with plan index arrays."""
+def _env_ops(device: torch.device, batched: bool = False):
+    """(take, put, add) accessors with plan index arrays.
+
+    Unbatched buffers gather and scatter on axis 0; batched buffers carry
+    the problem axis B first and gather and scatter on axis 1, with the same
+    index arrays and the same Plan.
+    """
+    axis = 1 if batched else 0
 
     def take(buf, idx):
-        return buf.index_select(0, _idx(idx, device))
+        return buf.index_select(axis, _idx(idx, device))
 
     def put(buf, idx, val):
-        buf.index_copy_(0, _idx(idx, device), val)
+        buf.index_copy_(axis, _idx(idx, device), val)
 
     def add(buf, idx, val):
-        buf.index_add_(0, _idx(idx, device), val)
+        buf.index_add_(axis, _idx(idx, device), val)
 
     return take, put, add
+
+
+def _tile_dispatch(fn, batched: bool, mode: str = "flat"):
+    """Lift a stack op ``fn((G, ...) operands)`` to (B, G, ...) operands of B problems.
+
+    ``"flat"`` reshapes every operand to (B * G, ...) for ONE launch and the
+    results back to (B, G, ...); ``"vmap"`` keeps the reference's second
+    mode as one launch per problem, stacked (a ctypes kernel cannot sit
+    under ``torch.vmap``).  Ops with several results (a tuple) are lifted
+    result by result.  Unbatched, ``fn`` is returned as it is.
+    """
+    if mode not in ("flat", "vmap"):
+        raise ValueError(f"batch_dispatch must be 'flat' or 'vmap', got {mode!r}")
+    if not batched:
+        return fn
+
+    def unflat(out, b, g):
+        if isinstance(out, tuple):
+            return tuple(o.reshape((b, g) + o.shape[1:]) for o in out)
+        return out.reshape((b, g) + out.shape[1:])
+
+    def flat(*arrays):
+        b, g = arrays[0].shape[:2]
+        return unflat(fn(*[a.reshape((b * g,) + a.shape[2:]) for a in arrays]), b, g)
+
+    def per_problem(*arrays):
+        outs = [fn(*[a[i] for a in arrays]) for i in range(arrays[0].shape[0])]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.stack(o) for o in zip(*outs))
+        return torch.stack(outs)
+
+    return flat if mode == "flat" else per_problem
 
 
 def run_cholesky(
@@ -266,43 +316,59 @@ def run_cholesky(
     *,
     n_streams: Optional[int] = None,
     update_dtype=None,
+    batch_dispatch: str = "flat",
     device="cuda",
 ) -> torch.Tensor:
     """Factor a packed (T, m, m) store K -> L by walking the level schedule.
 
     Each Batch is one gather, one batched kernel launch and one scatter;
     tasks inside a level are independent, so batches may mix columns.
-    Returns a new tensor; ``packed`` itself is not modified.
+    ``packed`` may be (B, T, m, m): B problems through the same Plan, every
+    launch B times wider.  Returns a new tensor; ``packed`` itself is not
+    modified.
     """
     dev = resolve_device(device)
     packed = torch.as_tensor(packed, device=dev).clone()
-    take, put, _ = _env_ops(dev)
+    batched = packed.ndim == 4
+    take, put, _ = _env_ops(dev, batched)
     plan = cholesky_plan(m_tiles_of_packed(packed), n_streams)
+    potrf = _tile_dispatch(ops.potrf, batched, batch_dispatch)
+    trsm = _tile_dispatch(ops.trsm, batched, batch_dispatch)
+    trail = _tile_dispatch(lambda c, a, b: ops.trail(c, a, b, update_dtype), batched, batch_dispatch)
     for level in plan.levels:
         for bt in level:
             if bt.op == sch.POTRF:
-                put(packed, bt.out, ops.potrf(take(packed, bt.a)))
+                put(packed, bt.out, potrf(take(packed, bt.a)))
             elif bt.op == sch.TRSM:
-                put(packed, bt.out, ops.trsm(take(packed, bt.a), take(packed, bt.b)))
+                put(packed, bt.out, trsm(take(packed, bt.a), take(packed, bt.b)))
             elif bt.op == sch.SYRK:
                 pb = take(packed, bt.b)
-                put(packed, bt.out, ops.trail(take(packed, bt.a), pb, pb, update_dtype))
+                put(packed, bt.out, trail(take(packed, bt.a), pb, pb))
             else:
-                put(
-                    packed,
-                    bt.out,
-                    ops.trail(
-                        take(packed, bt.a), take(packed, bt.b), take(packed, bt.c),
-                        update_dtype,
-                    ),
-                )
+                put(packed, bt.out, trail(take(packed, bt.a), take(packed, bt.b), take(packed, bt.c)))
     return packed
+
+
+def matrix_product(eq: str, a: torch.Tensor, b: torch.Tensor, batched: bool) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` for the matrix right-hand sides of the uncertainty tail.
+
+    ``eq`` names one problem's operands.  ``batched`` operands carry a
+    leading problem axis, and each problem takes the float32 product that a
+    problem alone takes; the B results are stacked.  One einsum over the B
+    problems runs cuBLAS's strided-batched SGEMM, which lost accuracy
+    against the same products taken one problem at a time and failed the
+    fleet's variance rule (phase ``fleet.batch`` on the card).
+    """
+    if not batched:
+        return torch.einsum(eq, a, b)
+    return torch.stack([torch.einsum(eq, ai, bi) for ai, bi in zip(a, b)])
 
 
 def _trsv_batch(lii: torch.Tensor, x: torch.Tensor, transpose: bool) -> torch.Tensor:
     """Batched diagonal-tile solve L x = rhs (or L^T x = rhs).
 
-    lii (G, m, m); x (G, m) vector chunks or (G, Q, m, mq) matrix tile-rows.
+    lii (..., G, m, m); x (..., G, m) vector chunks or (..., G, Q, m, mq)
+    matrix tile-rows, ``...`` the optional problem axis.
     """
     if transpose:
         lii, upper = lii.transpose(-1, -2), True
@@ -310,7 +376,7 @@ def _trsv_batch(lii: torch.Tensor, x: torch.Tensor, transpose: bool) -> torch.Te
         upper = False
     if x.ndim == lii.ndim - 1:  # vector rhs chunks
         return torch.linalg.solve_triangular(lii, x[..., None], upper=upper)[..., 0]
-    return torch.linalg.solve_triangular(lii[:, None], x, upper=upper)
+    return torch.linalg.solve_triangular(lii.unsqueeze(-3), x, upper=upper)
 
 
 # ---------------------------------------------------------------------------
@@ -449,15 +515,70 @@ def staged_launch_count(
     return n
 
 
-def _cov_batch_fn(params, nvr: int, nvc: int, symmetric: bool, kernel):
+def _per_tile(v, b: int, g: int):
+    """A frontier for the B * G tiles of a flat launch: a scalar stays, (B,) goes per tile."""
+    if isinstance(v, torch.Tensor) and v.ndim > 0:
+        return v.reshape(b, 1).expand(b, g).reshape(b * g)
+    return v
+
+
+def _pick(v, i: int):
+    """Problem ``i``'s frontier: a scalar stays, (B,) gives its entry."""
+    return v[i] if isinstance(v, torch.Tensor) and v.ndim > 0 else v
+
+
+def _frontier(v, device):
+    """A frontier as given: an int, or a tensor moved to ``device`` as int32 (never read on the host)."""
+    return v.to(device=device, dtype=torch.int32) if isinstance(v, torch.Tensor) else v
+
+
+def _cov_batch_fn(params, nvr, nvc, symmetric: bool, kernel, table=None):
     """Batched covariance-tile assembly (G,m,D) x (G,m,D) -> (G,m,m)."""
 
     def fn(xa, xb, row0, col0):
         return ops.cov_tiles(
-            xa, xb, row0, col0, nvr, nvc, params, symmetric=symmetric, kernel=kernel
+            xa, xb, row0, col0, nvr, nvc, params, symmetric=symmetric, kernel=kernel, table=table
         )
 
     return fn
+
+
+def _cov_batch_fn_batched(params, nvr, nvc, symmetric: bool, kernel, table=None, mode: str = "flat"):
+    """Problem-batched assembly: (B,G,m,D) x (B,G,m,D) -> (B,G,m,m).
+
+    Shared params, per-problem params ((B,) leaves) and ragged frontiers
+    ((B,) ``nvr``/``nvc``) all go to ONE cov_tiles launch of B * G tiles
+    with ``mode="flat"``: the kernel reads each problem's row of the
+    descriptor table (``table``, built once a run) and each tile's frontier.
+    The reference routes per-problem params to its plain tile, since its
+    Pallas kernel bakes hyperparameters in as constants.  ``mode="vmap"``
+    launches once per problem.  ``row0``/``col0`` are the (G,) offsets of
+    one problem's tiles, or ints.
+    """
+
+    def flat(xa, xb, row0, col0):
+        b, g = xa.shape[:2]
+        tiles = ops.cov_tiles(
+            xa.reshape((b * g,) + xa.shape[2:]), xb.reshape((b * g,) + xb.shape[2:]),
+            row0.repeat(b) if isinstance(row0, torch.Tensor) else row0,
+            col0.repeat(b) if isinstance(col0, torch.Tensor) else col0,
+            _per_tile(nvr, b, g), _per_tile(nvc, b, g), params,
+            symmetric=symmetric, kernel=kernel, table=table,
+        )
+        return tiles.reshape((b, g) + tiles.shape[1:])
+
+    def per_problem(xa, xb, row0, col0):
+        return torch.stack([
+            ops.cov_tiles(
+                xa[i], xb[i], row0, col0, _pick(nvr, i), _pick(nvc, i), km.gather_params(params, i, kernel),
+                symmetric=symmetric, kernel=kernel, table=None if table is None else table.select(i),
+            )
+            for i in range(xa.shape[0])
+        ])
+
+    if mode not in ("flat", "vmap"):
+        raise ValueError(f"batch_dispatch must be 'flat' or 'vmap', got {mode!r}")
+    return flat if mode == "flat" else per_problem
 
 
 def run_program(
@@ -465,12 +586,13 @@ def run_program(
     yc: torch.Tensor,
     xtc: torch.Tensor,
     params,
-    n_valid: int,
-    nt_valid: int,
+    n_valid,
+    nt_valid,
     *,
     uncertainty: bool = False,
     n_streams: Optional[int] = None,
     update_dtype=None,
+    batch_dispatch: str = "flat",
     kernel=None,
     device="cuda",
 ) -> Dict[str, torch.Tensor]:
@@ -483,22 +605,41 @@ def run_program(
     chunks, ``env["prior"]`` the posterior-covariance tiles (uncertainty
     only), and ``env["packed"]`` / ``env["alpha"]`` / ``env["y"]`` the
     factor, weights and forward-solve chunks a PosteriorState caches.
+
+    **Problem batching:** with xc (B, M, m, D) / yc (B, M, m) /
+    xtc (B, Q, m, D) every buffer gains the leading B axis and the same
+    Plan drives all B problems (the same launch count, every launch B times
+    wider).  ``params`` leaves may be shared or (B,); ``n_valid`` /
+    ``nt_valid`` may be (B,) int tensors of per-problem row counts (a
+    ragged bucket): only the masked assembly reads them, on the device.
     """
     dev = resolve_device(device)
     kernel = km.resolve_kernel(kernel)
     xc, xtc = torch.as_tensor(xc, device=dev), torch.as_tensor(xtc, device=dev)
+    batched = xc.ndim == 4
     m_tiles, m = xc.shape[-3], xc.shape[-2]
     q_tiles = xtc.shape[-3]
     plan = program_plan(m_tiles, q_tiles, uncertainty, n_streams)
     dtype = xc.dtype
-    take, put, add = _env_ops(dev)
+    lead = (xc.shape[0],) if batched else ()
+    take, put, add = _env_ops(dev, batched)
+    z = "z" if batched else ""  # einsum prefix of the problem axis
+    n_valid, nt_valid = _frontier(n_valid, dev), _frontier(nt_valid, dev)
 
-    asm = _cov_batch_fn(params, n_valid, n_valid, True, kernel)
-    crossf = _cov_batch_fn(params, nt_valid, n_valid, False, kernel)
-    priorf = _cov_batch_fn(params, nt_valid, nt_valid, False, kernel)
+    table = ops.cov_descriptor(kernel, params, xc.shape[-1], dtype, dev)
+    if batched:
+        cov_fn = functools.partial(_cov_batch_fn_batched, table=table, mode=batch_dispatch)
+    else:
+        cov_fn = functools.partial(_cov_batch_fn, table=table)
+    asm = cov_fn(params, n_valid, n_valid, True, kernel)
+    crossf = cov_fn(params, nt_valid, n_valid, False, kernel)
+    priorf = cov_fn(params, nt_valid, nt_valid, False, kernel)
+    potrf = _tile_dispatch(ops.potrf, batched, batch_dispatch)
+    trsm = _tile_dispatch(ops.trsm, batched, batch_dispatch)
+    trail = _tile_dispatch(lambda c, a, b: ops.trail(c, a, b, update_dtype), batched, batch_dispatch)
 
     def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+        return torch.zeros(lead + shape, dtype=dtype, device=dev)
 
     env = {
         "packed": zeros(tiling.num_packed_tiles(m_tiles), m, m),
@@ -514,8 +655,8 @@ def run_program(
     def off(idx):  # tile index -> global row/col offset
         return _idx(idx, dev) * m
 
-    def cross_grid():  # cross buffer viewed as the (Q, M, m, m) tile grid
-        return env["cross"].view(q_tiles, m_tiles, m, m)
+    def cross_grid():  # cross buffer viewed as the (..., Q, M, m, m) tile grid
+        return env["cross"].view(lead + (q_tiles, m_tiles, m, m))
 
     packed = env["packed"]
     for level in plan.levels:
@@ -530,49 +671,44 @@ def run_program(
                 tiles = priorf(take(xtc, bt.a), take(xtc, bt.b), off(bt.a), off(bt.b))
                 put(env["prior"], bt.out, tiles)
             elif op == sch.POTRF:
-                put(packed, bt.out, ops.potrf(take(packed, bt.a)))
+                put(packed, bt.out, potrf(take(packed, bt.a)))
             elif op == sch.TRSM:
-                put(packed, bt.out, ops.trsm(take(packed, bt.a), take(packed, bt.b)))
+                put(packed, bt.out, trsm(take(packed, bt.a), take(packed, bt.b)))
             elif op == TRAIL:
-                put(
-                    packed,
-                    bt.out,
-                    ops.trail(
-                        take(packed, bt.a), take(packed, bt.b), take(packed, bt.c),
-                        update_dtype,
-                    ),
-                )
+                put(packed, bt.out, trail(take(packed, bt.a), take(packed, bt.b), take(packed, bt.c)))
             elif op == sch.TRSV:
                 sol = _trsv_batch(take(packed, bt.a), take(env["y"], bt.out), False)
                 put(env["y"], bt.out, sol)
                 # publish the solved row into the backward pass's buffer
                 put(env["alpha"], bt.out, sol)
             elif op == sch.GEMV:
-                upd = torch.einsum("gab,gb->ga", take(packed, bt.a), take(env["y"], bt.b))
+                upd = torch.einsum(f"{z}gab,{z}gb->{z}ga", take(packed, bt.a), take(env["y"], bt.b))
                 add(env["y"], bt.out, -upd)
             elif op == sch.TRSV_B:
                 sol = _trsv_batch(take(packed, bt.a), take(env["alpha"], bt.out), True)
                 put(env["alpha"], bt.out, sol)
             elif op == sch.GEMV_B:
-                upd = torch.einsum("gba,gb->ga", take(packed, bt.a), take(env["alpha"], bt.b))
+                upd = torch.einsum(f"{z}gba,{z}gb->{z}ga", take(packed, bt.a), take(env["alpha"], bt.b))
                 add(env["alpha"], bt.out, -upd)
             elif op == sch.XGEMV:
                 rows = take(cross_grid(), bt.out)
-                put(env["mean"], bt.out, torch.einsum("gqab,qb->ga", rows, env["alpha"]))
+                put(env["mean"], bt.out, torch.einsum(f"{z}gqab,{z}qb->{z}ga", rows, env["alpha"]))
             elif op == sch.VINIT:
-                cols = cross_grid()[:, _idx(bt.out, dev)]          # (Q, G, m, m)
-                put(env["v"], bt.out, cols.permute(1, 0, 3, 2))    # (G, Q, m, m)
+                if batched:
+                    cols = cross_grid()[:, :, _idx(bt.out, dev)]          # (B, Q, G, m, m)
+                    put(env["v"], bt.out, cols.permute(0, 2, 1, 4, 3))     # (B, G, Q, m, m)
+                else:
+                    cols = cross_grid()[:, _idx(bt.out, dev)]             # (Q, G, m, m)
+                    put(env["v"], bt.out, cols.permute(1, 0, 3, 2))       # (G, Q, m, m)
             elif op == sch.VTRSV:
                 sol = _trsv_batch(take(packed, bt.a), take(env["v"], bt.out), False)
                 put(env["v"], bt.out, sol)
             elif op == sch.VGEMV:
-                upd = torch.einsum(
-                    "gab,gqbc->gqac", take(packed, bt.a), take(env["v"], bt.b)
-                )
+                upd = matrix_product("gab,gqbc->gqac", take(packed, bt.a), take(env["v"], bt.b), batched)
                 add(env["v"], bt.out, -upd)
             elif op == sch.GRAM:
-                w = torch.einsum("ipab,iqac->pqbc", env["v"], env["v"])
-                env["prior"] -= w.reshape(q_tiles * q_tiles, m, m)
+                w = matrix_product("ipab,iqac->pqbc", env["v"], env["v"], batched)
+                env["prior"] -= w.reshape(lead + (q_tiles * q_tiles, m, m))
             else:
                 raise ValueError(op)
     return env
@@ -590,30 +726,36 @@ def run_solve(
 
     rhs: (M, m) vector chunks or (M, Q, m, mq) matrix tile rows; solved on a
     copy.  ``lower=True`` solves L x = rhs, else L^T x = rhs (reading the
-    stored lower tiles transposed).
+    stored lower tiles transposed).  With lpacked (B, T, m, m) and rhs
+    (B, M, m) / (B, M, Q, m, mq) the same Plan solves B systems at once.
     """
     dev = resolve_device(device)
     lpacked = torch.as_tensor(lpacked, device=dev)
-    rhs = torch.as_tensor(rhs, device=dev).clone()
-    take, put, add = _env_ops(dev)
-    m_tiles = rhs.shape[0]
+    # a row-major copy whatever layout comes in (the warm tails hand over a permuted K_* grid), so
+    # that each level's gathers and scatters move whole contiguous tiles
+    rhs = torch.as_tensor(rhs, device=dev).clone(memory_format=torch.contiguous_format)
+    batched = lpacked.ndim == 4
+    take, put, add = _env_ops(dev, batched)
+    m_tiles = rhs.shape[1] if batched else rhs.shape[0]
     if tiling.num_packed_tiles(m_tiles) != lpacked.shape[-3]:
         raise ValueError(
             f"rhs rows {m_tiles} inconsistent with packed store {tuple(lpacked.shape)}"
         )
     plan = solve_plan(m_tiles, lower=lower, n_streams=n_streams)
     transpose = not lower
-    matrix = rhs.ndim == 4
+    matrix = rhs.ndim == (5 if batched else 4)
     if matrix:
         ein = "gba,gqbc->gqac" if transpose else "gab,gqbc->gqac"
+        product = functools.partial(matrix_product, ein, batched=batched)
     else:
-        ein = "gba,gb->ga" if transpose else "gab,gb->ga"
+        z = "z" if batched else ""
+        product = functools.partial(torch.einsum, f"{z}gba,{z}gb->{z}ga" if transpose else f"{z}gab,{z}gb->{z}ga")
     for level in plan.levels:
         for bt in level:
             if bt.op == sch.TRSV:
                 put(rhs, bt.out, _trsv_batch(take(lpacked, bt.a), take(rhs, bt.out), transpose))
             else:
-                add(rhs, bt.out, -torch.einsum(ein, take(lpacked, bt.a), take(rhs, bt.b)))
+                add(rhs, bt.out, -product(take(lpacked, bt.a), take(rhs, bt.b)))
     return rhs
 
 
@@ -652,20 +794,30 @@ def run_lowrank_contraction(
     where they lie (the plan's ``a`` index is the identity, so no gathered
     copy of the grid is made), then one ``index_add_`` into the (MU, m)
     output.  Padded K_un columns are assembled as zero, so padding needs no
-    mask here.
+    mask here.  With kun (B, MU, M, m, mb) and yc (B, M, mb) the index
+    vectors are offset per problem (a + b * MU * M, b + b * M), so one
+    launch covers the B problems' tiles.
     """
     dev = resolve_device(device)
     kun = torch.as_tensor(kun, device=dev)
     yc = torch.as_tensor(yc, device=dev).to(kun.dtype).contiguous()
-    mu_tiles, n_tiles, m, mb = kun.shape
+    batched = kun.ndim == 5
+    mu_tiles, n_tiles, m, mb = kun.shape[-4:]
+    nb = kun.shape[0] if batched else 1
     plan = lowrank_plan(mu_tiles, n_tiles, n_streams)
-    kflat = kun.reshape(mu_tiles * n_tiles, m, mb).contiguous()
-    out = torch.zeros((mu_tiles, m), dtype=kun.dtype, device=dev)
-    _, _, add = _env_ops(dev)
+    kflat = kun.reshape(nb * mu_tiles * n_tiles, m, mb).contiguous()
+    vflat = yc.reshape(nb * n_tiles, mb)
+    out = torch.zeros((nb, mu_tiles, m), dtype=kun.dtype, device=dev)
+    _, _, add = _env_ops(dev, True)
     for level in plan.levels:
         for bt in level:
-            add(out, bt.out, ops.lrgemm(kflat, yc, _idx(bt.a, dev), _idx(bt.b, dev)))
-    return out
+            a, b = _idx(bt.a, dev), _idx(bt.b, dev)
+            if batched:
+                base = torch.arange(nb, device=dev)[:, None]
+                a = (a[None] + base * (mu_tiles * n_tiles)).reshape(-1)
+                b = (b[None] + base * n_tiles).reshape(-1)
+            add(out, bt.out, ops.lrgemm(kflat, vflat, a, b).reshape(nb, -1, m))
+    return out if batched else out[0]
 
 
 # ---------------------------------------------------------------------------
@@ -679,7 +831,7 @@ def run_lowrank_contraction(
 #   the packed store (T', m, m)       the factor, rewritten column by column
 #   "w"    (M', m, m)                 the rank-b carry blocks
 #   "xaux/yaux/caux" (M', m, m)       per-column X / Y / C auxiliaries
-# Single problem only: the problem-batch axis comes with the fleets.
+# Every buffer takes the optional leading problem axis B.
 # ---------------------------------------------------------------------------
 
 
@@ -738,10 +890,11 @@ def run_append(
     x_row: torch.Tensor,
     params,
     r_tiles: int,
-    n_valid_new: int,
+    n_valid_new,
     *,
     n_streams: Optional[int] = None,
     update_dtype=None,
+    batch_dispatch: str = "flat",
     kernel=None,
     device="cuda",
 ) -> torch.Tensor:
@@ -752,13 +905,16 @@ def run_append(
     the appended row; ``r_tiles`` the number of frozen prefix rows the new
     row is solved against (``r_tiles == M_store`` grows the factor,
     ``r_tiles < M_store`` recomputes tile-row ``r_tiles`` of the store: the
-    trailing partially padded row).  ``n_valid_new`` is the valid
-    observation count after the append; both axes of the row's covariance
-    tiles are masked with it.
+    trailing partially padded row, or any interior row of a ragged fleet's
+    sweep, see ``update.extend_state_ragged``).  ``n_valid_new`` is the
+    valid observation count after the append, an int or a (B,) tensor;
+    both axes of the row's covariance tiles are masked with it, so a
+    problem whose frontier lies at or below ``r_tiles * m`` reproduces its
+    identity padding.  Every operand takes the leading problem axis B.
 
-    Returns the row buffer (R + 1, m, m): the R solved off-diagonal tiles
-    followed by the factored corner.  The inputs are only read; the caller
-    scatters the row into a grown or refilled copy of the store
+    Returns the row buffer ((B,) R + 1, m, m): the R solved off-diagonal
+    tiles followed by the factored corner.  The inputs are only read; the
+    caller scatters the row into a grown or refilled copy of the store
     (``tiling.grow_packed_indices`` / ``tiling.replace_row_indices``).
     """
     dev = resolve_device(device)
@@ -766,6 +922,7 @@ def run_append(
     lpacked = torch.as_tensor(lpacked, device=dev)
     xc = torch.as_tensor(xc, device=dev)
     x_row = torch.as_tensor(x_row, device=dev)
+    batched = xc.ndim == 4
     m_store, m = xc.shape[-3], xc.shape[-2]
     if not 0 <= r_tiles <= m_store:
         raise ValueError(
@@ -777,14 +934,25 @@ def run_append(
             f"feature chunks ({m_store} tiles) inconsistent with packed store {tuple(lpacked.shape)}"
         )
     plan = update_append_plan(r_tiles, m_store, n_streams)
-    take, put, _ = _env_ops(dev)
-    crossf = _cov_batch_fn(params, n_valid_new, n_valid_new, False, kernel)
-    diagf = _cov_batch_fn(params, n_valid_new, n_valid_new, True, kernel)
-    row = torch.zeros((r_tiles + 1, m, m), dtype=lpacked.dtype, device=dev)
+    lead = (xc.shape[0],) if batched else ()
+    take, put, _ = _env_ops(dev, batched)
+    n_valid_new = _frontier(n_valid_new, dev)
+    table = ops.cov_descriptor(kernel, params, xc.shape[-1], lpacked.dtype, dev)
+    if batched:
+        cov_fn = functools.partial(_cov_batch_fn_batched, table=table, mode=batch_dispatch)
+    else:
+        cov_fn = functools.partial(_cov_batch_fn, table=table)
+    crossf = cov_fn(params, n_valid_new, n_valid_new, False, kernel)
+    diagf = cov_fn(params, n_valid_new, n_valid_new, True, kernel)
+    potrf = _tile_dispatch(ops.potrf, batched, batch_dispatch)
+    trsm = _tile_dispatch(ops.trsm, batched, batch_dispatch)
+    trail = _tile_dispatch(lambda c, a, b: ops.trail(c, a, b, update_dtype), batched, batch_dispatch)
+    row = torch.zeros(lead + (r_tiles + 1, m, m), dtype=lpacked.dtype, device=dev)
     row0 = r_tiles * m
 
     def bcast_row(g):  # the row chunk, repeated for each gathered tile
-        return x_row.expand(g, *x_row.shape).contiguous()
+        x = x_row.unsqueeze(-3)
+        return x.expand(x.shape[:-3] + (g,) + x.shape[-2:]).contiguous()
 
     for level in plan.levels:
         for bt in level:
@@ -794,18 +962,14 @@ def run_append(
             elif bt.op == sch.UASMD:
                 put(row, bt.out, diagf(bcast_row(1), bcast_row(1), row0, row0))
             elif bt.op == sch.UTRSM:
-                put(row, bt.out, ops.trsm(take(lpacked, bt.a), take(row, bt.b)))
+                put(row, bt.out, trsm(take(lpacked, bt.a), take(row, bt.b)))
             elif bt.op == sch.UGEMM:
-                put(
-                    row,
-                    bt.out,
-                    ops.trail(take(row, bt.a), take(row, bt.b), take(lpacked, bt.c), update_dtype),
-                )
+                put(row, bt.out, trail(take(row, bt.a), take(row, bt.b), take(lpacked, bt.c)))
             elif bt.op == sch.USYRK:
                 pb = take(row, bt.b)
-                put(row, bt.out, ops.trail(take(row, bt.a), pb, pb, update_dtype))
+                put(row, bt.out, trail(take(row, bt.a), pb, pb))
             elif bt.op == sch.UPOTRF:
-                put(row, bt.out, ops.potrf(take(row, bt.a)))
+                put(row, bt.out, potrf(take(row, bt.a)))
             else:
                 raise ValueError(bt.op)
     return row
@@ -878,27 +1042,31 @@ def run_rank_update(
     *,
     sign: float = 1.0,
     n_streams: Optional[int] = None,
+    batch_dispatch: str = "flat",
     device="cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blocked rank-b up/downdate: L' L'^T = L L^T + sign * W W^T.
 
     lpacked (T, m, m) packed factor; w (M, m, m) carry blocks (one per
-    tile-row; unused trailing columns of a rank-b < m carry must be zero).
-    Works on copies of both and returns (new factor, final carry).  NaNs in
-    the new factor signal a failed (non-PD) downdate.
+    tile-row; unused trailing columns of a rank-b < m carry must be zero),
+    both with the optional leading problem axis B.  Works on copies of both
+    and returns (new factor, final carry).  NaNs in the new factor signal a
+    failed (non-PD) downdate.
     """
     dev = resolve_device(device)
     lpacked = torch.as_tensor(lpacked, device=dev).clone()
     w = torch.as_tensor(w, device=dev).clone()
-    m_tiles = w.shape[0]
+    batched = lpacked.ndim == 4
+    m_tiles = w.shape[1] if batched else w.shape[0]
     if tiling.num_packed_tiles(m_tiles) != lpacked.shape[-3]:
         raise ValueError(
             f"carry rows {m_tiles} inconsistent with packed store {tuple(lpacked.shape)}"
         )
-    take, put, _ = _env_ops(dev)
+    take, put, _ = _env_ops(dev, batched)
     plan = update_rank_plan(m_tiles, n_streams)
-    uprep, uprow, ucarry = get_update_ops(sign)
-    xaux = torch.zeros((m_tiles,) + lpacked.shape[1:], dtype=lpacked.dtype, device=dev)
+    uprep, uprow, ucarry = (_tile_dispatch(f, batched, batch_dispatch) for f in get_update_ops(sign))
+    lead = lpacked.shape[:-3]
+    xaux = torch.zeros(lead + (m_tiles,) + lpacked.shape[-2:], dtype=lpacked.dtype, device=dev)
     yaux = torch.zeros_like(xaux)
     caux = torch.zeros_like(xaux)
     for level in plan.levels:

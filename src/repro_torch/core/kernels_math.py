@@ -30,6 +30,15 @@ floats or tensors (0-d, or (D,) for ARD lengthscales), nested in tuples by
 rows/cols with global index ``>= n_valid`` become identity (training
 covariance) or zero (cross/prior covariance), so the padded system solves
 the unpadded one exactly.
+
+Fleets: a leaf may carry a leading problem axis, (B,) + its base shape
+(per-problem hyperparameters) beside shared leaves of the base shape;
+:func:`params_per_problem`, :func:`broadcast_params` and
+:func:`gather_params` read and reshape such trees, and :func:`cov_tile`
+takes them on a stack of B * G tiles, problem-major.
+:func:`descriptor_table` writes a tree as the cov_tiles kernel's
+descriptor: the family's structure, and a device table of per-problem
+reals.
 """
 
 from __future__ import annotations
@@ -172,9 +181,9 @@ class TensorLeaves:
 def concrete_params(params):
     """The params tree as host values: 0-d leaves as floats, vector leaves as float tuples.
 
-    Reads tensors to the host (detached).  The CUDA kernel takes these as
-    runtime scalars; the result is for reading, not for :func:`tree_map`
-    (a vector leaf becomes a tuple).
+    Reads tensors to the host (detached): for host-side reading (the
+    kernel's stated tolerance, tests), never on a program's path; the
+    result is not for :func:`tree_map` (a vector leaf becomes a tuple).
     """
 
     def conv(leaf):
@@ -184,6 +193,83 @@ def concrete_params(params):
         return leaf if leaf is None else float(leaf)
 
     return tree_map(conv, params)
+
+
+# ---------------------------------------------------------------------------
+# Per-problem hyperparameters (fleets)
+# ---------------------------------------------------------------------------
+
+
+def _ndim(leaf) -> int:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.ndim
+    return 1 if isinstance(leaf, (tuple, list)) else 0
+
+
+def _base_ndims_of(params, kernel):
+    return resolve_kernel(kernel).base_ndims(params)
+
+
+def _leaf_pairs(params, kernel):
+    return zip(tree_leaves(params), tree_leaves(_base_ndims_of(params, kernel)))
+
+
+def params_per_problem(params, kernel=None) -> bool:
+    """True iff any hyperparameter leaf carries a problem-batch axis (B, ...)."""
+    return problem_count(params, kernel) is not None
+
+
+def problem_count(params, kernel=None) -> Optional[int]:
+    """B of the per-problem leaves, or None when every leaf is shared."""
+    for leaf, nd in _leaf_pairs(params, kernel):
+        if _ndim(leaf) > nd:
+            return int(leaf.shape[0])
+    return None
+
+
+def broadcast_params(params, b: int, kernel=None, *, dtype=None, device=None):
+    """Every leaf as a per-problem tensor of shape (B,) + its base shape.
+
+    Mixed trees (a per-problem lengthscale beside a shared noise) are legal;
+    this normalizes them for code that runs the problems one by one or
+    trains them side by side.  Leaves become tensors of ``dtype`` on
+    ``device`` (by default their own, a float's the default dtype on the CPU).
+    """
+    kernel = resolve_kernel(kernel)
+
+    def bcast(leaf, nd):
+        leaf = torch.as_tensor(leaf, dtype=dtype, device=device)
+        if leaf.ndim == nd:
+            return leaf.expand((b,) + tuple(leaf.shape))
+        if leaf.ndim == nd + 1:
+            return leaf.expand((b,) + tuple(leaf.shape[1:]))
+        raise ValueError(
+            f"hyperparameter leaf of rank {leaf.ndim} is neither shared (rank {nd}) "
+            f"nor per-problem (rank {nd + 1})"
+        )
+
+    return tree_map(bcast, params, kernel.base_ndims(params))
+
+
+def gather_params(params, idx, kernel=None):
+    """Per-problem leaves taken at ``idx`` (an index or an index tensor); shared leaves pass through."""
+    kernel = resolve_kernel(kernel)
+
+    def gather(leaf, nd):
+        return leaf if _ndim(leaf) == nd else leaf[idx]
+
+    return tree_map(gather, params, kernel.base_ndims(params))
+
+
+def _problem_view(params, kernel, p: int):
+    """Per-problem leaves (P,) + base reshaped to broadcast against (P, G, m, mb) tiles."""
+
+    def view(leaf, nd):
+        if _ndim(leaf) == nd:
+            return leaf
+        return leaf.reshape((p,) + (1,) * (3 - nd) + tuple(leaf.shape[1:]))
+
+    return tree_map(view, params, kernel.base_ndims(params))
 
 
 # ---------------------------------------------------------------------------
@@ -588,6 +674,196 @@ def _normal_form(kernel, p):
     raise ValueError(f"kernel {kernel.kernel_id()!r} has no normal form for the CUDA kernel")
 
 
+# The descriptor of the cov_tiles kernel (kernels/csrc/cov_assembly.cu): its
+# limits, its leaf ids, and the columns of one row of its table of reals.
+DESC_MAX_TERMS, DESC_MAX_FACTORS, DESC_MAX_ARD_D = 4, 3, 64
+DESC_LEAF_IDS = {"se": 0, "matern12": 1, "matern32": 2, "matern52": 3, "rq": 4}
+DESC_COMPOSITE = 5
+_DESC_NF = DESC_MAX_TERMS * DESC_MAX_FACTORS
+DESC_COEF, DESC_S, DESC_A = 0, DESC_MAX_TERMS, DESC_MAX_TERMS + _DESC_NF
+DESC_INV_L = DESC_A + _DESC_NF
+DESC_DIAG = DESC_INV_L + DESC_MAX_ARD_D
+DESC_WIDTH = 96  # DESC_DIAG + 1, padded to whole 16-byte vectors
+_LOG2E = 1.4426950408889634
+
+
+def distance_key(f: Factor):
+    """The distance a factor reads: None (the isotropic one) or its ARD lengthscales' identity."""
+    if f.family != "ard":
+        return None
+    return tuple(id(v) if isinstance(v, torch.Tensor) else v for v in f.lengthscale)
+
+
+@dataclasses.dataclass(frozen=True)
+class DescriptorLaunch:
+    """One launch of the cov_tiles kernel: its structure (``ints``), ARD flag and table."""
+
+    ints: Tuple[int, ...]
+    ard: bool
+    table: torch.Tensor  # (P, DESC_WIDTH) reals in the tiles' dtype, on their device
+
+
+@dataclasses.dataclass(frozen=True)
+class Descriptor:
+    """A kernel tree as the cov_tiles kernel reads it, for P problems.
+
+    One launch for a tree whose terms read one distance; a composite that
+    mixes distances (an ARD leaf beside isotropic ones) has one launch per
+    (term, distance), combined by the wrapper (``terms`` gives each
+    launch's term), and then the pin of the diagonal to ``table[:, DESC_DIAG]``.
+    """
+
+    launches: Tuple[DescriptorLaunch, ...]
+    terms: Tuple[int, ...]
+    problems: int
+
+    @property
+    def mixed(self) -> bool:
+        return len(self.launches) > 1
+
+    @property
+    def diag(self) -> torch.Tensor:
+        """(P,) ``diag + noise`` per problem, in the tiles' dtype."""
+        return self.launches[0].table[:, DESC_DIAG]
+
+    def select(self, b: int) -> "Descriptor":
+        """Problem ``b``'s rows alone (views), for a launch over that problem's tiles only."""
+        if self.problems == 1:
+            return self
+        return Descriptor(
+            tuple(dataclasses.replace(l, table=l.table[b : b + 1]) for l in self.launches), self.terms, 1
+        )
+
+
+def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``; a host tensor goes to the card by a pinned, asynchronous copy (no stream sync)."""
+    if t.device == device:
+        return t
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _rdiv(num: float, v):
+    """num / v rounded once, as the host's double division: ``float / tensor`` in torch is
+    ``reciprocal(v) * num``, which rounds twice."""
+    return torch.full_like(v, num) / v if isinstance(v, torch.Tensor) else num / v
+
+
+def _descriptor_row(terms, d: int, log2: bool):
+    """(ints, reals, inv_l) of one launch: the structure, the table's columns and ARD's 1 / l.
+
+    ``reals`` has DESC_WIDTH entries (floats, or float64 tensors of shape ()
+    or (P,)); ``inv_l`` is None, or a tuple of floats, or a tensor (..., d).
+    """
+    if len(terms) > DESC_MAX_TERMS or any(len(fs) > DESC_MAX_FACTORS for _, fs in terms):
+        raise ValueError(
+            f"the cov_tiles kernel takes at most {DESC_MAX_TERMS} terms of {DESC_MAX_FACTORS} factors; the "
+            f"kernel's normal form has {[len(fs) for _, fs in terms]}"
+        )
+    if len({distance_key(f) for _, fs in terms for f in fs}) > 1:
+        raise ValueError("one launch reads one distance")
+    scale = _LOG2E if log2 else 1.0  # float32 takes the SE exponential as ex2
+    n_factors, fam = [0] * DESC_MAX_TERMS, [0] * _DESC_NF
+    reals = [0.0] * DESC_WIDTH
+    ard = None
+    for t, (c, fs) in enumerate(terms):
+        reals[DESC_COEF + t], n_factors[t] = c, len(fs)
+        for q, f in enumerate(fs):
+            i = t * DESC_MAX_FACTORS + q
+            if f.family == "ard":  # SE with l = 1 on the ARD distance
+                fam[i], reals[DESC_S + i] = DESC_LEAF_IDS["se"], -0.5 * scale
+                ard = f.lengthscale
+                continue
+            fam[i], l = DESC_LEAF_IDS[f.family], f.lengthscale
+            if f.family == "se":
+                reals[DESC_S + i] = _rdiv(-0.5, l) * scale
+            elif f.family == "rq":
+                reals[DESC_S + i] = _rdiv(1.0, 2.0 * f.alpha * l)
+                reals[DESC_A + i] = -f.alpha
+            else:
+                reals[DESC_S + i] = _rdiv({"matern12": 1.0, "matern32": 3.0, "matern52": 5.0}[f.family], l)
+    single = len(terms) == 1 and len(terms[0][1]) == 1
+    ints = (fam[0] if single else DESC_COMPOSITE, len(terms), *n_factors, *fam)
+    inv_l = None
+    if ard is not None:
+        if d > DESC_MAX_ARD_D:
+            raise ValueError(f"the cov_tiles kernel's ARD distance takes at most {DESC_MAX_ARD_D} features, got {d}")
+        if len(ard) == 1 and isinstance(ard[0], torch.Tensor):
+            inv_l = _rdiv(1.0, ard[0])
+            if inv_l.shape[-1] not in (1, d):
+                raise ValueError(f"{inv_l.shape[-1]} ARD lengthscales for {d} features")
+            inv_l = inv_l.expand(inv_l.shape[:-1] + (d,))
+        else:
+            full = ard * d if len(ard) == 1 else ard
+            if len(full) != d:
+                raise ValueError(f"{len(full)} ARD lengthscales for {d} features")
+            inv_l = tuple(1.0 / float(v) for v in full)
+    return ints, reals, inv_l
+
+
+def _descriptor_table(reals, inv_l, p: int, home: torch.device) -> torch.Tensor:
+    """The (P, DESC_WIDTH) float64 table of one launch on ``home``, from its columns."""
+    host = [float(v) if not isinstance(v, torch.Tensor) else 0.0 for v in reals]
+    if isinstance(inv_l, tuple):
+        host[DESC_INV_L : DESC_INV_L + len(inv_l)] = inv_l
+    live = [(j, v) for j, v in enumerate(reals) if isinstance(v, torch.Tensor)]
+    base = torch.tensor([host], dtype=torch.float64)
+    if not live and not isinstance(inv_l, torch.Tensor):
+        return base if p == 1 else base.expand(p, DESC_WIDTH)
+    table = _to_device(base, home).expand(p, DESC_WIDTH).clone()
+    for j, v in live:
+        table[:, j] = v.reshape(-1)
+    if isinstance(inv_l, torch.Tensor):
+        table[:, DESC_INV_L : DESC_INV_L + inv_l.shape[-1]] = inv_l
+    return table
+
+
+def descriptor_table(kernel, params, d: int, dtype: torch.dtype, device) -> Descriptor:
+    """The kernel tree as the cov_tiles kernel reads it, for features of ``d`` dims.
+
+    The structure (leaf families, term and factor counts, the ARD flag) is
+    the same for every problem and goes to the kernel as a grid constant.
+    The reals (coefficients, the leaves' distance scales, RQ's alphas, ARD's
+    1 / l and each problem's ``diag + noise``) are one row per problem of a
+    (P, DESC_WIDTH) table on ``device``, in ``dtype``: P = 1 for shared
+    leaves, B for (B,) leaves.  They are computed in float64 by torch ops on
+    the leaves' own device and rounded once, as the host computed them
+    before; a tree of floats and host tensors goes to the card by one
+    pinned, asynchronous copy.  Nothing is read back to the host, so a
+    program whose hyperparameters live on the card never waits for them.
+    """
+    kernel = resolve_kernel(kernel)
+    device = torch.device(device)
+    p = problem_count(params, kernel) or 1
+    on_card = [l.device for l in tree_leaves(params) if isinstance(l, torch.Tensor) and l.device.type != "cpu"]
+    home = on_card[0] if on_card else torch.device("cpu")
+
+    def f64(leaf):
+        if isinstance(leaf, torch.Tensor):
+            return leaf.detach().to(device=home, dtype=torch.float64)
+        return leaf if leaf is None or isinstance(leaf, tuple) else float(leaf)
+
+    pl = tree_map(f64, params)
+    terms = _normal_form(kernel, pl)
+    diag = kernel.diag(pl) + kernel.noise(pl)
+    log2 = dtype == torch.float32
+    groups = [(0, terms)]
+    if len({distance_key(f) for _, fs in terms for f in fs}) > 1:
+        # one launch per (term, distance), as cross tiles; the wrapper multiplies and sums them
+        groups = []
+        for t, (c, fs) in enumerate(terms):
+            for q, key in enumerate(dict.fromkeys(distance_key(f) for f in fs)):
+                groups.append((t, [(c if q == 0 else 1.0, tuple(f for f in fs if distance_key(f) == key))]))
+    launches = []
+    for _, group in groups:
+        ints, reals, inv_l = _descriptor_row(group, d, log2)
+        reals[DESC_DIAG] = diag
+        table = _descriptor_table(reals, inv_l, p, home)
+        launches.append(DescriptorLaunch(ints, inv_l is not None, _to_device(table.to(dtype).contiguous(), device)))
+    return Descriptor(tuple(launches), tuple(t for t, _ in groups), p)
+
+
 # ---------------------------------------------------------------------------
 # Plain tile assembly
 # ---------------------------------------------------------------------------
@@ -620,18 +896,38 @@ def cov_tile(
     diagonal to the exact ``diag + noise`` and are identity in the padded
     region; cross tiles are zero there.  This is the plain version of the
     ``cov_assembly`` CUDA kernel.
+
+    Per-problem params (leaves (P,) + base) take a (T, m, D) stack of P
+    problems' tiles, problem-major: tile t belongs to problem t // (T / P).
     """
     kernel = resolve_kernel(kernel)
-    k = kernel.kfree(params, xa, xb)
-    diagval = _diag_value(kernel, params, k.dtype, k.device) if symmetric else None
+    p = problem_count(params, kernel)
+    if p is None:
+        k = kernel.kfree(params, xa, xb)
+        diagval = _diag_value(kernel, params, k.dtype, k.device) if symmetric else None
+        return mask_tiles(k, row0, col0, n_valid_r, n_valid_c, symmetric, diagval)
+    t = xa.shape[0]
+    if xa.ndim != 3 or t % p:
+        raise ValueError(f"per-problem params of {p} problems need a (T, m, D) stack with P | T, got {tuple(xa.shape)}")
+    g = t // p
+    pv = _problem_view(params, kernel, p)
+    k = kernel.kfree(pv, xa.reshape((p, g) + xa.shape[1:]), xb.reshape((p, g) + xb.shape[1:]))
+    k = k.reshape((t,) + k.shape[2:])
+    diagval = None
+    if symmetric:
+        dv = _diag_value(kernel, pv, k.dtype, k.device)
+        diagval = dv.reshape(-1, 1, 1, 1).expand(p, g, 1, 1).reshape(t, 1, 1)
     return mask_tiles(k, row0, col0, n_valid_r, n_valid_c, symmetric, diagval)
 
 
 def mask_tiles(k, row0, col0, n_valid_r, n_valid_c, symmetric: bool, diagval=None) -> torch.Tensor:
     """The masks of :func:`cov_tile` on kfree tiles ``k`` (..., m, mb).
 
-    Symmetric: the global diagonal becomes ``diagval`` and the padded
-    region the identity; otherwise the padded region becomes zero.
+    Symmetric: the global diagonal becomes ``diagval`` (a scalar, or one
+    value a tile as (..., 1, 1)) and the padded region the identity;
+    otherwise the padded region becomes zero.  Offsets and frontiers are
+    scalars or tensors of the batch shape, e.g. (B * G,) per-tile frontiers
+    of a ragged fleet.
     """
     dev = k.device
 

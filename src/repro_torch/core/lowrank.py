@@ -46,9 +46,12 @@ inducing set stays fixed.  A removal that leaves B indefinite raises
 
 The plain products of the JAX package (the Gram of W, the head's mean and
 covariance contractions) stay ``torch.matmul``/``torch.einsum``, with TF32
-off on the card.  The problem axis B and ragged ``n_valid`` come with a
-later slice; the NLML's gradient and training are
-:func:`repro_torch.core.mll.nlml_lowrank`.
+off on the card.  Every entry point takes B stacked problems of one size
+((B, n, D) inputs; a state's tensors gain the leading B axis), with shared
+or per-problem ((B,) leaves) hyperparameters: each launch then covers the
+B problems' tiles (``GPBatch(method="lowrank")``).  Ragged problems
+(per-problem ``n_valid``) come with a later slice.  The NLML's gradient
+and training are :func:`repro_torch.core.mll.nlml_lowrank`.
 """
 
 from __future__ import annotations
@@ -124,17 +127,27 @@ def select_inducing(
     inducing points when it is below ``m_inducing`` (n < m_inducing), else
     None.  An explicit ``inducing`` set is taken as it is, in x's dtype and
     device.  u is detached: the inducing set is fixed data, not a parameter.
+    Stacked x (B, n, D) gives u (B, m_inducing, D), one set per problem; an
+    explicit (m_inducing, D) set is then shared by every problem.
     """
+    batched = x.ndim == 3
     if inducing is not None:
         u = torch.as_tensor(inducing, device=x.device).to(x.dtype)
-        if u.ndim != 2 or u.shape[-2] != m_inducing:
+        if u.ndim not in ((2, 3) if batched else (2,)) or u.shape[-2] != m_inducing:
             raise ValueError(
                 f"explicit inducing set has shape {tuple(u.shape)}, expected "
-                f"(m_inducing={m_inducing}, D)"
+                f"({'(B,) ' if batched else ''}m_inducing={m_inducing}, D)"
             )
+        if batched and u.ndim == 2:
+            u = u.expand((x.shape[0],) + u.shape)
         return u.detach(), None
     nv = x.shape[-2]
-    u = _select_one(x, m_inducing, strategy, nv, kmeans_iters)
+    if batched and strategy == "subset":  # one index set serves every problem of one size
+        u = x[:, _subset_indices(m_inducing, nv, x.device)]
+    elif batched:
+        u = torch.stack([_select_one(xi, m_inducing, strategy, nv, kmeans_iters) for xi in x])
+    else:
+        u = _select_one(x, m_inducing, strategy, nv, kmeans_iters)
     mu_valid = min(m_inducing, nv)
     return u.detach(), None if mu_valid == m_inducing else mu_valid
 
@@ -149,14 +162,14 @@ class LowRankState:
     """Cached Nystrom pieces: all that O(m^2)-per-test-point prediction and
     O(b m^2 + m^3) absorption of new data need.  Nothing here is n-sized."""
 
-    u_chunks: torch.Tensor    # (MU, m, D) padded inducing chunks
+    u_chunks: torch.Tensor    # ((B,) MU, m, D) padded inducing chunks
     luu_packed: torch.Tensor  # packed lower tiles of chol(K_uu + jitter I)
     b_packed: torch.Tensor    # packed lower tiles of B = I + s^-2 W W^T (unfactored)
     lb_packed: torch.Tensor   # packed lower tiles of chol(B)
     c_chunks: torch.Tensor    # (MU, m) tiled c = K_un y
     gamma: torch.Tensor       # (MU, m) tiled A^-1 c, solved as L_uu^-T B^-1 c_w
     c_w: torch.Tensor         # (MU, m) tiled W y (= L_uu^-1 c), contracted from W itself
-    yty: torch.Tensor         # 0-d: y^T y
+    yty: torch.Tensor         # 0-d (or (B,)): y^T y
     n: int                    # training rows absorbed
     m: int                    # tile size
     m_inducing: int
@@ -180,8 +193,13 @@ def _mu_valid(state: LowRankState) -> int:
 
 
 def _noise(kernel, params, like: torch.Tensor) -> torch.Tensor:
-    """The noise variance as a 0-d tensor of ``like``'s dtype and device."""
+    """The noise variance as a tensor of ``like``'s dtype and device: 0-d, or (B,) per problem."""
     return torch.as_tensor(kernel.noise(params), dtype=like.dtype, device=like.device)
+
+
+def _lift(v: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A 0-d or (B,) value shaped to broadcast against a ((B,) ...) tensor of ``ndim`` trailing dims."""
+    return v.reshape(v.shape + (1,) * ndim)
 
 
 def _retune_diag(packed, mu_tiles: int, m: int, delta, mu_valid: int) -> torch.Tensor:
@@ -192,18 +210,20 @@ def _retune_diag(packed, mu_tiles: int, m: int, delta, mu_valid: int) -> torch.T
     delta = jitter - noise on rows < mu_valid (padding rows keep their
     identity pin).  Two roundings, as the reference makes them.
     """
+    axis = packed.ndim - 3
     idx = torch.from_numpy(triangular._diag_slots(mu_tiles)).to(packed.device)
-    diag = packed.index_select(0, idx)  # (MU, m, m)
+    diag = packed.index_select(axis, idx)  # ((B,) MU, m, m)
     row = torch.arange(mu_tiles * m, device=packed.device).reshape(mu_tiles, m)
-    shift = torch.where(row < mu_valid, delta, torch.zeros((), dtype=packed.dtype, device=packed.device))
-    packed.index_copy_(0, idx, diag + torch.diag_embed(shift))
+    zero = torch.zeros((), dtype=packed.dtype, device=packed.device)
+    shift = torch.where(row < mu_valid, _lift(delta, 2), zero)  # ((B,) MU, m)
+    packed.index_copy_(axis, idx, diag + torch.diag_embed(shift))
     return packed
 
 
 def _packed_from_grid(grid: torch.Tensor, mu_tiles: int) -> torch.Tensor:
-    """The lower-triangle tiles of a symmetric (MU, MU, m, m) grid, in packed order."""
+    """The lower-triangle tiles of a symmetric ((B,) MU, MU, m, m) grid, in packed order."""
     rows, cols = (torch.from_numpy(a).to(grid.device) for a in tiling._packed_coords(mu_tiles))
-    return grid[rows, cols]
+    return grid[..., rows, cols, :, :]
 
 
 def _packed_eye(mu_tiles: int, m: int, dtype, device) -> torch.Tensor:
@@ -215,15 +235,16 @@ def _packed_eye(mu_tiles: int, m: int, dtype, device) -> torch.Tensor:
 
 
 def _gram_packed(w: torch.Tensor) -> torch.Tensor:
-    """Packed lower tiles of W W^T for a (MU, M, m, mb) tile grid W.
+    """Packed lower tiles of W W^T for a ((B,) MU, M, m, mb) tile grid W.
 
     ``einsum("pjac,qjbc->pqab", w, w)`` of the reference, written as one
     matrix product over a single (MU m, M mb) row-major copy of W, so the
     grid (2 GiB at gp_256k) is permuted once, not once per operand.
     """
-    mu_tiles, n_tiles, m, mb = w.shape
-    wf = w.permute(0, 2, 1, 3).reshape(mu_tiles * m, n_tiles * mb)
-    gram = (wf @ wf.mT).reshape(mu_tiles, m, mu_tiles, m).permute(0, 2, 1, 3)
+    lead = w.shape[:-4]
+    mu_tiles, n_tiles, m, mb = w.shape[-4:]
+    wf = w.transpose(-3, -2).reshape(lead + (mu_tiles * m, n_tiles * mb))
+    gram = (wf @ wf.mT).reshape(lead + (mu_tiles, m, mu_tiles, m)).transpose(-3, -2)
     return _packed_from_grid(gram, mu_tiles)
 
 
@@ -253,6 +274,7 @@ def lowrank_state(
     n_streams: Optional[int] = None,
     update_dtype=None,
     dtype=torch.float32,
+    batch_dispatch: str = "flat",
     kernel=None,
     device="cuda",
 ) -> LowRankState:
@@ -261,30 +283,40 @@ def lowrank_state(
     Launches on the card: two ``cov_tiles`` (K_uu and K_un), two ``lrgemm``
     (c = K_un y and c_w = W y) and the tiled Cholesky of K_uu and of B; the
     solves and the Gram of W are plain torch.  K_un and W are freed before
-    B is factored.
+    B is factored.  Stacked x (B, n, D) / y (B, n) build B states at once,
+    each launch over the B problems' tiles.
     """
     dev = resolve_device(device)
     kernel = km.resolve_kernel(kernel)
     x = torch.as_tensor(x, device=dev).to(dtype)
-    y = torch.as_tensor(y, device=dev).to(dtype).reshape(-1)
-    if x.ndim != 2 or x.shape[0] != y.shape[0]:
+    y = torch.as_tensor(y, device=dev).to(dtype)
+    batched = x.ndim == 3
+    y = y.reshape(y.shape[0], -1) if batched else y.reshape(-1)
+    if x.ndim not in (2, 3) or x.shape[:-1] != y.shape:
         raise ValueError(
-            f"lowrank_state takes x (n, D) and y (n,); got {tuple(x.shape)} and {tuple(y.shape)}"
+            f"lowrank_state takes x (n, D) and y (n,), or (B, n, D) and (B, n); got "
+            f"{tuple(x.shape)} and {tuple(y.shape)}"
         )
-    n = x.shape[0]
+    n = x.shape[-2]
     u, mu_valid = select_inducing(x, m_inducing, strategy=strategy, inducing=inducing)
     uc = tiling.pad_features(u, tile_size)
     xc = tiling.pad_features(x, tile_size)
     yc = tiling.pad_vector(y, tile_size)
     mv = m_inducing if mu_valid is None else mu_valid
-    mu_tiles = uc.shape[0]
+    mu_tiles = uc.shape[-3]
     noise = _noise(kernel, params, yc)
+    bd = batch_dispatch
 
-    kuu = pred.assemble_packed_covariance(uc, params, mv, kernel=kernel)
+    kuu = pred.assemble_packed_covariance(uc, params, mv, kernel=kernel, batch_dispatch=bd)
     kuu = _retune_diag(kuu, mu_tiles, tile_size, torch.as_tensor(jitter, dtype=dtype, device=dev) - noise, mv)
-    kun = pred.assemble_cross_tiles(uc, xc, params, mv, n, kernel=kernel)  # (MU, M, m, m)
+    if batched:
+        kun = pred.assemble_cross_tiles_batched(uc, xc, params, mv, n, kernel=kernel, batch_dispatch=bd)
+    else:
+        kun = pred.assemble_cross_tiles(uc, xc, params, mv, n, kernel=kernel)  # (MU, M, m, m)
     c = executor.run_lowrank_contraction(kun, yc, n_streams=n_streams, device=dev)
-    luu = executor.run_cholesky(kuu, n_streams=n_streams, update_dtype=update_dtype, device=dev)
+    luu = executor.run_cholesky(
+        kuu, n_streams=n_streams, update_dtype=update_dtype, batch_dispatch=bd, device=dev
+    )
     del kuu
     # whitened cross grid W = L_uu^-1 K_un, then B = I + s^-2 W W^T
     w = executor.run_solve(luu, kun, lower=True, n_streams=n_streams, device=dev)
@@ -292,13 +324,15 @@ def lowrank_state(
     c_w = executor.run_lowrank_contraction(w, yc, n_streams=n_streams, device=dev)
     gram = _gram_packed(w)
     del w
-    b_packed = _packed_eye(mu_tiles, tile_size, dtype, dev) + (1.0 / noise) * gram
-    lb = executor.run_cholesky(b_packed, n_streams=n_streams, update_dtype=update_dtype, device=dev)
+    b_packed = _packed_eye(mu_tiles, tile_size, dtype, dev) + _lift(1.0 / noise, 3) * gram
+    lb = executor.run_cholesky(
+        b_packed, n_streams=n_streams, update_dtype=update_dtype, batch_dispatch=bd, device=dev
+    )
     return LowRankState(
         u_chunks=uc, luu_packed=luu, b_packed=b_packed, lb_packed=lb, c_chunks=c,
-        gamma=_inner_solve(luu, lb, c_w, n_streams, dev), c_w=c_w, yty=torch.sum(yc * yc), n=n,
-        m=tile_size, m_inducing=m_inducing, params=params, jitter=float(jitter),
-        mu_valid=mu_valid, kernel=kernel,
+        gamma=_inner_solve(luu, lb, c_w, n_streams, dev), c_w=c_w,
+        yty=torch.sum(yc * yc, dim=(-2, -1)), n=n, m=tile_size, m_inducing=m_inducing,
+        params=params, jitter=float(jitter), mu_valid=mu_valid, kernel=kernel,
     )
 
 
@@ -315,39 +349,52 @@ def absorb(
     sign: int = 1,
     n_streams: Optional[int] = None,
     update_dtype=None,
+    batch_dispatch: str = "flat",
 ) -> LowRankState:
     """Absorb (``sign=+1``) or forget (``sign=-1``) a block of training rows.
 
     The inducing set stays fixed; only the inner system B, the projections
     c = K_un y and c_w = W y and the counters change.  One ``cov_tiles``,
-    two ``lrgemm`` and the tiled Cholesky of B on the card.  Raises
+    two ``lrgemm`` and the tiled Cholesky of B on the card.  A stacked state
+    takes (B, b, D) / (B, b): the same count b for every problem.  Raises
     :class:`repro_torch.core.update.CholeskyUpdateError` when the refreshed
     factor goes non-finite (``sign=-1`` can remove more than the inner
     system holds); callers rebuild cold.  ``state`` is not modified.
     """
     dev, dtype, kernel = state.device, state.c_chunks.dtype, state.kernel
+    batched = state.c_chunks.ndim == 3
     x_new = torch.as_tensor(x_new, device=dev).to(dtype)
-    y_new = torch.as_tensor(y_new, device=dev).to(dtype).reshape(-1)
-    b = x_new.shape[0]
+    y_new = torch.as_tensor(y_new, device=dev).to(dtype)
+    y_new = y_new.reshape(y_new.shape[0], -1) if batched else y_new.reshape(-1)
+    b = x_new.shape[-2]
     xbc = tiling.pad_features(x_new, state.m)
     ybc = tiling.pad_vector(y_new, state.m)
-    kub = pred.assemble_cross_tiles(
-        state.u_chunks, xbc, state.params, _mu_valid(state), b, kernel=kernel
-    )
+    if batched:
+        kub = pred.assemble_cross_tiles_batched(
+            state.u_chunks, xbc, state.params, _mu_valid(state), b, kernel=kernel,
+            batch_dispatch=batch_dispatch,
+        )
+    else:
+        kub = pred.assemble_cross_tiles(
+            state.u_chunks, xbc, state.params, _mu_valid(state), b, kernel=kernel
+        )
     dc = executor.run_lowrank_contraction(kub, ybc, n_streams=n_streams, device=dev)
     # whitened block W_b = L_uu^-1 K_ub; the inducing factor never changes
     wb = executor.run_solve(state.luu_packed, kub, lower=True, n_streams=n_streams, device=dev)
     dc_w = executor.run_lowrank_contraction(wb, ybc, n_streams=n_streams, device=dev)
     s = torch.as_tensor(float(sign), dtype=dtype, device=dev)
-    b_packed = state.b_packed + s * (1.0 / _noise(kernel, state.params, ybc)) * _gram_packed(wb)
+    inv_noise = _lift(1.0 / _noise(kernel, state.params, ybc), 3)
+    b_packed = state.b_packed + s * inv_noise * _gram_packed(wb)
     c = state.c_chunks + s * dc
-    lb = executor.run_cholesky(b_packed, n_streams=n_streams, update_dtype=update_dtype, device=dev)
+    lb = executor.run_cholesky(
+        b_packed, n_streams=n_streams, update_dtype=update_dtype, batch_dispatch=batch_dispatch, device=dev
+    )
     upd._check(lb, "low-rank inner-system refactorization")
     c_w = state.c_w + s * dc_w
     return dataclasses.replace(
         state, b_packed=b_packed, lb_packed=lb, c_chunks=c,
         gamma=_inner_solve(state.luu_packed, lb, c_w, n_streams, dev), c_w=c_w,
-        yty=state.yty + s * torch.sum(ybc * ybc), n=state.n + sign * b,
+        yty=state.yty + s * torch.sum(ybc * ybc, dim=(-2, -1)), n=state.n + sign * b,
     )
 
 
@@ -362,38 +409,54 @@ def predict_from_lowrank_state(
     *,
     full_cov: bool = False,
     n_streams: Optional[int] = None,
+    batch_dispatch: str = "flat",
 ):
     """Posterior mean (and with ``full_cov`` the covariance) from a cached state.
 
     One ``cov_tiles`` (CROSS) and mean = s^-2 K_*u gamma; with ``full_cov``
     also the PRIOR grid, V1 = L_uu^-1 K_u* and V2 = L_B^-1 V1 by tiled matrix
     solves, and two Gram products.  The covariance's diagonal is clamped at
-    zero, as the reference clamps it.
+    zero, as the reference clamps it.  A stacked state takes (B, n̂, D).
     """
     dev, dtype = state.device, state.c_chunks.dtype
+    batched = state.c_chunks.ndim == 3
     x_test = torch.as_tensor(x_test, device=dev).to(dtype)
-    nt = x_test.shape[0]
+    nt = x_test.shape[-2]
     xtc = tiling.pad_features(x_test, state.m)
-    kstar = pred.assemble_cross_tiles(
-        xtc, state.u_chunks, state.params, nt, _mu_valid(state), kernel=state.kernel
-    )  # (Q, MU, m, m)
-    inv_noise = 1.0 / _noise(state.kernel, state.params, state.gamma)
-    mean = (inv_noise * triangular.tiled_matvec(kstar, state.gamma)).reshape(-1)[:nt]
+    table = pred._table(state.params, state.kernel, xtc)
+    if batched:
+        kstar = pred.assemble_cross_tiles_batched(
+            xtc, state.u_chunks, state.params, nt, _mu_valid(state), kernel=state.kernel, table=table,
+            batch_dispatch=batch_dispatch,
+        )  # (B, Q, MU, m, m)
+    else:
+        kstar = pred.assemble_cross_tiles(
+            xtc, state.u_chunks, state.params, nt, _mu_valid(state), kernel=state.kernel, table=table
+        )  # (Q, MU, m, m)
+    inv_noise = _lift(1.0 / _noise(state.kernel, state.params, state.gamma), 2)
+    mean = inv_noise * triangular.tiled_matvec(kstar, state.gamma)
+    mean = mean.reshape(mean.shape[:-2] + (-1,))[..., :nt]
     if not full_cov:
         return mean
-    # tile rows of K_u*: (MU, Q, m, m)
+    # tile rows of K_u*: ((B,) MU, Q, m, m)
     v1 = executor.run_solve(
-        state.luu_packed, kstar.permute(1, 0, 3, 2), lower=True, n_streams=n_streams, device=dev
+        state.luu_packed, kstar.transpose(-4, -3).transpose(-2, -1), lower=True, n_streams=n_streams,
+        device=dev,
     )
     del kstar
     v2 = executor.run_solve(state.lb_packed, v1, lower=True, n_streams=n_streams, device=dev)
-    covt = pred.assemble_prior_tiles(xtc, state.params, nt, kernel=state.kernel)
+    if batched:
+        covt = pred.assemble_prior_tiles_batched(
+            xtc, state.params, nt, kernel=state.kernel, table=table, batch_dispatch=batch_dispatch
+        )
+    else:
+        covt = pred.assemble_prior_tiles(xtc, state.params, nt, kernel=state.kernel, table=table)
     covt -= triangular.tiled_gram(v1)
     covt += triangular.tiled_gram(v2)
     cov = tiling.untile_dense(covt)
     del covt
-    cov.diagonal().clamp_(min=0.0)
-    return mean, cov[:nt, :nt]
+    cov.diagonal(dim1=-2, dim2=-1).clamp_(min=0.0)
+    return mean, cov[..., :nt, :nt]
 
 
 def _woodbury_nlml(state: LowRankState, ctac: torch.Tensor) -> torch.Tensor:
@@ -401,7 +464,7 @@ def _woodbury_nlml(state: LowRankState, ctac: torch.Tensor) -> torch.Tensor:
     noise = _noise(state.kernel, state.params, state.c_chunks)
     inv = 1.0 / noise
     quad = inv * state.yty - inv * inv * ctac
-    logdet_b = triangular.logdet_from_factor(state.lb_packed, state.u_chunks.shape[0])
+    logdet_b = triangular.logdet_from_factor(state.lb_packed, state.u_chunks.shape[-3])
     nv = torch.as_tensor(float(state.n), dtype=noise.dtype, device=noise.device)
     log2pi = torch.as_tensor(math.log(2.0 * math.pi), dtype=noise.dtype, device=noise.device)
     return 0.5 * (quad + nv * torch.log(noise) + logdet_b + nv * log2pi)
@@ -411,7 +474,7 @@ def nlml_from_lowrank_state(state: LowRankState) -> torch.Tensor:
     """Woodbury / matrix-determinant-lemma NLML from the cached pieces, the
     reference's formula: c^T A^-1 c = c . gamma (a state carried over from
     the JAX package holds the reference's c and gamma)."""
-    return _woodbury_nlml(state, torch.sum(state.c_chunks * state.gamma))
+    return _woodbury_nlml(state, torch.sum(state.c_chunks * state.gamma, dim=(-2, -1)))
 
 
 def whitened_nlml(state: LowRankState) -> torch.Tensor:
@@ -425,7 +488,7 @@ def whitened_nlml(state: LowRankState) -> torch.Tensor:
     form does not have.
     """
     z = executor.run_solve(state.lb_packed, state.c_w, lower=True, device=state.device)
-    return _woodbury_nlml(state, torch.sum(z * z))
+    return _woodbury_nlml(state, torch.sum(z * z, dim=(-2, -1)))
 
 
 def predict_lowrank(

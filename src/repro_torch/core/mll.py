@@ -2,8 +2,7 @@
 
     nlml = 0.5 * ( y^T alpha + log det K + n log 2 pi )
 
-The counterpart of ``repro/core/mll.py`` for a single problem.  Evaluation
-paths:
+The counterpart of ``repro/core/mll.py``.  Evaluation paths:
 
 * :func:`negative_log_marginal_likelihood` — the dense reference (one
   ``torch.linalg.cholesky``, differentiated by autograd);
@@ -22,12 +21,17 @@ paths:
   families without a hand-derived VJP take it;
 * :func:`nlml_lowrank` — the O(n m^2) Nystrom NLML of
   :mod:`repro_torch.core.lowrank`, with its blocked reverse mode
-  (:class:`_NLMLLowRank`).
+  (:class:`_NLMLLowRank`);
+* :func:`nlml_tiled_batched` / :func:`nlml_lowrank_batched` — the (B,)
+  vector of B stacked problems' NLMLs from one problem-batched program,
+  with per-problem hyperparameter leaves; the tiled one's blocked reverse
+  mode takes the B inverses K^{-1} in one batched ``cholesky_inverse``.
 
 :func:`optimize_hyperparameters` runs Adam on any of them in unconstrained
 softplus space, one Python step per optimizer step (the reference scans the
-same update in one compiled program).  The problem-batched NLMLs and their
-optimizer come with the port's problem axis.
+same update in one compiled program);
+:func:`optimize_hyperparameters_batched` trains B problems side by side,
+with independent Adam moments per problem (:func:`adam_batched`).
 """
 
 from __future__ import annotations
@@ -75,14 +79,20 @@ def nlml_from_state(state, y, *, dtype=None, n_valid=None) -> torch.Tensor:
 
     quad = y^T alpha (padded rows contribute 0, as y pads with 0); logdet =
     2 sum log diag(L) from the packed factor's diagonal tiles (padded rows
-    contribute log 1 = 0, or are masked past ``n_valid``).
+    contribute log 1 = 0, or are masked past ``n_valid``).  A stacked state
+    with y (B, n) gives the (B,) vector; a ragged one's frontiers
+    (``n_valid`` or ``state.n_valid``, (B,)) replace n in the constant term
+    and mask the factor's diagonal.
     """
     dtype = state.alpha.dtype if dtype is None else dtype
-    y = torch.as_tensor(y, device=state.device).to(dtype).reshape(-1)
+    batched = state.alpha.ndim == 3
+    y = torch.as_tensor(y, device=state.device).to(dtype)
+    y = y.reshape(y.shape[0], -1) if batched else y.reshape(-1)
     yc = tiling.pad_vector(y, state.m)
-    quad = torch.sum(yc * state.alpha)
-    n = y.shape[-1] if n_valid is None else n_valid
-    logdet = triangular.logdet_from_factor(state.lpacked, state.alpha.shape[-2], n_valid=n_valid)
+    quad = torch.sum(yc * state.alpha, dim=(-2, -1))
+    nv = getattr(state, "n_valid", None) if n_valid is None else n_valid
+    n = y.shape[-1] if nv is None else torch.as_tensor(nv, device=state.device).to(dtype)
+    logdet = triangular.logdet_from_factor(state.lpacked, state.alpha.shape[-2], n_valid=nv)
     return 0.5 * (quad + logdet + n * LOG_2PI)
 
 
@@ -114,16 +124,17 @@ class _Config:
     dtype: torch.dtype
     kernel: km.Kernel
     device: torch.device
+    batch_dispatch: str = "flat"
 
 
 def _nlml_forward(cfg: _Config, x, y, params):
-    """The tiled NLML program: (value, (packed factor, alpha chunks))."""
+    """The tiled NLML program: (value, (packed factor, alpha chunks)); stacked inputs give (B,) values."""
     n = y.shape[-1]
     env, yc = pred.nlml_program_env(
         x, y, params, cfg.tile_size, n_streams=cfg.n_streams, update_dtype=cfg.update_dtype,
-        dtype=cfg.dtype, kernel=cfg.kernel, device=cfg.device,
+        dtype=cfg.dtype, batch_dispatch=cfg.batch_dispatch, kernel=cfg.kernel, device=cfg.device,
     )
-    quad = torch.sum(yc * env["alpha"])
+    quad = torch.sum(yc * env["alpha"], dim=(-2, -1))
     logdet = triangular.logdet_from_factor(env["packed"], env["alpha"].shape[-2])
     return 0.5 * (quad + logdet + n * LOG_2PI), (env["packed"], env["alpha"])
 
@@ -201,6 +212,104 @@ def nlml_tiled(
     if vjp == "custom":
         split = km.TensorLeaves(params)
         return _NLMLTiled.apply(cfg, split, x, y, *split.values())
+    if vjp == "autodiff":
+        return _nlml_forward(cfg, x, y, params)[0]
+    raise ValueError(f"vjp must be 'custom' or 'autodiff', got {vjp!r}")
+
+
+# -- B problems at once --------------------------------------------------------
+#
+# The forward is the problem-batched NLML program ((B,) values).  The
+# backward keeps the port's K^{-1}: ONE batched cholesky_inverse of the B
+# unpacked factors (the reference's tiled solve on identity tiles lost the
+# vertical component in float32, see above), then the O(n^2) contraction
+# per problem with the kernel's kfree_vjp.  Leaves are (B,) throughout
+# (nlml_tiled_batched broadcasts shared ones first).
+
+
+def _stack_trees(trees):
+    """One tree whose leaves stack the trees' leaves along a new leading axis."""
+    leaves = [km.tree_leaves(t) for t in trees]
+    return km.tree_unflatten(km.tree_flatten(trees[0])[1], [torch.stack(ls) for ls in zip(*leaves)])
+
+
+class _NLMLTiledBatched(torch.autograd.Function):
+    """Forward: the batched NLML program (B,); backward: the blocked reverse mode per problem."""
+
+    @staticmethod
+    def forward(ctx, cfg, split, x, y, *values):
+        val, ctx.factor = _nlml_forward(cfg, x, y, split.rebuild(values))
+        ctx.cfg, ctx.split = cfg, split
+        ctx.save_for_backward(x, y, *values)
+        return val
+
+    @staticmethod
+    def backward(ctx, ct):
+        cfg, split = ctx.cfg, ctx.split
+        x, y, *values = ctx.saved_tensors
+        lpacked, alpha_c = ctx.factor
+        b, n = y.shape
+        # O(n^3): the B inverses from the B factors, in one batched call
+        kinv = torch.cholesky_inverse(tiling.unpack_lower(lpacked)[:, :n, :n])
+        alpha = alpha_c.reshape(b, -1)[:, :n]
+        params_d = _cast(split.rebuild(values), cfg.dtype, cfg.device)
+        xd = x.to(cfg.dtype)
+        per = [
+            _nlml_dense_grads(cfg.kernel, km.gather_params(params_d, i, cfg.kernel), xd[i], alpha[i], kinv[i])
+            for i in range(b)
+        ]
+        del kinv
+        g_x = torch.stack([g[0] for g in per])
+        g_y = torch.stack([g[1] for g in per])
+        g_params = _stack_trees([g[2] for g in per])
+        needs = ctx.needs_input_grad
+        grads = [(ct * g).to(v) if need else None for g, v, need in zip(split.pick(g_params), values, needs[4:])]
+        return (None, None, (ct[:, None, None] * g_x).to(x) if needs[2] else None,
+                (ct[:, None] * g_y).to(y) if needs[3] else None, *grads)
+
+
+def _batched_inputs(x, y, dtype, dev):
+    """x (B, n, D) (or (B, n)) and y (B, n) as ``dtype`` tensors on ``dev``."""
+    x = torch.as_tensor(x, device=dev).to(dtype)
+    if x.ndim == 2:
+        x = x[..., None]
+    y = torch.as_tensor(y, device=dev).to(dtype)
+    if x.ndim != 3 or y.ndim != 2 or x.shape[:2] != y.shape:
+        raise ValueError(f"batched NLML needs x (B, n, D) and y (B, n); got {tuple(x.shape)}, {tuple(y.shape)}")
+    return x, y
+
+
+def nlml_tiled_batched(
+    x,
+    y,
+    params,
+    *,
+    tile_size: int = 256,
+    n_streams: Optional[int] = None,
+    update_dtype=None,
+    dtype=torch.float32,
+    vjp: str = "custom",
+    batch_dispatch: str = "flat",
+    kernel=None,
+    device="cuda",
+) -> torch.Tensor:
+    """The (B,) NLMLs of B stacked GPs, from ONE problem-batched program.
+
+    x (B, n, D) / y (B, n); leaves shared or (B,).  Shared leaves are
+    broadcast, so the gradient always comes back per problem.
+    ``vjp="custom"`` takes the blocked reverse mode (analytic kernels; the
+    others take ``"autodiff"``, through the program).
+    """
+    dev = resolve_device(device)
+    x, y = _batched_inputs(x, y, dtype, dev)
+    kernel = km.resolve_kernel(kernel)
+    params = km.broadcast_params(params, x.shape[0], kernel, dtype=dtype, device=dev)
+    cfg = _Config(int(tile_size), n_streams, update_dtype, dtype, kernel, dev, batch_dispatch)
+    if vjp == "custom" and not kernel.analytic_vjp:
+        vjp = "autodiff"
+    if vjp == "custom":
+        split = km.TensorLeaves(params)
+        return _NLMLTiledBatched.apply(cfg, split, x, y, *split.values())
     if vjp == "autodiff":
         return _nlml_forward(cfg, x, y, params)[0]
     raise ValueError(f"vjp must be 'custom' or 'autodiff', got {vjp!r}")
@@ -367,6 +476,40 @@ def nlml_lowrank(
     raise ValueError(f"vjp must be 'custom' or 'autodiff', got {vjp!r}")
 
 
+def nlml_lowrank_batched(
+    x,
+    y,
+    params,
+    *,
+    m_inducing: int,
+    tile_size: int = 256,
+    strategy: str = "subset",
+    inducing=None,
+    jitter=None,
+    n_streams: Optional[int] = None,
+    update_dtype=None,
+    dtype=torch.float32,
+    batch_dispatch: str = "flat",
+    kernel=None,
+    device="cuda",
+) -> torch.Tensor:
+    """The (B,) low-rank NLMLs of B stacked problems of one size, from one batched build.
+
+    Differentiated by autograd through the build (the blocked rule is
+    single-problem); the value is the whitened one (:func:`lowrank.whitened_nlml`).
+    """
+    dev = resolve_device(device)
+    x, y = _batched_inputs(x, y, dtype, dev)
+    kernel = km.resolve_kernel(kernel)
+    state = lowrank.lowrank_state(
+        x, y, params, m_inducing, tile_size, strategy=strategy, inducing=inducing,
+        jitter=lowrank.DEFAULT_JITTER if jitter is None else float(jitter),
+        n_streams=n_streams, update_dtype=update_dtype, dtype=dtype,
+        batch_dispatch=batch_dispatch, kernel=kernel, device=dev,
+    )
+    return lowrank.whitened_nlml(state)
+
+
 # ---------------------------------------------------------------------------
 # Unconstrained-space packing and the Adam optimizer.
 # ---------------------------------------------------------------------------
@@ -478,13 +621,13 @@ def nlml_loss_fn(
     raise ValueError(f"method must be 'monolithic', 'tiled' or 'lowrank', got {method!r}")
 
 
-def adam(loss, raw0, steps: int, lr: float):
-    """Adam on ``loss(raw)`` from ``raw0`` (any tree of tensors): (raw_final, losses).
+def _adam(objective, raw0, steps: int, lr: float):
+    """Adam on ``objective(raw) -> (value to differentiate, value to record)`` from ``raw0``.
 
-    ``losses[t]`` is the loss before update t (``losses[0]`` at the initial
-    point).  The update is the reference's ``_adam_scan_impl`` written out
-    per leaf: b1 = 0.9, b2 = 0.999, eps = 1e-8, bias corrections taken at
-    t = 1 ... steps in the raw leaves' dtype.
+    The update is the reference's ``_adam_scan_impl`` written out per leaf:
+    b1 = 0.9, b2 = 0.999, eps = 1e-8, bias corrections taken at t = 1 ...
+    steps in the raw leaves' dtype.  It is elementwise, so (B, ...) leaves
+    with a summed objective are B independent optimizers.
     """
     b1, b2, eps = 0.9, 0.999, 1e-8
     leaves, treedef = km.tree_flatten(raw0)
@@ -495,9 +638,9 @@ def adam(loss, raw0, steps: int, lr: float):
     losses = []
     for i in range(steps):
         live = [r.detach().requires_grad_() for r in raw]
-        val = loss(km.tree_unflatten(treedef, live))
+        val, report = objective(km.tree_unflatten(treedef, live))
         g = torch.autograd.grad(val, live)
-        losses.append(val.detach())
+        losses.append(report.detach())
         t = ts[i]
         with torch.no_grad():
             m = [b1 * m_ + (1 - b1) * g_ for m_, g_ in zip(m, g)]
@@ -505,6 +648,36 @@ def adam(loss, raw0, steps: int, lr: float):
             raw = [r - lr * (m_ / (1 - b1**t)) / (torch.sqrt(v_ / (1 - b2**t)) + eps)
                    for r, m_, v_ in zip(raw, m, v)]
     return km.tree_unflatten(treedef, raw), torch.stack(losses)
+
+
+def adam(loss, raw0, steps: int, lr: float):
+    """Adam on ``loss(raw)`` from ``raw0`` (any tree of tensors): (raw_final, losses).
+
+    ``losses[t]`` is the loss before update t (``losses[0]`` at the initial
+    point).
+    """
+
+    def objective(raw):
+        val = loss(raw)
+        return val, val
+
+    return _adam(objective, raw0, steps, lr)
+
+
+def adam_batched(loss, raw0, steps: int, lr: float):
+    """B independent Adam runs side by side: ``loss(raw)`` gives the (B,) losses.
+
+    The gradient of the sum of independent per-problem losses is the
+    stacked per-problem gradients, and the update is elementwise, so one
+    set of (B, ...) moments is B optimizers.  Returns (raw_final, losses
+    (steps, B)), the losses before each update as :func:`adam` records them.
+    """
+
+    def objective(raw):
+        val = loss(raw)
+        return torch.sum(val), val
+
+    return _adam(objective, raw0, steps, lr)
 
 
 def optimize_hyperparameters(
@@ -544,5 +717,73 @@ def optimize_hyperparameters(
         inducing=inducing, jitter=jitter, device=dev,
     )
     raw, losses = adam(loss, pack(init, dtype=dtype, device=dev), steps, lr)
+    with torch.no_grad():
+        return unpack(raw), losses
+
+
+def optimize_hyperparameters_batched(
+    x,
+    y,
+    init,
+    *,
+    steps: int = 100,
+    lr: float = 0.05,
+    dtype=torch.float32,
+    method: str = "tiled",
+    tile_size: int = 256,
+    n_streams: Optional[int] = None,
+    update_dtype=None,
+    vjp: str = "custom",
+    batch_dispatch: str = "flat",
+    kernel=None,
+    m_inducing=None,
+    strategy: str = "subset",
+    inducing=None,
+    jitter=None,
+    device="cuda",
+) -> Tuple:
+    """Train B problems' hyperparameters side by side (independent Adam moments per problem).
+
+    x (B, n, D) / y (B, n); ``init`` leaves shared (one start for all) or
+    (B,).  Returns (params with (B,) leaves, loss curves (steps, B)).
+    ``method="tiled"`` evaluates the B NLMLs through one problem-batched
+    program a step (:func:`nlml_tiled_batched`), ``"lowrank"`` the Nystrom
+    NLMLs (:func:`nlml_lowrank_batched`, needs ``m_inducing``),
+    ``"monolithic"`` the dense reference per problem.
+    """
+    dev = resolve_device(device)
+    x, y = _batched_inputs(x, y, dtype, dev)
+    b = x.shape[0]
+    kernel = km.resolve_kernel(kernel)
+    pack, unpack = _raw_codec(kernel)
+    init = km.broadcast_params(init, b, kernel, dtype=dtype, device=dev)
+    if method == "tiled":
+        def loss(raw):
+            return nlml_tiled_batched(
+                x, y, unpack(raw), tile_size=tile_size, n_streams=n_streams, update_dtype=update_dtype,
+                dtype=dtype, vjp=vjp, batch_dispatch=batch_dispatch, kernel=kernel, device=dev,
+            )
+    elif method == "lowrank":
+        if m_inducing is None:
+            raise ValueError("method='lowrank' needs m_inducing")
+
+        def loss(raw):
+            return nlml_lowrank_batched(
+                x, y, unpack(raw), m_inducing=m_inducing, tile_size=tile_size, strategy=strategy,
+                inducing=inducing, jitter=jitter, n_streams=n_streams, update_dtype=update_dtype,
+                dtype=dtype, batch_dispatch=batch_dispatch, kernel=kernel, device=dev,
+            )
+    elif method == "monolithic":
+        def loss(raw):
+            p = unpack(raw)
+            return torch.stack([
+                negative_log_marginal_likelihood(
+                    x[i], y[i], km.gather_params(p, i, kernel), dtype=dtype, kernel=kernel, device=dev
+                )
+                for i in range(b)
+            ])
+    else:
+        raise ValueError(f"method must be 'monolithic', 'tiled' or 'lowrank', got {method!r}")
+    raw, losses = adam_batched(loss, pack(init, dtype=dtype, device=dev), steps, lr)
     with torch.no_grad():
         return unpack(raw), losses

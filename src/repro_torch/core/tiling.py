@@ -7,6 +7,9 @@ Two layouts are used:
 * **Packed symmetric-lower store** ``(T, m, m)`` with ``T = M (M+1) / 2``:
   only the lower tiles of a symmetric matrix, packed column by column.
 
+Every tensor helper takes an optional leading problem-batch axis B (the
+fleets: B independent problems of one tile geometry).
+
 Packing order (column-major over tile columns):
 
     col J occupies flat slots  off(J) .. off(J) + (M - J - 1)
@@ -47,7 +50,10 @@ def pad_amount(n: int, m: int) -> int:
 
 
 def pad_features(x: torch.Tensor, m: int, *, dtype=None) -> torch.Tensor:
-    """(n, D) -> (M, m, D) zero-padded chunks; ``dtype=None`` keeps the dtype."""
+    """(n, D) -> (M, m, D) or (B, n, D) -> (B, M, m, D) zero-padded chunks.
+
+    The problem-batch axis B is optional and kept; ``dtype=None`` keeps the dtype.
+    """
     if dtype is not None:
         x = x.to(dtype)
     pad = pad_amount(x.shape[-2], m)
@@ -57,7 +63,7 @@ def pad_features(x: torch.Tensor, m: int, *, dtype=None) -> torch.Tensor:
 
 
 def pad_vector(y: torch.Tensor, m: int, *, dtype=None) -> torch.Tensor:
-    """(n,) -> (M, m) zero-padded chunks."""
+    """(n,) -> (M, m) or (B, n) -> (B, M, m) zero-padded chunks."""
     if dtype is not None:
         y = y.to(dtype)
     pad = pad_amount(y.shape[-1], m)
@@ -109,24 +115,25 @@ def pack_lower(a: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def unpack_lower(packed: torch.Tensor, *, fill: str = "lower") -> torch.Tensor:
-    """Packed (T, m, m) -> dense (n, n).
+    """Packed (..., T, m, m) -> dense (..., n, n); leading batch axes are kept.
 
     fill: 'lower'      — upper tiles zero (Cholesky factor output)
           'symmetric'  — upper tiles mirrored (covariance matrix)
     """
-    t, m, _ = packed.shape
+    t, m = packed.shape[-3], packed.shape[-1]
     m_tiles = int((math.isqrt(8 * t + 1) - 1) // 2)
     if num_packed_tiles(m_tiles) != t:
         raise ValueError(f"{t} is not a triangular tile count")
     if fill not in ("lower", "symmetric"):
         raise ValueError(f"unknown fill: {fill}")
-    rows, cols = (torch.from_numpy(a) for a in _packed_coords(m_tiles))
-    dense = packed.new_zeros((m_tiles, m_tiles, m, m))
-    dense[rows, cols] = packed
+    lead = packed.shape[:-3]
+    rows, cols = (torch.from_numpy(a).to(packed.device) for a in _packed_coords(m_tiles))
+    dense = packed.new_zeros(lead + (m_tiles * m_tiles, m, m))
+    dense.index_copy_(-3, rows * m_tiles + cols, packed)
     if fill == "symmetric":
         off = rows != cols
-        dense[cols[off], rows[off]] = packed[off].transpose(-1, -2)
-    full = untile_dense(dense)
+        dense.index_copy_(-3, cols[off] * m_tiles + rows[off], packed[..., off, :, :].transpose(-1, -2))
+    full = untile_dense(dense.reshape(lead + (m_tiles, m_tiles, m, m)))
     if fill == "lower":
         full = torch.tril(full)  # zero the upper triangle inside diagonal tiles
     return full
@@ -190,3 +197,106 @@ def shrink_packed_indices(m_tiles_old: int) -> Tuple[np.ndarray, np.ndarray]:
             trailing[packed_index(i, j, m_new)] = packed_index(i + 1, j + 1, m_old)
     evicted = np.array([packed_index(i, 0, m_old) for i in range(1, m_old)], np.int64)
     return trailing, evicted
+
+
+# ---------------------------------------------------------------------------
+# Ragged fleets: re-embedding a factor into a larger geometry, and buckets.
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def embed_packed_indices(m_tiles_old: int, m_tiles_new: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Gather map embedding a packed factor into a larger tile geometry.
+
+    Padding is identity by construction, so the factor of the same problem
+    in a larger store is exactly ``blockdiag(L_old, I)``: growing a factor
+    from ``m_tiles_old`` to ``m_tiles_new`` tile-rows is a gather with no
+    arithmetic.  Returns ``(src, kind)`` of length
+    ``num_packed_tiles(m_tiles_new)``: kind 0 copies ``old_packed[src]``,
+    1 is an identity tile, 2 a zero tile.  A problem of a ragged fleet that
+    crosses a bucket boundary re-embeds its live factor this way instead of
+    refactorizing.
+    """
+    if m_tiles_new < m_tiles_old:
+        raise ValueError(f"cannot shrink: {m_tiles_old} -> {m_tiles_new}")
+    t_new = num_packed_tiles(m_tiles_new)
+    src = np.zeros(t_new, np.int64)
+    kind = np.full(t_new, 2, np.int64)
+    for j in range(m_tiles_new):
+        for i in range(j, m_tiles_new):
+            slot = packed_index(i, j, m_tiles_new)
+            if i < m_tiles_old and j < m_tiles_old:
+                src[slot] = packed_index(i, j, m_tiles_old)
+                kind[slot] = 0
+            elif i == j:
+                kind[slot] = 1
+    return src, kind
+
+
+def embed_packed(packed: torch.Tensor, m_tiles_old: int, m_tiles_new: int) -> torch.Tensor:
+    """Embed packed factor tiles (..., T_old, m, m) into (..., T_new, m, m)."""
+    src, kind = embed_packed_indices(m_tiles_old, m_tiles_new)
+    dev, m = packed.device, packed.shape[-1]
+    tiles = packed.index_select(-3, torch.from_numpy(src).to(dev))
+    kindb = torch.from_numpy(kind).to(dev)[:, None, None]
+    eye = torch.eye(m, dtype=packed.dtype, device=dev)
+    return torch.where(kindb == 0, tiles, torch.where(kindb == 1, eye, torch.zeros((), dtype=packed.dtype, device=dev)))
+
+
+DEFAULT_BUCKETS = "pow2"
+
+
+def bucket_boundaries(m_tiles_max: int, boundaries=DEFAULT_BUCKETS) -> Tuple[int, ...]:
+    """A bucket-boundary spec as a sorted tuple of tile-count caps.
+
+    ``"pow2"``: powers of two up to (and covering) ``m_tiles_max``; an int
+    k: k geometrically spaced caps from 1 to ``m_tiles_max``; an iterable:
+    explicit caps, extended with ``m_tiles_max`` if they do not cover it.
+    Every spec covers ``m_tiles_max``.
+    """
+    m_tiles_max = max(int(m_tiles_max), 1)
+    if boundaries == "pow2":
+        caps = []
+        c = 1
+        while c < m_tiles_max:
+            caps.append(c)
+            c *= 2
+        caps.append(c)
+        return tuple(caps)
+    if isinstance(boundaries, int):
+        k = max(boundaries, 1)
+        caps = sorted(
+            {
+                max(1, int(round(m_tiles_max ** (i / (k - 1)))) if k > 1 else m_tiles_max)
+                for i in range(k)
+            }
+        )
+        if caps[-1] != m_tiles_max:
+            caps[-1] = m_tiles_max
+        return tuple(dict.fromkeys(caps))
+    caps = sorted({int(c) for c in boundaries if int(c) >= 1})
+    if not caps or caps[-1] < m_tiles_max:
+        caps.append(m_tiles_max)
+    return tuple(caps)
+
+
+def bucket_problems(ns, m: int, boundaries=DEFAULT_BUCKETS):
+    """Assign ragged problems to tile-geometry buckets.
+
+    ``ns`` are the per-problem observation counts, ``m`` the tile size.  A
+    problem needs ``ceil(n / m)`` tile-rows, rounded up to the smallest cap
+    of :func:`bucket_boundaries` that fits, so problems of nearby sizes share
+    one bucket (one program, one plan) and the per-problem ``n_valid`` mask
+    absorbs the padding.  Returns ``{cap_tiles: [problem indices]}``, caps
+    ascending, submission order kept within a bucket.
+    """
+    ns = [int(n) for n in ns]
+    if any(n < 1 for n in ns):
+        raise ValueError(f"every problem needs at least one observation: {ns}")
+    need = [max(-(-n // m), 1) for n in ns]
+    caps = bucket_boundaries(max(need), boundaries)
+    out: dict = {}
+    for i, nd in enumerate(need):
+        cap = next(c for c in caps if c >= nd)
+        out.setdefault(cap, []).append(i)
+    return dict(sorted(out.items()))

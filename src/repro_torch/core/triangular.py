@@ -58,38 +58,44 @@ def backward_substitution_matrix(
 
 
 def tiled_matvec(a_tiles: torch.Tensor, x_chunks: torch.Tensor) -> torch.Tensor:
-    """(P, Q, m, mq) tile grid times (Q, mq) chunked vector -> (P, m)."""
-    return torch.einsum("pqab,qb->pa", a_tiles, x_chunks)
+    """(..., P, Q, m, mq) tile grid times (..., Q, mq) chunked vector -> (..., P, m)."""
+    return torch.einsum("...pqab,...qb->...pa", a_tiles, x_chunks)
 
 
 def tiled_gram(v_tiles: torch.Tensor) -> torch.Tensor:
-    """W = V^T V for V tiles (M, Q, m, mq) -> W tiles (Q, Q, mq, mq)."""
-    return torch.einsum("ipab,iqac->pqbc", v_tiles, v_tiles)
+    """W = V^T V for V tiles ((B,) M, Q, m, mq) -> W tiles ((B,) Q, Q, mq, mq).
+
+    B problems' grams are taken as :func:`executor.matrix_product` takes them.
+    """
+    return executor.matrix_product("ipab,iqac->pqbc", v_tiles, v_tiles, v_tiles.ndim == 5)
 
 
 def packed_matvec(
     lpacked: torch.Tensor, chunks: torch.Tensor, *, transpose: bool = False
 ) -> torch.Tensor:
-    """y = L x (or L^T x) against the packed lower factor; chunks (M, m)."""
+    """y = L x (or L^T x) against the packed lower factor; chunks (..., M, m), ``...`` the optional problem axis."""
     m_tiles = chunks.shape[-2]
     if tiling.num_packed_tiles(m_tiles) != lpacked.shape[-3]:
         raise ValueError(
             f"chunk rows {m_tiles} inconsistent with packed store {tuple(lpacked.shape)}"
         )
-    rows, cols = (torch.from_numpy(a) for a in tiling._packed_coords(m_tiles))
+    rows, cols = (torch.from_numpy(a).to(lpacked.device) for a in tiling._packed_coords(m_tiles))
     m = lpacked.shape[-1]
-    dense = lpacked.new_zeros((m_tiles, m_tiles, m, m))
-    dense[rows, cols] = lpacked
-    ein = "jiba,jb->ia" if transpose else "ijab,jb->ia"
+    lead = lpacked.shape[:-3]
+    dense = lpacked.new_zeros(lead + (m_tiles * m_tiles, m, m))
+    dense.index_copy_(-3, rows * m_tiles + cols, lpacked)
+    dense = dense.reshape(lead + (m_tiles, m_tiles, m, m))
+    ein = "...jiba,...jb->...ia" if transpose else "...ijab,...jb->...ia"
     return torch.einsum(ein, dense, chunks.to(lpacked.dtype))
 
 
 def logdet_from_factor(lpacked: torch.Tensor, m_tiles: int, n_valid=None) -> torch.Tensor:
     """log det K = 2 sum_i log diag(L)_i from the packed factor.
 
-    With ``n_valid`` (a scalar here) the diagonal entries at global index
-    >= n_valid are masked to 1, so a factor whose padding is not identity
-    cannot corrupt the log-determinant.
+    With ``n_valid`` the diagonal entries at global index >= n_valid are
+    masked to 1, so a factor whose padding is not identity cannot corrupt
+    the log-determinant.  A batched factor (B, T, m, m) returns the B
+    log-determinants, and ``n_valid`` may then be (B,) per-problem frontiers.
     """
     slots = torch.from_numpy(_diag_slots(m_tiles)).to(lpacked.device)
     diags = torch.diagonal(lpacked.index_select(-3, slots), dim1=-2, dim2=-1)  # (M, m)
@@ -99,5 +105,8 @@ def logdet_from_factor(lpacked: torch.Tensor, m_tiles: int, n_valid=None) -> tor
             torch.arange(m_tiles, device=lpacked.device)[:, None] * m
             + torch.arange(m, device=lpacked.device)[None, :]
         )
-        diags = torch.where(gi < n_valid, diags, torch.ones((), dtype=diags.dtype, device=diags.device))
+        nv = torch.as_tensor(n_valid, device=lpacked.device)
+        if nv.ndim > 0:  # per-problem (B,)
+            nv = nv[:, None, None]
+        diags = torch.where(gi < nv, diags, torch.ones((), dtype=diags.dtype, device=diags.device))
     return 2.0 * torch.sum(torch.log(diags), dim=(-2, -1))

@@ -119,7 +119,7 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "cov_tiles": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _D, _I, _I, _P],
+    "cov_tiles": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P],
     "potrf": [_P, _P, _P, _P, _I, _I, _I, _P],
     "trsm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "trail": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

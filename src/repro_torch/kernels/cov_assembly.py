@@ -3,35 +3,44 @@
 Replaces ``repro/kernels/cov_assembly.py::_cov_tile_kernel``.  One launch
 assembles a whole stack of tiles — the packed lower triangle (ASSEMBLE), a
 cross-covariance grid (CROSS) or the prior test grid (PRIOR) — for any
-family of the registry and any composite.  The source, with what bounds it
-on the H100 and what the design does about it, is ``csrc/cov_assembly.cu``.
-The kernel tree reaches the kernel as a small descriptor of runtime scalars
-(:func:`descriptor`: a sum of at most ``MAX_TERMS`` products of at most
-``MAX_FACTORS`` scaled leaves), so one build serves every family, every
-composite and every parameter value.
+family of the registry and any composite, and for one problem or a fleet of
+B problems at once.  The source, with what bounds it on the H100 and what
+the design does about it, is ``csrc/cov_assembly.cu``.
+
+The kernel tree reaches the kernel as a descriptor
+(:func:`repro_torch.core.kernels_math.descriptor_table`): its structure, a
+sum of at most ``MAX_TERMS`` products of at most ``MAX_FACTORS`` scaled
+leaves, as a grid constant, and its reals as a device table of one row per
+problem (P = 1 for shared hyperparameters, B for (B,) leaves), so one build
+serves every family, composite, parameter value and fleet, and the
+hyperparameters never travel through the host.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import List, Tuple
+from typing import Optional
 
 import torch
 
 from repro_torch.core import kernels_math as km
 from repro_torch.kernels import _build
 
-# the descriptor's limits and leaf ids, as csrc/cov_assembly.cu defines them
-MAX_TERMS, MAX_FACTORS, MAX_ARD_D = 4, 3, 64
-LEAF_IDS = {"se": 0, "matern12": 1, "matern32": 2, "matern52": 3, "rq": 4}
-COMPOSITE = 5
+# the descriptor's limits, leaf ids and table row, as csrc/cov_assembly.cu defines them
+MAX_TERMS, MAX_FACTORS, MAX_ARD_D = km.DESC_MAX_TERMS, km.DESC_MAX_FACTORS, km.DESC_MAX_ARD_D
+LEAF_IDS = km.DESC_LEAF_IDS
+COMPOSITE = km.DESC_COMPOSITE
+TABLE_WIDTH = km.DESC_WIDTH
 
 
 def cov_tiles_plain(
     xa, xb, row0, col0, n_valid_r, n_valid_c, params, *, symmetric: bool, kernel=None
 ) -> torch.Tensor:
-    """(T, m, D) x (T, mb, D) -> (T, m, mb) masked covariance tiles, in torch ops."""
+    """(T, m, D) x (T, mb, D) -> (T, m, mb) masked covariance tiles, in torch ops.
+
+    Per-problem params (leaves (P,) + base) take T = P * G tiles, problem-major.
+    """
     return km.cov_tile(xa, xb, row0, col0, params, n_valid_r, n_valid_c, symmetric, kernel)
 
 
@@ -46,70 +55,25 @@ def _i32(v, t: int, device) -> torch.Tensor:
     return torch.full((t,), int(v), dtype=torch.int32, device=device)
 
 
-Terms = List[Tuple[float, Tuple[km.Factor, ...]]]
-
-
-def _distance(f: km.Factor):
-    """The distance a factor reads: None (the isotropic expanded form) or its ARD lengthscales."""
-    return f.lengthscale if f.family == "ard" else None
-
-
-def descriptor(terms: Terms, d: int):
-    """(ints, reals, ard) of the kernel's descriptor for terms that all read one distance.
-
-    ``ard`` is None or the ARD lengthscales (one shared value is broadcast
-    over the ``d`` features).  Raises ValueError past the descriptor's limits.
-    """
-    if len(terms) > MAX_TERMS or any(len(fs) > MAX_FACTORS for _, fs in terms):
-        raise ValueError(
-            f"the cov_tiles kernel takes at most {MAX_TERMS} terms of {MAX_FACTORS} factors; the "
-            f"kernel's normal form has {[len(fs) for _, fs in terms]}"
-        )
-    ards = {_distance(f) for _, fs in terms for f in fs}
-    if len(ards) > 1:
-        raise ValueError("one launch reads one distance")
-    ard = next(iter(ards)) if ards else None
-    nf = MAX_TERMS * MAX_FACTORS
-    n_factors, fam, coef = [0] * MAX_TERMS, [0] * nf, [0.0] * MAX_TERMS
-    ls, alpha = [1.0] * nf, [1.0] * nf
-    for t, (c, fs) in enumerate(terms):
-        coef[t], n_factors[t] = float(c), len(fs)
-        for q, f in enumerate(fs):
-            i = t * MAX_FACTORS + q
-            if f.family == "ard":  # SE with l = 1 on the ARD distance
-                fam[i] = LEAF_IDS["se"]
-            else:
-                fam[i], ls[i] = LEAF_IDS[f.family], float(f.lengthscale)
-                alpha[i] = float(f.alpha) if f.family == "rq" else 1.0
-    single = len(terms) == 1 and len(terms[0][1]) == 1
-    kind = fam[0] if single else COMPOSITE
-    ard_l = [1.0] * MAX_ARD_D
-    if ard is not None:
-        if d > MAX_ARD_D:
-            raise ValueError(f"the cov_tiles kernel's ARD distance takes at most {MAX_ARD_D} features, got {d}")
-        full = ard * d if len(ard) == 1 else ard
-        if len(full) != d:
-            raise ValueError(f"{len(full)} ARD lengthscales for {d} features")
-        ard_l[:d] = [float(v) for v in full]
-    ints = [kind, len(terms), *n_factors, *fam]
-    reals = [*coef, *ls, *alpha, *ard_l]
-    return ints, reals, ard
-
-
-def _launch(xa, xb, row0, col0, nvr, nvc, terms: Terms, diagval: float, symmetric: bool) -> torch.Tensor:
+def _launch(xa, xb, row0, col0, nvr, nvc, launch: km.DescriptorLaunch, symmetric: bool) -> torch.Tensor:
     t, m, d = xa.shape
     mb = xb.shape[1]
     dev = xa.device
-    ints, reals, ard = descriptor(terms, d)
+    table = launch.table
+    if table.dtype != xa.dtype or table.device != dev or table.shape[1] != TABLE_WIDTH or t % table.shape[0]:
+        raise ValueError(
+            f"cov_tiles: a descriptor table {tuple(table.shape)} {table.dtype} on {table.device} "
+            f"does not fit {t} tiles of {xa.dtype} on {dev}"
+        )
     out = torch.empty((t, m, mb), dtype=xa.dtype, device=dev)
     lib = _build.load("cov_assembly")
     fn = lib.cov_tiles_f32 if xa.dtype == torch.float32 else lib.cov_tiles_f64
+    ints = launch.ints
     code = fn(
         xa.data_ptr(), xb.data_ptr(), row0.data_ptr(), col0.data_ptr(),
         nvr.data_ptr(), nvc.data_ptr(), out.data_ptr(), t, m, mb, d,
-        (ctypes.c_int * len(ints))(*ints), (ctypes.c_double * len(reals))(*reals),
-        int(ard is not None), diagval, int(symmetric),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        (ctypes.c_int * len(ints))(*ints), table.data_ptr(), table.shape[0],
+        int(launch.ard), int(symmetric), dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, code, "cov_tiles")
     cov_tiles_cuda.launches += 1
@@ -117,16 +81,19 @@ def _launch(xa, xb, row0, col0, nvr, nvc, terms: Terms, diagval: float, symmetri
 
 
 def cov_tiles_cuda(
-    xa, xb, row0, col0, n_valid_r, n_valid_c, params, *, symmetric: bool, kernel=None
+    xa, xb, row0, col0, n_valid_r, n_valid_c, params, *, symmetric: bool, kernel=None,
+    table: Optional[km.Descriptor] = None,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on a stack of tiles, for any family or composite.
+    """Launch the CUDA kernel on a stack of tiles, for any family, composite or fleet.
 
-    Hyperparameters are read to the host (:func:`km.normal_form`); the
-    global diagonal's ``diag + noise`` is summed in double there and rounded
-    once.  Terms that mix distances (an ARD leaf beside isotropic ones) run
-    one launch per distance, and their tiles are combined here.
-    ``cov_tiles_cuda.launches`` counts the kernel's launches (one per
-    distance), read by :func:`repro_torch.kernels.ops.launch_counts`.
+    ``table`` is the kernel tree's descriptor for these tiles' dtype and
+    device (:func:`repro_torch.core.kernels_math.descriptor_table`), built
+    once by a program run for all its launches; without it the call builds
+    its own from ``params``.  Per-problem params (P problems) take T = P * G
+    tiles, problem-major.  Terms that mix distances (an ARD leaf beside
+    isotropic ones) run one launch per distance, and their tiles are
+    combined here.  ``cov_tiles_cuda.launches`` counts the kernel's launches
+    (one per distance), read by :func:`repro_torch.kernels.ops.launch_counts`.
     """
     kernel = km.resolve_kernel(kernel)
     if xa.dtype not in (torch.float32, torch.float64) or xb.dtype != xa.dtype:
@@ -139,26 +106,27 @@ def cov_tiles_cuda(
         raise ValueError("cov_tiles takes contiguous feature stacks")
     t = xa.shape[0]
     dev = xa.device
+    if table is None:
+        table = km.descriptor_table(kernel, params, xa.shape[2], xa.dtype, dev)
     row0, col0 = _i32(row0, t, dev), _i32(col0, t, dev)
     nvr, nvc = _i32(n_valid_r, t, dev), _i32(n_valid_c, t, dev)
-    p = km.concrete_params(params)
-    diagval = float(kernel.diag(p)) + float(kernel.noise(p))
-    terms = km.normal_form(kernel, params)
-    if len({_distance(f) for _, fs in terms for f in fs}) <= 1:
-        return _launch(xa, xb, row0, col0, nvr, nvc, terms, diagval, symmetric)
+    if not table.mixed:
+        return _launch(xa, xb, row0, col0, nvr, nvc, table.launches[0], symmetric)
     # one launch per (term, distance), as cross tiles; the pin and the identity padding last
-    out = None
-    for c, fs in terms:
-        prod = None
-        for dist in dict.fromkeys(_distance(f) for f in fs):
-            part = [f for f in fs if _distance(f) == dist]
-            tile = _launch(xa, xb, row0, col0, nvr, nvc, [(c if prod is None else 1.0, tuple(part))],
-                           0.0, False)
-            prod = tile if prod is None else prod.mul_(tile)
-        out = prod if out is None else out.add_(prod)
+    out, prod, term = None, None, None
+    for launch, t_of in zip(table.launches, table.terms):
+        tile = _launch(xa, xb, row0, col0, nvr, nvc, launch, False)
+        if t_of != term:
+            out = prod if out is None else out.add_(prod)
+            prod, term = tile, t_of
+        else:
+            prod.mul_(tile)
+    out = prod if out is None else out.add_(prod)
     if not symmetric:
         return out
-    return km.mask_tiles(out, row0, col0, nvr, nvc, True, torch.full((), diagval, dtype=out.dtype, device=dev))
+    p = table.problems
+    diag = table.diag.reshape(p, 1, 1, 1).expand(p, t // p, 1, 1).reshape(t, 1, 1)
+    return km.mask_tiles(out, row0, col0, nvr, nvc, True, diag)
 
 
 def cov_tiles_tolerance(kernel, params, xa: torch.Tensor, xb: torch.Tensor) -> float:

@@ -10,34 +10,48 @@
 // masked by the global indices gi = row0[t] + i, gj = col0[t] + j against
 // nvr[t] / nvc[t]:
 //   symmetric: gi == gj -> diagval (bitwise diag + noise of the whole kernel
-//              tree, summed on the host), invalid -> identity;
+//              tree for the tile's problem, summed in float64 and rounded
+//              once, from the table), invalid -> identity;
 //   otherwise: invalid -> 0.
 //
 // The family.  The host writes the kernel tree as a short sum of products of
 // scaled leaves (Scaled multiplies, Product distributes over Sum, White's
 // kfree is zero off the pinned diagonal and drops out):
 //     k(d2) = sum_t coef_t prod_f leaf_f(d2)
-// and passes it as a small by-value descriptor (Family: family ids and runtime
-// scalars, at most MAX_TERMS terms of MAX_FACTORS factors), so one build
-// serves every composite and every parameter value.  The leaves are functions
-// of d2 alone:
+// and passes it as a descriptor in two parts: its structure (Family: the
+// kind, the term and factor counts and the leaf ids, at most MAX_TERMS terms
+// of MAX_FACTORS factors) as a __grid_constant__ parameter, read in place from
+// the constant bank (no copy to local memory), and its reals as a device
+// table of P rows of TABLE_W values, one row per problem of a fleet (P = 1
+// when the problems share their hyperparameters):
+//     coef[MAX_TERMS] | s[NF] | a[NF] | inv_l[MAX_ARD_D] | diag + noise | pad
+// so one build serves every composite, every parameter value and every
+// fleet, and the hyperparameters never travel through the host.  A tile
+// finds its row as t / tiles_per_problem: the flat dispatch of a fleet
+// stacks each problem's G tiles together (B * G tiles, problem-major), so
+// the launch puts the problem on the grid's y axis and the tile's row is
+// blockIdx.y, with no per-tile problem index to build and read on every
+// launch (and no integer division in the kernel: computing t / G there
+// cost the float32 kernel 48 bytes of spills at its 80-register cap).  The
+// CTA copies its row to shared memory once, before the first barrier; the
+// epilogue reads its scalars from there.  The leaves are functions of d2
+// alone:
 //     SE   exp(-d2 / (2 l))
 //     M12  exp(-r),                        r = sqrt(d2 / l)
 //     M32  (1 + r) exp(-r),                r = sqrt(3 d2 / l)
 //     M52  (1 + r + r^2 / 3) exp(-r),      r = sqrt(5 d2 / l)
 //     RQ   exp(-alpha log(1 + d2 / (2 alpha l)))   (the reference's form)
 // with sqrt(0) = 0 (the forward of _safe_sqrt).  float32 takes exp, sqrt and
-// log on the MUFU (ex2/sqrt/lg2.approx, the SE scale times log2 e formed on
-// the host); float64 keeps exp, sqrt and log.  A kernel of one scaled leaf
+// log on the MUFU (ex2/sqrt/lg2.approx, the SE scale times log2 e formed with
+// the table); float64 keeps exp, sqrt and log.  A kernel of one scaled leaf
 // takes that leaf's tight epilogue; anything else takes the generic loop
-// over the descriptor.  The descriptor is a __grid_constant__ parameter, read
-// in place from the constant bank (no copy to local memory).
+// over the descriptor.
 //
 // The distance.  Isotropic families use the reference's expanded form
 // |a|^2 + |b|^2 - 2 a.b, clamped at 0 (not sum (a - b)^2), so that the ports
 // agree on offset data.  ARD (per-dimension lengthscales) computes what the
 // Pallas body computes, sum_d (a_d - b_d)^2 / l_d in the difference form, in
-// its own instantiation (ARD = true, inverse lengthscales in the descriptor,
+// its own instantiation (ARD = true, inverse lengthscales in the table,
 // at most MAX_ARD_D features); its leaf is SE with l = 1.  The plain torch
 // version scales the features by 1/sqrt(l) and takes the expanded form, so
 // on data far from the origin the two differ by the expanded form's
@@ -84,21 +98,28 @@ constexpr int THREADS = 256;
 constexpr int TY = 16, TX = 16;  // the thread grid of the product core
 constexpr int KC = 32;           // features staged per chunk
 
-// The descriptor's limits and the leaf ids (kernels/cov_assembly.py writes the same numbers).
+// The descriptor's limits and the leaf ids (core/kernels_math.py writes the same numbers).
 constexpr int MAX_TERMS = 4, MAX_FACTORS = 3, MAX_ARD_D = 64;
 constexpr int N_INTS = 2 + MAX_TERMS + MAX_TERMS * MAX_FACTORS;
 enum Leaf : int { SE = 0, M12 = 1, M32 = 2, M52 = 3, RQ = 4, COMPOSITE = 5 };
 
-template <typename T>
+// One row of the table of reals (kernels_math.DESC_* write the same columns).
+constexpr int NF = MAX_TERMS * MAX_FACTORS;
+constexpr int COEF = 0, S = MAX_TERMS, A = S + NF, INV_L = A + NF, DIAG = INV_L + MAX_ARD_D;
+constexpr int TABLE_W = 96;  // DIAG + 1, padded to whole 16-byte vectors
+static_assert(DIAG < TABLE_W && TABLE_W + 4 <= THREADS, "one thread a column of the row, four for the tile's meta");
+
+// The structure of the kernel tree; its reals are the table's columns
+//   coef[t]       the term's coefficient,
+//   s[t][q]       the leaf's distance scale (see leaf()),
+//   a[t][q]       RQ's -alpha,
+//   inv_l[k]      ARD's 1 / l_k,
+//   diag          diag + noise, the symmetric tiles' global diagonal.
 struct Family {
   int kind;     // a single scaled leaf (SE ... RQ: coef[0], s[0], a[0]) or COMPOSITE
   int n_terms;  // COMPOSITE: sum over n_terms of coef[t] prod_q leaf(fam[t][q])
   int nf[MAX_TERMS];
-  int fam[MAX_TERMS * MAX_FACTORS];
-  T coef[MAX_TERMS];
-  T s[MAX_TERMS * MAX_FACTORS];  // the leaf's distance scale (see leaf())
-  T a[MAX_TERMS * MAX_FACTORS];  // RQ: -alpha
-  T inv_l[MAX_ARD_D];            // ARD: 1 / l_d
+  int fam[NF];
 };
 
 __device__ __forceinline__ float ex2_approx(float x) {
@@ -153,17 +174,17 @@ __device__ __forceinline__ T leaf(T d2, T s, T a) {
   return fma(r, fma(r, T(1) / T(3), T(1)), T(1)) * e;  // M52
 }
 
-// The generic sum of products, for COMPOSITE.
+// The generic sum of products, for COMPOSITE; tab is the problem's row in shared memory.
 template <typename T>
-__device__ __forceinline__ T composite(const Family<T>& f, T d2) {
+__device__ __forceinline__ T composite(const Family& f, const T* tab, T d2) {
   T sum = T(0);
 #pragma unroll 1
   for (int t = 0; t < f.n_terms; ++t) {
-    T prod = f.coef[t];
+    T prod = tab[COEF + t];
 #pragma unroll 1
     for (int q = 0; q < f.nf[t]; ++q) {
       const int i = t * MAX_FACTORS + q;
-      const T s = f.s[i], a = f.a[i];
+      const T s = tab[S + i], a = tab[A + i];
       switch (f.fam[i]) {
         case SE: prod *= leaf<SE>(d2, s, a); break;
         case M12: prod *= leaf<M12>(d2, s, a); break;
@@ -178,8 +199,8 @@ __device__ __forceinline__ T composite(const Family<T>& f, T d2) {
 }
 
 template <int L, typename T, int R, int C>
-__device__ __forceinline__ void apply_leaf(const Family<T>& f, T (&k)[R][C]) {
-  const T c = f.coef[0], s = f.s[0], a = f.a[0];
+__device__ __forceinline__ void apply_leaf(const T* tab, T (&k)[R][C]) {
+  const T c = tab[COEF], s = tab[S], a = tab[A];
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
@@ -188,18 +209,18 @@ __device__ __forceinline__ void apply_leaf(const Family<T>& f, T (&k)[R][C]) {
 
 // d2 -> the family's value, in place; one branch on the kind for the whole block.
 template <typename T, int R, int C>
-__device__ __forceinline__ void apply_family(const Family<T>& f, T (&k)[R][C]) {
+__device__ __forceinline__ void apply_family(const Family& f, const T* tab, T (&k)[R][C]) {
   switch (f.kind) {
-    case SE: apply_leaf<SE>(f, k); break;
-    case M12: apply_leaf<M12>(f, k); break;
-    case M32: apply_leaf<M32>(f, k); break;
-    case M52: apply_leaf<M52>(f, k); break;
-    case RQ: apply_leaf<RQ>(f, k); break;
+    case SE: apply_leaf<SE>(tab, k); break;
+    case M12: apply_leaf<M12>(tab, k); break;
+    case M32: apply_leaf<M32>(tab, k); break;
+    case M52: apply_leaf<M52>(tab, k); break;
+    case RQ: apply_leaf<RQ>(tab, k); break;
     default:
 #pragma unroll
       for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < C; ++j) k[i][j] = composite(f, k[i][j]);
+        for (int j = 0; j < C; ++j) k[i][j] = composite(f, tab, k[i][j]);
   }
 }
 
@@ -222,27 +243,35 @@ __global__ void __launch_bounds__(THREADS, VEC && sizeof(T) == 4 ? 3 : 2) cov_ti
     const T* __restrict__ xa, const T* __restrict__ xb,
     const int* __restrict__ row0, const int* __restrict__ col0,
     const int* __restrict__ nvr, const int* __restrict__ nvc,
-    T* __restrict__ out, int m, int mb, int d, const __grid_constant__ Family<T> family, T diagval,
-    int symmetric) {
+    T* __restrict__ out, int m, int mb, int d, const __grid_constant__ Family family,
+    const T* __restrict__ table, int tiles_per_problem, int symmetric) {
   using TL = gemm::Tile<T, TY, TX>;
   constexpr int V = TL::V, BM = TL::BM, BN = TL::BN, LDA = TL::LDA, LDB = TL::LDB;
   static_assert(BM + BN <= THREADS, "one thread per row and per column norm");
   __shared__ __align__(16) T as[KC * LDA];  // [k][row]
   __shared__ __align__(16) T bs[KC * LDB];  // [k][col]
   __shared__ T na[BM], nb[BN];
+  __shared__ __align__(16) T tab[TABLE_W];  // this tile's problem's row of reals
+  __shared__ int meta[4];                   // the tile's row0, col0, nvr, nvc
 
   const int rbs = (m + BM - 1) / BM, cbs = (mb + BN - 1) / BN;
-  const int t = blockIdx.x / (rbs * cbs), rb = blockIdx.x / cbs % rbs, cb = blockIdx.x % cbs;
+  // blockIdx.y is the tile's problem (its row of the table), blockIdx.x the block within the problem's tiles
+  const int t = blockIdx.y * tiles_per_problem + blockIdx.x / (rbs * cbs);
+  const int rb = blockIdx.x / cbs % rbs, cb = blockIdx.x % cbs;
   const int r_base = rb * BM, c_base = cb * BN;
   const int tid = threadIdx.x;
   const TL tl(tid);
+  // The problem's row of reals and the tile's offsets and frontiers go to shared memory, read after
+  // the first barrier below (the d0 loop's, which every CTA passes before any use): held in registers
+  // across the product they would push the float32 kernel past its 80-register cap.
+  if (tid < TABLE_W) {
+    tab[tid] = table[static_cast<size_t>(blockIdx.y) * TABLE_W + tid];
+  } else if (tid < TABLE_W + 4) {
+    const int w = tid - TABLE_W;
+    meta[w] = (w == 0 ? row0 : w == 1 ? col0 : w == 2 ? nvr : nvc)[t];
+  }
   const T* xa_t = xa + static_cast<size_t>(t) * m * d;
   const T* xb_t = xb + static_cast<size_t>(t) * mb * d;
-  const int gr0 = row0[t] + r_base, gc0 = col0[t] + c_base;  // global index of the block's first row, column
-  const int nr = nvr[t], nc = nvc[t];
-  // no mask where every entry is valid and, in a symmetric tile, the global diagonal misses the block
-  const bool plain = gr0 + BM <= nr && gc0 + BN <= nc && (!symmetric || gr0 >= gc0 + BN || gc0 >= gr0 + BM);
-  T* out_t = out + static_cast<size_t>(t) * m * mb;
   const bool one_chunk = d <= KC;
 
 #pragma unroll 1
@@ -283,7 +312,7 @@ __global__ void __launch_bounds__(THREADS, VEC && sizeof(T) == 4 ? 3 : 2) cov_ti
         gemm::ldsv<V>(bs + k * LDB + BN / 2 + tl.tx * V, b + V);
         if (ARD) {
           // sum_d (a_d - b_d)^2 / l_d, the Pallas body's difference form
-          const T il = family.inv_l[d0 + k];
+          const T il = tab[INV_L + d0 + k];
 #pragma unroll
           for (int i = 0; i < V; ++i)
 #pragma unroll
@@ -320,7 +349,13 @@ __global__ void __launch_bounds__(THREADS, VEC && sizeof(T) == 4 ? 3 : 2) cov_ti
         }
       }
     }
-    apply_family(family, acc);
+    apply_family(family, tab, acc);
+    const T diagval = tab[DIAG];
+    const int gr0 = meta[0] + r_base, gc0 = meta[1] + c_base;  // global index of the block's first row, column
+    const int nr = meta[2], nc = meta[3];
+    // no mask where every entry is valid and, in a symmetric tile, the global diagonal misses the block
+    const bool plain = gr0 + BM <= nr && gc0 + BN <= nc && (!symmetric || gr0 >= gc0 + BN || gc0 >= gr0 + BM);
+    T* out_t = out + static_cast<size_t>(t) * m * mb;
 
 #pragma unroll
     for (int i = 0; i < V; ++i) {
@@ -359,61 +394,41 @@ __global__ void __launch_bounds__(THREADS, VEC && sizeof(T) == 4 ? 3 : 2) cov_ti
   }
 }
 
-template <typename T>
-Family<T> make_family(const int* ints, const double* reals, int d) {
-  constexpr int NF = MAX_TERMS * MAX_FACTORS;
-  const double log2e = Math<T>::kLog2 ? 1.4426950408889634 : 1.0;
-  Family<T> f{};
+Family make_family(const int* ints) {
+  Family f{};
   f.kind = ints[0];
   f.n_terms = ints[1];
-  for (int t = 0; t < MAX_TERMS; ++t) {
-    f.nf[t] = ints[2 + t];
-    f.coef[t] = static_cast<T>(reals[t]);
-  }
-  for (int i = 0; i < NF; ++i) {
-    const int fam = ints[2 + MAX_TERMS + i];
-    const double l = reals[MAX_TERMS + i], alpha = reals[MAX_TERMS + NF + i];
-    f.fam[i] = fam;
-    double s = 0.0, a = 0.0;
-    switch (fam) {
-      case SE: s = -0.5 / l * log2e; break;
-      case M12: s = 1.0 / l; break;
-      case M32: s = 3.0 / l; break;
-      case M52: s = 5.0 / l; break;
-      case RQ: s = 1.0 / (2.0 * alpha * l); a = -alpha; break;
-      default: break;
-    }
-    f.s[i] = static_cast<T>(s);
-    f.a[i] = static_cast<T>(a);
-  }
-  for (int k = 0; k < MAX_ARD_D; ++k)
-    f.inv_l[k] = k < d ? static_cast<T>(1.0 / reals[MAX_TERMS + 2 * NF + k]) : T(0);
+  for (int t = 0; t < MAX_TERMS; ++t) f.nf[t] = ints[2 + t];
+  for (int i = 0; i < NF; ++i) f.fam[i] = ints[2 + MAX_TERMS + i];
   return f;
 }
 
 template <typename T>
 int launch(const void* xa, const void* xb, const void* row0, const void* col0,
            const void* nvr, const void* nvc, void* out, int n_tiles, int m,
-           int mb, int d, const int* ints, const double* reals, int ard, double diagval,
+           int mb, int d, const int* ints, const void* table, int n_problems, int ard,
            int symmetric, int device, void* stream) {
   cudaError_t err = repro_set_device(device);
   if (err != cudaSuccess) return err;
   if (n_tiles == 0 || m == 0 || mb == 0) return cudaSuccess;
   if (ard && d > MAX_ARD_D) return cudaErrorInvalidValue;
+  if (n_problems < 1 || n_problems > 65535 || n_tiles % n_problems != 0) return cudaErrorInvalidValue;
   using TL = gemm::Tile<T, TY, TX>;
-  const long long blocks =
-      static_cast<long long>(n_tiles) * ((m + TL::BM - 1) / TL::BM) * ((mb + TL::BN - 1) / TL::BN);
+  const int tiles_per_problem = n_tiles / n_problems;
+  const long long blocks = static_cast<long long>(tiles_per_problem) * ((m + TL::BM - 1) / TL::BM) *
+                           ((mb + TL::BN - 1) / TL::BN);  // a problem's blocks: the grid's x
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   // 16-byte stores need rows of whole vectors and an aligned base
   const bool vec = mb % TL::V == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const Family<T> family = make_family<T>(ints, reals, d);
+  const Family family = make_family(ints);
   auto kernel = ard ? (vec ? cov_tiles_kernel<T, true, true> : cov_tiles_kernel<T, false, true>)
                     : (vec ? cov_tiles_kernel<T, true, false> : cov_tiles_kernel<T, false, false>);
-  kernel<<<static_cast<int>(blocks), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n_problems));
+  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(xa), static_cast<const T*>(xb),
       static_cast<const int*>(row0), static_cast<const int*>(col0),
       static_cast<const int*>(nvr), static_cast<const int*>(nvc),
-      static_cast<T*>(out), m, mb, d, family, static_cast<T>(diagval), symmetric);
+      static_cast<T*>(out), m, mb, d, family, static_cast<const T*>(table), tiles_per_problem, symmetric);
   return cudaGetLastError();
 }
 
@@ -429,23 +444,24 @@ REPRO_EXPORT int cov_tiles_f32_ctas_per_sm(int ard) {
 
 // The descriptor's limits, for the wrapper to check against its own.
 REPRO_EXPORT int cov_tiles_limits(int which) {
-  return which == 0 ? MAX_TERMS : which == 1 ? MAX_FACTORS : which == 2 ? MAX_ARD_D : N_INTS;
+  return which == 0 ? MAX_TERMS : which == 1 ? MAX_FACTORS : which == 2 ? MAX_ARD_D : which == 3 ? N_INTS
+         : which == 4 ? TABLE_W : DIAG;
 }
 
 REPRO_EXPORT int cov_tiles_f32(const void* xa, const void* xb, const void* row0,
                                const void* col0, const void* nvr, const void* nvc,
                                void* out, int n_tiles, int m, int mb, int d,
-                               const int* ints, const double* reals, int ard, double diagval,
+                               const int* ints, const void* table, int n_problems, int ard,
                                int symmetric, int device, void* stream) {
   return launch<float>(xa, xb, row0, col0, nvr, nvc, out, n_tiles, m, mb, d,
-                       ints, reals, ard, diagval, symmetric, device, stream);
+                       ints, table, n_problems, ard, symmetric, device, stream);
 }
 
 REPRO_EXPORT int cov_tiles_f64(const void* xa, const void* xb, const void* row0,
                                const void* col0, const void* nvr, const void* nvc,
                                void* out, int n_tiles, int m, int mb, int d,
-                               const int* ints, const double* reals, int ard, double diagval,
+                               const int* ints, const void* table, int n_problems, int ard,
                                int symmetric, int device, void* stream) {
   return launch<double>(xa, xb, row0, col0, nvr, nvc, out, n_tiles, m, mb, d,
-                        ints, reals, ard, diagval, symmetric, device, stream);
+                        ints, table, n_problems, ard, symmetric, device, stream);
 }

@@ -28,8 +28,9 @@ is on and an operand requires grad, ``potrf``, ``trsm``, ``trail``,
 ``lrgemm`` and ``cov_tiles`` run through :class:`_RefGrad`, whose forward is
 the kernel (the plain version on the CPU) and whose backward differentiates
 the op's differentiable reference (:data:`GRAD_REFS`; for ``cov_tiles`` the
-plain tile, whose hyperparameters the kernel reads as floats; every tensor
-leaf of the params tree is an operand) on the saved inputs.  Otherwise they
+plain tile, since the kernel reads the hyperparameters detached, from its
+descriptor table; every tensor leaf of the params tree is an operand) on
+the saved inputs.  Otherwise they
 launch exactly as without autograd.
 ``carry_update`` and ``flash_attention`` have no backward in the reference:
 on the card they raise rather than return a detached result.
@@ -152,8 +153,19 @@ def trail(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, update_dtype=None) 
     return out
 
 
+def cov_descriptor(kernel, params, d: int, dtype: torch.dtype, device):
+    """The kernel tree's descriptor for ``cov_tiles`` launches on ``device`` (None on the CPU).
+
+    A program run builds it once and passes it to each of its ``cov_tiles``
+    calls (``table=``), so that the hyperparameters' table is not rebuilt a launch.
+    """
+    if torch.device(device).type != "cuda":
+        return None
+    return km.descriptor_table(kernel, params, d, dtype, device)
+
+
 def cov_tiles(
-    xa, xb, row0, col0, n_valid_r, n_valid_c, params, *, symmetric: bool, kernel=None
+    xa, xb, row0, col0, n_valid_r, n_valid_c, params, *, symmetric: bool, kernel=None, table=None
 ) -> torch.Tensor:
     """(T, m, D) x (T, mb, D) -> (T, m, mb) masked covariance tiles.
 
@@ -161,7 +173,9 @@ def cov_tiles(
     ``n_valid_r``/``n_valid_c`` the valid row/column counts (scalars or
     (T,) tensors).  Symmetric tiles pin the global diagonal to
     ``diag + noise`` and are identity past the valid region; cross tiles
-    are zero there.
+    are zero there.  Per-problem params (leaves (P,) + base) take T = P * G
+    tiles, problem-major; ``table`` is their descriptor
+    (:func:`cov_descriptor`), built once per program run, or None.
     """
     if not _on_cuda(xa, "cov_tiles"):
         return _cov.cov_tiles_plain(
@@ -171,14 +185,16 @@ def cov_tiles(
     # every tensor leaf of the params tree, at any depth, is an operand of _RefGrad; the rest stay bound
     split = km.TensorLeaves(params)
 
-    def bound(fn):
+    def bound(fn, **extra):
         def tiles(xa, xb, *values):
             p = split.rebuild(values)
-            return fn(xa, xb, row0, col0, n_valid_r, n_valid_c, p, symmetric=symmetric, kernel=kernel)
+            return fn(xa, xb, row0, col0, n_valid_r, n_valid_c, p, symmetric=symmetric, kernel=kernel, **extra)
         return tiles
 
     # the launches are counted where they happen, in cov_assembly (one per distance of a mixed composite)
-    return _run("cov_tiles", bound(_cov.cov_tiles_cuda), xa, xb, *split.values(), ref=bound(_cov.cov_tiles_plain))
+    extra = {} if table is None else {"table": table}
+    return _run("cov_tiles", bound(_cov.cov_tiles_cuda, **extra), xa, xb, *split.values(),
+                ref=bound(_cov.cov_tiles_plain))
 
 
 def carry_update(w: torch.Tensor, l: torch.Tensor, y: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from repro_torch import configs
-from repro_torch.core import GaussianProcess, executor, lowrank, mll, tiling, triangular
+from repro_torch.core import GaussianProcess, GPBatch, GPFleet, executor, lowrank, mll, tiling, triangular
 from repro_torch.core import kernels_math as km
 from repro_torch.kernels import (
     _build, carry_update, cov_assembly, flash_attention, lrgemm_tile, ops, potrf_tile, trailing_update, trsm_tile,
@@ -597,3 +597,114 @@ def test_nlml_lowrank_grad_on_the_card_matches_cpu(cuda):
     assert max(abs(a - b) for a, b in zip(got, want)) <= 1e-4 * scale
     for a, b in zip(grads(cuda, torch.float64), grads("cpu", torch.float64)):
         assert abs(a - b) <= 1e-8 * max(1.0, abs(b))
+
+
+# ---------------------------------------------------------------------------
+# Fleets: per-problem hyperparameters in cov_tiles, GPBatch and GPFleet on the card
+# ---------------------------------------------------------------------------
+
+
+def _per_problem(p, b):
+    """Each tensor-able leaf of ``p`` as a (b,) tensor spread around its value (ARD (D,) leaves: (b, D))."""
+    scale = torch.linspace(0.6, 1.5, b, dtype=torch.float64)
+
+    def spread(leaf):
+        leaf = torch.as_tensor(leaf, dtype=torch.float64)
+        return leaf[None] * scale.reshape((b,) + (1,) * leaf.ndim)
+
+    return km.tree_map(spread, p)
+
+
+@pytest.mark.parametrize("problems", [1, 4])
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("name", ZOO_CELLS)
+def test_cov_tiles_per_problem_matches_plain(cuda, name, symmetric, problems):
+    """Per-problem (B,) leaves (P = B rows of the kernel's table) and shared ones (P = 1) against the
+    plain tile, over B = 4 problems' tiles with ragged per-tile frontiers, float32, at the stated tolerance."""
+    kern, p = _zoo_cell(name)
+    d = 2 if "ard2" in name else 3
+    b, g, m = 4, 3, 96
+    pp = km.tree_map(lambda l: l.to(torch.float32).to(cuda), _per_problem(p, b)) if problems > 1 else p
+    gen = torch.Generator().manual_seed(100 + ZOO_CELLS.index(name))
+    xa = (torch.randn(b * g, m, d, generator=gen) / d**0.5).to(cuda)
+    xb = xa if symmetric else (torch.randn(b * g, m, d, generator=gen) / d**0.5).to(cuda)
+    row0 = (torch.arange(g) * m).repeat(b).to(cuda)
+    nv = torch.tensor([g * m, g * m - 50, 130, 7]).repeat_interleave(g).to(cuda)
+    table = ops.cov_descriptor(kern, pp, d, torch.float32, cuda)
+    assert table.problems == problems
+    ops.reset_launch_counts()
+    got = ops.cov_tiles(xa, xb, row0, row0, nv, nv, pp, symmetric=symmetric, kernel=kern, table=table)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["cov_tiles"] == len(table.launches)
+    want = cov_assembly.cov_tiles_plain(xa, xb, row0, row0, nv, nv, pp, symmetric=symmetric, kernel=kern)
+    tol = max(cov_assembly.cov_tiles_tolerance(kern, km.gather_params(pp, i, kern) if problems > 1 else pp,
+                                               xa[0], xb[0]) for i in range(b))
+    assert (got - want).abs().max() <= tol
+
+
+def _fleet_data(b, n, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, n, 3, generator=gen) / 2
+    return x, torch.sin(x.sum(-1)) + 0.1 * torch.randn(b, n, generator=gen), torch.randn(b, 50, 3, generator=gen) / 2
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_gpbatch_on_the_card_matches_single_gps(cuda, shared):
+    """GPBatch (B = 3, n = 700, tile 128) cold and warm against a loop of single GPs on the card."""
+    x, y, xt = _fleet_data(3, 700, 11)
+    p = km.SEKernelParams(0.9, 1.0, 0.1) if shared else km.SEKernelParams(torch.tensor([0.6, 0.9, 1.4]), 1.0,
+                                                                              torch.tensor([0.05, 0.1, 0.2]))
+    ops.reset_launch_counts()
+    fleet = GPBatch(x, y, params=p, tile_size=128, device=cuda)
+    mean, var = fleet.predict_with_uncertainty(xt)
+    warm = fleet.predict(xt)
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in ("cov_tiles", "potrf", "trsm", "trail")), counts
+    for i in range(3):
+        gp = GaussianProcess(x[i], y[i], params=km.gather_params(p, i) if not shared else p, tile_size=128,
+                             device=cuda)
+        mi, vi = gp.predict_with_uncertainty(xt[i])
+        assert (mean[i] - mi).abs().max() <= 1e-4 and (warm[i] - mi).abs().max() <= 1e-4
+        assert (var[i] - vi).abs().max() <= 1e-4
+    nl = fleet.nlml()
+    for i in range(3):
+        gp = GaussianProcess(x[i], y[i], params=km.gather_params(p, i) if not shared else p, tile_size=128,
+                             device=cuda)
+        assert float(nl[i]) == pytest.approx(float(gp.nlml()), rel=1e-5)
+
+
+def test_gpfleet_on_the_card_matches_single_gps(cuda):
+    """A ragged fleet (n = 40 ... 900, tile 128) and a migrating update against single GPs on the card."""
+    gen = torch.Generator().manual_seed(12)
+    ns = (40, 200, 300, 600, 900)
+    xs = [torch.randn(n, 3, generator=gen) / 2 for n in ns]
+    ys = [torch.sin(x.sum(-1)) for x in xs]
+    xt = torch.randn(60, 3, generator=gen) / 2
+    fleet = GPFleet(xs, ys, tile_size=128, device=cuda)
+    mean, var = fleet.predict_with_uncertainty(xt)
+    for i, (x, y) in enumerate(zip(xs, ys)):
+        mi, vi = GaussianProcess(x, y, tile_size=128, device=cuda).predict_with_uncertainty(xt)
+        assert (mean[i] - mi).abs().max() <= 1e-4 and (var[i] - vi).abs().max() <= 1e-4
+    arrivals = [torch.randn(k, 3, generator=gen) / 2 for k in (100, 0, 300, 10, 0)]
+    fleet.update(arrivals, [torch.sin(a.sum(-1)) for a in arrivals])
+    assert all(bk.state is not None for bk in fleet._buckets.values())
+    cold = GPFleet(fleet._xs, fleet._ys, tile_size=128, device=cuda)
+    assert (fleet.predict(xt) - cold.predict(xt)).abs().max() <= 1e-4
+
+
+def test_nlml_tiled_batched_grad_on_the_card_matches_cpu(cuda):
+    """The batched blocked rule (B = 3, n = 512, tile 128) on the card against the CPU, per component."""
+    x, y, _ = _fleet_data(3, 512, 13)
+
+    def grads(device):
+        p = [torch.tensor(v, device=device, requires_grad=True) for v in ([0.7, 1.0, 1.3], [1.0] * 3, [0.1] * 3)]
+        val = mll.nlml_tiled_batched(x, y, km.SEKernelParams(*p), tile_size=128, device=device)
+        return val.detach().cpu(), [g.cpu() for g in torch.autograd.grad(val.sum(), p)]
+
+    ops.reset_launch_counts()
+    v_card, g_card = grads(cuda)
+    assert ops.launch_counts()["cov_tiles"] > 0
+    v_cpu, g_cpu = grads("cpu")
+    torch.testing.assert_close(v_card, v_cpu, rtol=1e-5, atol=0)
+    for a, b in zip(g_card, g_cpu):
+        assert ((a - b).abs() <= 1e-4 * b.abs().clamp(min=1.0)).all(), (a, b)

@@ -122,29 +122,28 @@ def test_kfree_vjp_matches_the_reference(name):
 
 
 def _kernel_rendition(ints, reals, d2):
-    """The kernel's make_family and epilogue (float64 branch) in torch, on a d2 tile."""
+    """The kernel's epilogue (float64 branch) in torch on a d2 tile, from the structure and one table row."""
     mt, mf = cov_assembly.MAX_TERMS, cov_assembly.MAX_FACTORS
-    nf = mt * mf
     kind, n_terms, nfac, fam = ints[0], ints[1], ints[2:2 + mt], ints[2 + mt:]
-    coef, ls, alpha = reals[:mt], reals[mt:mt + nf], reals[mt + nf:mt + 2 * nf]
+    coef, scale, alpha = reals[tkm.DESC_COEF:], reals[tkm.DESC_S:], reals[tkm.DESC_A:]
 
-    def leaf(f, l, a):
+    def leaf(f, s, a):
         if f == 0:
-            return torch.exp(-0.5 / l * d2)
+            return torch.exp(s * d2)
         if f == 4:
-            return torch.exp(-a * torch.log(1.0 + 1.0 / (2.0 * a * l) * d2))
-        r = torch.sqrt({1: 1.0, 2: 3.0, 3: 5.0}[f] / l * d2)
+            return torch.exp(a * torch.log(1.0 + s * d2))
+        r = torch.sqrt(s * d2)
         poly = {1: 1.0, 2: 1.0 + r, 3: 1.0 + r * (1.0 + r / 3.0)}[f]
         return poly * torch.exp(-r)
 
     if kind != cov_assembly.COMPOSITE:
-        return coef[0] * leaf(kind, ls[0], alpha[0])
+        return coef[0] * leaf(kind, scale[0], alpha[0])
     out = torch.zeros_like(d2)
     for t in range(n_terms):
-        prod = torch.full_like(d2, coef[t])
+        prod = torch.full_like(d2, float(coef[t]))
         for q in range(nfac[t]):
             i = t * mf + q
-            prod = prod * leaf(fam[i], ls[i], alpha[i])
+            prod = prod * leaf(fam[i], scale[i], alpha[i])
         out = out + prod
     return out
 
@@ -159,13 +158,14 @@ def test_kernel_descriptor_evaluates_to_kfree(name):
     _, kern_t, _, pt = _params(name, rng)
     xa = torch.from_numpy(rng.standard_normal((17, 2)))
     xb = torch.from_numpy(rng.standard_normal((13, 2)))
-    terms = tkm.normal_form(kern_t, pt)
-    ints, reals, ard = cov_assembly.descriptor(terms, 2)
+    (launch,) = tkm.descriptor_table(kern_t, pt, 2, torch.float64, "cpu").launches
+    ints, reals, ard = launch.ints, launch.table[0], launch.ard
     assert len(ints) == 2 + cov_assembly.MAX_TERMS * (1 + cov_assembly.MAX_FACTORS)
-    if ard is None:
+    assert reals.shape == (cov_assembly.TABLE_WIDTH,)
+    if not ard:
         d2 = tkm.sq_dists(xa, xb)
     else:
-        inv_l = 1.0 / torch.tensor(reals[-cov_assembly.MAX_ARD_D:][:2], dtype=torch.float64)
+        inv_l = reals[tkm.DESC_INV_L:tkm.DESC_INV_L + 2]
         d2 = (((xa[:, None, :] - xb[None, :, :]) ** 2) * inv_l).sum(-1)
     got = _kernel_rendition(ints, reals, d2)
     want = kern_t.kfree(tkm.tree_map(lambda p: torch.as_tensor(p, dtype=torch.float64), pt), xa, xb)
@@ -175,15 +175,15 @@ def test_kernel_descriptor_evaluates_to_kfree(name):
 
 
 def test_descriptor_limits_raise_value_error():
-    k = tkm.Sum(*[tkm.Matern52()] * (cov_assembly.MAX_TERMS + 1))
+    def table(k, d=2):
+        return tkm.descriptor_table(k, k.default_params(), d, torch.float32, "cpu")
+
     with pytest.raises(ValueError, match="at most"):
-        cov_assembly.descriptor(tkm.normal_form(k, k.default_params()), 2)
-    k = tkm.Product(*[tkm.Matern32()] * (cov_assembly.MAX_FACTORS + 1))
+        table(tkm.Sum(*[tkm.Matern52()] * (cov_assembly.MAX_TERMS + 1)))
     with pytest.raises(ValueError, match="at most"):
-        cov_assembly.descriptor(tkm.normal_form(k, k.default_params()), 2)
-    k = tkm.ARDSquaredExponential(ndim=cov_assembly.MAX_ARD_D + 1)
+        table(tkm.Product(*[tkm.Matern32()] * (cov_assembly.MAX_FACTORS + 1)))
     with pytest.raises(ValueError, match="features"):
-        cov_assembly.descriptor(tkm.normal_form(k, k.default_params()), cov_assembly.MAX_ARD_D + 1)
+        table(tkm.ARDSquaredExponential(ndim=cov_assembly.MAX_ARD_D + 1), cov_assembly.MAX_ARD_D + 1)
 
 
 def test_normal_form_distributes_products_and_drops_white():
@@ -288,3 +288,86 @@ def test_kernel_params_from_numpy_keeps_the_tree():
     with pytest.raises(ValueError, match="leaves"):
         convert.kernel_params_from_numpy(kern_t, [1.0])
     assert math.isclose(float(tkm.get_kernel("rq").diag(tkm.RQKernelParams(vertical=2.5))), 2.5)
+
+
+# ---------------------------------------------------------------------------
+# Per-problem hyperparameters: (B,) leaves in one stack of B * G tiles
+# ---------------------------------------------------------------------------
+
+
+def _fleet_params(name, b=3):
+    """A zoo cell's (B,)-leaved params tree (seeded leaves for each problem) and the B single trees
+    (floats and tensors, as ``convert`` makes them from one problem's leaves)."""
+    import jax
+
+    kern_j, kern_t = _pair(name)
+    rng = np.random.default_rng(40 + ZOO.index(name))
+    per = [_leaves(name, kern_j, rng) for _ in range(b)]
+    if name == "se_ard2":
+        per = [[np.asarray([0.7 + 0.3 * i, 1.6 - 0.2 * i], np.float32)] + p[1:] for i, p in enumerate(per)]
+    singles = [convert.kernel_params_from_numpy(kern_t, p) for p in per]
+    stacked = convert.kernel_params_from_numpy(kern_t, [np.stack(ls) for ls in zip(*per)])
+    return kern_j, kern_t, per, singles, stacked
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_cov_tiles_plain_with_per_problem_leaves_matches_a_loop(name):
+    """One call over 3 problems' tiles with (3,) leaves equals a loop of single-problem calls, bitwise,
+    and the reference's own route for (B,) leaves (its executor's problem-batched jnp tile), to 1e-5."""
+    import jax
+
+    from repro.core import executor as jex
+
+    kern_j, kern_t, per, singles, stacked = _fleet_params(name)
+    b, g = len(singles), 2
+    rng = np.random.default_rng(7)
+    xa = torch.from_numpy(rng.standard_normal((b * g, 16, 2)).astype(np.float32) / 1.5)
+    xb = torch.from_numpy(rng.standard_normal((b * g, 12, 2)).astype(np.float32) / 1.5)
+    row0, col0 = torch.tensor([0, 16] * b), torch.tensor([0, 0] * b)
+    nvp = np.asarray([30, 20, 9], np.int32)  # three ragged problems' frontiers
+    nv = torch.from_numpy(nvp).repeat_interleave(g)
+    treedef = jax.tree_util.tree_structure(kern_j.default_params())
+    pj = jax.tree_util.tree_unflatten(treedef, [jnp.asarray(np.stack(ls)) for ls in zip(*per)])
+    for sym in (True, False):
+        xbs = xa if sym else xb
+        c0 = row0 if sym else col0
+        got = cov_assembly.cov_tiles_plain(xa, xbs, row0, c0, nv, nv, stacked, symmetric=sym, kernel=kern_t)
+        for i in range(b):
+            s = slice(i * g, (i + 1) * g)
+            # the problem's own leaves, as the 0-d tensors of the stack (the same arithmetic as (B,) leaves)
+            one = cov_assembly.cov_tiles_plain(xa[s], xbs[s], row0[s], c0[s], nv[s], nv[s],
+                                               tkm.gather_params(stacked, i, kern_t), symmetric=sym, kernel=kern_t)
+            torch.testing.assert_close(got[s], one, rtol=0, atol=0)
+        fn = jex._cov_batch_fn_batched("jnp", pj, jnp.asarray(nvp), jnp.asarray(nvp), sym, kern_j)
+        want = fn(jnp.asarray(xa.numpy().reshape(b, g, 16, 2)), jnp.asarray(xbs.numpy().reshape(b, g, -1, 2)),
+                  jnp.asarray(row0.numpy()[:g]), jnp.asarray(c0.numpy()[:g]))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want).reshape(got.shape), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_descriptor_table_has_one_row_per_problem(name):
+    """The kernel's table for (3,) leaves holds, row by row, each problem's own single-problem row
+    (float64; P = 1 for shared leaves), and every row evaluates to that problem's kfree."""
+    _, kern_t, _, singles, stacked = _fleet_params(name)
+    desc = tkm.descriptor_table(kern_t, stacked, 2, torch.float64, "cpu")
+    assert desc.problems == 3 and all(l.table.shape == (3, cov_assembly.TABLE_WIDTH) for l in desc.launches)
+    rng = np.random.default_rng(8)
+    xa, xb = (torch.from_numpy(rng.standard_normal((n, 2))) for n in (9, 7))
+    for i, single in enumerate(singles):
+        one = tkm.descriptor_table(kern_t, single, 2, torch.float64, "cpu")
+        assert one.problems == 1 and one.terms == desc.terms
+        for a, b in zip(desc.launches, one.launches):
+            assert a.ints == b.ints and a.ard == b.ard
+            torch.testing.assert_close(a.table[i], b.table[0], rtol=0, atol=0)
+        assert torch.equal(desc.select(i).launches[0].table, one.launches[0].table)
+        if not desc.mixed:
+            launch = desc.launches[0]
+            if launch.ard:
+                d2 = (((xa[:, None] - xb[None]) ** 2) * launch.table[i, tkm.DESC_INV_L:tkm.DESC_INV_L + 2]).sum(-1)
+            else:
+                d2 = tkm.sq_dists(xa, xb)
+            got = _kernel_rendition(list(launch.ints), launch.table[i], d2)
+            want = kern_t.kfree(tkm.tree_map(lambda p: torch.as_tensor(p, dtype=torch.float64), single), xa, xb)
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+    shared = tkm.descriptor_table(kern_t, singles[0], 2, torch.float32, "cpu")
+    assert shared.problems == 1 and shared.launches[0].table.dtype == torch.float32

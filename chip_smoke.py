@@ -104,6 +104,23 @@ Run from the root of a checkout:  python3 chip_smoke.py
             ``predict_each`` against single GPs, the smallest and largest
             problem of each bucket against float64, then ragged arrivals that
             migrate two problems, warm, against a cold rebuild;
+            fleet.ragged.lowrank: ``GPFleet(method="lowrank")`` of 16 sizes
+            log-uniform in [512, 65536], m_inducing 1024, cold and warm
+            ``predict_with_uncertainty`` with the launches against the
+            buckets' plans, beside a loop of single low-rank GPs, each
+            problem against a float64 dense DTC on its own inducing points,
+            then a migrating update on a pinned inducing set (every bucket
+            warm, chol(B) alone, against a cold rebuild), with peak memory;
+            fleet.ragged.lowrank.kernels: each kernel's widest launch of the
+            cold call and the update against its plain version;
+            serve.fleet: ``ContinuousBatcher`` over fleet.ragged's exact
+            fleet and the low-rank one, 6 waves of 64 predictions and 8
+            observations, every result bitwise against a synchronous
+            ``predict_each`` on the wave's snapshot, per-wave host seconds
+            beside device ms, p50/p99 latency, one drift-triggered
+            re-optimize on the low-rank fleet, the fleets after the waves
+            against cold ones, and gp_16k's cold ``predict`` with telemetry
+            on and off (bitwise equal, overhead in ms);
             timing.fleet and profile.fleet*: cold calls beside their loops,
             in turns, and one cold call of each under ``torch.profiler``;
 12. kernel.flash  the flash-attention kernel at gemma2-2b's prefill shape
@@ -905,11 +922,11 @@ def dense_reference(x_train, y_train, x_test, dev, kernel=None, params=None):
     kernel = km.resolve_kernel(kernel)
     p = kernel.default_params() if params is None else params
     x64, xt64, y64 = (torch.as_tensor(a, device=dev).double() for a in (x_train, x_test, y_train))
-    k64 = km.assemble_covariance(x64, p, kernel=kernel)
+    k64 = km.assemble_covariance(x64, p, kernel=kernel, dtype=None)
     l64 = torch.linalg.cholesky(k64)
     del k64
     alpha64 = torch.cholesky_solve(y64[:, None], l64)[:, 0]
-    ks64 = km.assemble_cross_covariance(xt64, x64, p, kernel=kernel)
+    ks64 = km.assemble_cross_covariance(xt64, x64, p, kernel=kernel, dtype=None)
     mean_ref = ks64 @ alpha64
     v64 = torch.linalg.solve_triangular(l64, ks64.mT, upper=False)
     del ks64, l64
@@ -1411,17 +1428,17 @@ def dense_dtc(x, y, x_test, u, dtype, dev, *, with_var=True, jax_formulas=False)
 
     p = km.SEKernelParams.paper_defaults()
     x, y, xt, u = (torch.as_tensor(a, device=dev).to(dtype) for a in (x, y, x_test, u))
-    kuu = km.assemble_covariance(u, p)
+    kuu = km.assemble_covariance(u, p, dtype=None)
     kuu.diagonal().add_(torch.tensor(DEFAULT_JITTER, dtype=dtype, device=dev) - p.noise)
     luu = torch.linalg.cholesky(kuu)
-    kun = km.assemble_cross_covariance(u, x, p)
+    kun = km.assemble_cross_covariance(u, x, p, dtype=None)
     c = kun @ y[:, None]
     w = solve(luu, kun)
     del kun
     lb = torch.linalg.cholesky(torch.eye(u.shape[0], dtype=dtype, device=dev) + (w @ w.mT) / p.noise)
     wy = w @ y[:, None]
     del w
-    kus = km.assemble_cross_covariance(u, xt, p)
+    kus = km.assemble_cross_covariance(u, xt, p, dtype=None)
     v1 = solve(luu, kus)
     v2 = solve(lb, v1)
     if jax_formulas:
@@ -1434,13 +1451,14 @@ def dense_dtc(x, y, x_test, u, dtype, dev, *, with_var=True, jax_formulas=False)
     return mean, p.vertical - (v1 * v1).sum(0) + (v2 * v2).sum(0)
 
 
-def lowrank_launches():
-    """Kernel launches of the low-rank path's pieces, from the plans (MU = 4 inducing tiles)."""
+def lowrank_launches(m_inducing=LR_M_INDUCING):
+    """Kernel launches of the low-rank path's pieces, from the plans (gp_256k_lowrank: MU = 4 inducing tiles)."""
     from repro_torch.core import executor
 
-    mu_tiles = LR_M_INDUCING // TILE
+    mu_tiles = m_inducing // TILE
     chol = executor.cholesky_plan(mu_tiles).launches_by_op()
-    one_chol = {"potrf": chol["potrf"], "trsm": chol["trsm"], "trail": chol["syrk"] + chol["gemm"]}
+    one_chol = {"potrf": chol["potrf"], "trsm": chol.get("trsm", 0),
+                "trail": chol.get("syrk", 0) + chol.get("gemm", 0)}
 
     def pieces(cov, lrgemm, chols):
         scaled = {k: chols * v for k, v in one_chol.items()}
@@ -2255,7 +2273,7 @@ def dense_dtc_nlml(x, y, u, params, jitter, dtype):
     x, y, u = (a.to(dtype) for a in (x, y, u))
     n = y.shape[0]
     noise = params.noise
-    kuu = km.assemble_covariance(u, params)
+    kuu = km.assemble_covariance(u, params, dtype=None)
     kuu = kuu + torch.diag_embed((jitter - noise) * torch.ones(u.shape[0], dtype=dtype, device=u.device))
     luu = torch.linalg.cholesky(kuu)
     w = torch.linalg.solve_triangular(luu, km.SQUARED_EXPONENTIAL.kfree(params, u, x), upper=False)
@@ -2880,6 +2898,295 @@ def phase_fleet_timing(xb, yb, xtb, dev):
     torch.cuda.empty_cache()
 
 
+# fleet.ragged.lowrank: fig11's skewed mix on the Nystrom tier, B = 16 sizes log-uniform in [512, 65536]
+RLR_B, RLR_LO, RLR_HI, RLR_NT, RLR_M = 16, 512, 65536, 1024, 1024
+# a warm low-rank update against a cold rebuild: float32 inner systems summed in another order
+RLR_UPDATE_TOL = 3e-3
+# serve.fleet: 6 waves of 64 predictions (n̂ in [1, 256], a quarter with variances) and 8 observations (b in [1, 512])
+SERVE_WAVES, SERVE_PREDICTS, SERVE_OBSERVES, SERVE_NT_MAX, SERVE_B_MAX = 6, 64, 8, 256, 512
+
+
+def ragged_lowrank_data():
+    """fleet.ragged.lowrank's 16 problems (sizes from fig11's skewed mix, seed SEED), a shared test block,
+    and a pinned inducing set (a strided subset of the largest problem's rows) for the update."""
+    ns = skewed_sizes(RLR_B, RLR_LO, RLR_HI, np.random.default_rng(SEED))
+    data = [make_data(int(n), RLR_NT, N_FEATURES, SEED + 200 + i) for i, n in enumerate(ns)]
+    xs, ys = [d[0] for d in data], [d[1] for d in data]
+    u = xs[-1][:: len(xs[-1]) // RLR_M][:RLR_M].copy()
+    return ns, xs, ys, data[0][2], u
+
+
+def bucket_lowrank_launches(assign, m_inducing, kind):
+    """Launches of a low-rank fleet's buckets, from the plans: ``lowrank_launches`` once a bucket."""
+    per = lowrank_launches(m_inducing)[kind]
+    return {k: v * len(assign) for k, v in per.items()}
+
+
+def phase_fleet_ragged_lowrank(dev):
+    """fleet.ragged.lowrank: GPFleet(method="lowrank") of 16 skewed sizes against single GPs and a float64 DTC,
+    then a migrating update on a pinned inducing set; fleet.ragged.lowrank.kernels: the widest launches."""
+    from repro_torch.core import GaussianProcess, GPFleet, executor, tiling
+    from repro_torch.kernels import ops
+
+    ns, xs, ys, shared, u_pin = ragged_lowrank_data()
+    assign = tiling.bucket_problems(ns, TILE)
+    kw = dict(tile_size=TILE, method="lowrank", m_inducing=RLR_M, strategy="subset", jitter=1e-4, device=dev)
+    want = bucket_lowrank_launches(assign, RLR_M, "cold_predict_with_uncertainty")
+    want_warm = bucket_lowrank_launches(assign, RLR_M, "warm_predict_with_uncertainty")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    fleet = GPFleet(xs, ys, **kw)
+    (mean, var), t_cold = wall_s(lambda: fleet.predict_with_uncertainty(shared))
+    c_cold = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    ops.reset_launch_counts()
+    (mean_w, var_w), t_warm = wall_s(lambda: fleet.predict_with_uncertainty(shared))
+    c_warm = ops.launch_counts()
+    nl = fleet.nlml()
+    launches = {k: c_cold[k] + c_warm[k] for k in c_cold}
+    gps = [GaussianProcess(x, y, **kw) for x, y in zip(xs, ys)]
+    singles, t_loop = wall_s(lambda: [gp.predict_with_uncertainty(shared) for gp in gps])
+    _, t_loop_warm = wall_s(lambda: [gp.predict_with_uncertainty(shared) for gp in gps])
+    em, ev = fleet_single_errors(mean, var, singles)
+    del gps, singles
+    torch.cuda.empty_cache()
+    rows = []
+    for cap, idx in assign.items():
+        st = fleet._buckets[cap].state
+        mvs = st.mu_valid.tolist()
+        for pos, i in enumerate(idx):
+            u = st.u_chunks[pos].reshape(-1, N_FEATURES)[: mvs[pos]]
+            errs, dense, mean_bound, var_bound = lowrank_accuracy(
+                {"mean": mean[i], "var": var[i], "mean_warm": mean_w[i], "var_warm": var_w[i]},
+                xs[i], ys[i], shared, u, dev)
+            rows.append(dict(problem=i, n=int(ns[i]), bucket=cap, mu_valid=mvs[pos], **errs, mean_bound=mean_bound,
+                             var_bound=var_bound, **dense))
+            check(max(errs["mean"], errs["mean_warm"]) <= mean_bound and max(errs["var"], errs["var_warm"]) <= var_bound,
+                  f"fleet.ragged.lowrank problem {i} (n = {ns[i]}) outside the dense-DTC rule: {rows[-1]}")
+    del fleet
+    torch.cuda.empty_cache()
+    # the update: a pinned, shared inducing set; two problems pushed past their bucket's capacity
+    rng = np.random.default_rng(SEED + 3)
+    arrive = [min(int(k), cap_of(assign, i) * TILE - int(ns[i])) for i, k in enumerate(rng.integers(0, 300, RLR_B))]
+    movers = [idx[-1] for cap, idx in assign.items() if cap < max(assign)][-2:]
+    for i in movers:
+        arrive[i] = cap_of(assign, i) * TILE - int(ns[i]) + 100
+    x_new, y_new, _, _ = make_data(sum(arrive), 1, N_FEATURES, SEED + 300)
+    cuts = np.cumsum([0] + arrive)
+    xa = [x_new[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    ya = [y_new[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    pinned = GPFleet(xs, ys, inducing=u_pin, **kw)
+    pinned.predict(shared)
+    ops.reset_launch_counts()
+    _, t_update = wall_s(lambda: pinned.update(xa, ya))
+    c_update = ops.launch_counts()
+    after_assign = pinned.bucket_assignment()
+    warm = all(b.state is not None for b in pinned._buckets.values())
+    moved = [i for i in range(RLR_B) if cap_of(after_assign, i) != cap_of(assign, i)]
+    absorbing = sum(1 for idx in after_assign.values() if any(arrive[i] for i in idx))
+    chol = executor.cholesky_plan(RLR_M // TILE).launches_by_op()
+    want_update = {**NO_LAUNCHES, "cov_tiles": absorbing, "lrgemm": 2 * absorbing, "potrf": absorbing * chol["potrf"],
+                   "trsm": absorbing * chol.get("trsm", 0),
+                   "trail": absorbing * (chol.get("syrk", 0) + chol.get("gemm", 0))}
+    after, t_after = wall_s(lambda: pinned.predict(shared))
+    cold, t_rebuild = wall_s(lambda: GPFleet(pinned._xs, pinned._ys, inducing=u_pin, **kw).predict(shared))
+    e_update = max_err(after, cold)
+    tol_update = RLR_UPDATE_TOL * max(1.0, float(cold.abs().max()))
+    launches = {k: launches[k] + c_update[k] for k in launches}
+    emit("fleet.ragged.lowrank", config=f"GPFleet(method='lowrank') B = {RLR_B}, sizes log-uniform in [{RLR_LO}, "
+         f"{RLR_HI}] (benchmarks/fig11_ragged_fleet.py::skewed_sizes, seed {SEED}), n_test = {RLR_NT} shared, "
+         f"m_inducing = {RLR_M}, subset, jitter 1e-4, tile {TILE}, pow2 buckets", sizes=[int(n) for n in ns],
+         buckets={cap: len(idx) for cap, idx in assign.items()}, launches_cold=c_cold, plan_cold=want,
+         launches_warm=c_warm, plan_warm=want_warm, vs_single_gps={"mean": em, "var": ev},
+         accuracy=rows, bound_rule=BOUND_RULE.replace("torch.linalg.cholesky", "DTC"),
+         nlml_finite=bool(torch.isfinite(nl).all()),
+         update={"arrivals": arrive, "migrated": moved, "warm": warm, "launches": c_update, "plan": want_update,
+                 "warm_vs_cold_mean_err": e_update, "tol": tol_update,
+                 "buckets_after": {c: len(i) for c, i in after_assign.items()}},
+         seconds={"cold_predict_with_uncertainty": t_cold, "warm_predict_with_uncertainty": t_warm,
+                  "loop_of_single_gps_cold": t_loop, "loop_of_single_gps_warm": t_loop_warm, "update": t_update,
+                  "warm_predict_after_update": t_after, "cold_rebuild_predict": t_rebuild},
+         problems_per_s={"fleet_cold": RLR_B / t_cold, "loop_cold": RLR_B / t_loop, "fleet_warm": RLR_B / t_warm,
+                         "loop_warm": RLR_B / t_loop_warm},
+         peak_memory_gib=peak / 2**30)
+    check(c_cold == want and c_warm == want_warm, f"fleet.ragged.lowrank: launches {c_cold} / {c_warm} differ from "
+          f"the buckets' plans {want} / {want_warm}")
+    check(len(moved) >= 2 and warm, f"fleet.ragged.lowrank update: migrated {moved}, warm {warm}")
+    check(c_update == want_update, f"fleet.ragged.lowrank update: launches {c_update}, want chol(B) alone {want_update}")
+    check(e_update <= tol_update, f"fleet.ragged.lowrank update: warm against cold {e_update} > {tol_update}")
+    del pinned, after, cold
+    torch.cuda.empty_cache()
+    # the widest launch of each kernel of a cold call ((B,) mu_valid / n_valid frontiers) and of the update (counts)
+    with widest_launches() as kept:
+        GPFleet(xs, ys, **kw).predict_with_uncertainty(shared)
+    plain = {"cold": held_to_plain("fleet.ragged.lowrank", kept, dev)}
+    fleet = GPFleet(xs, ys, inducing=u_pin, **kw)
+    fleet.predict(shared)
+    with widest_launches() as kept:
+        fleet.update(xa, ya)
+    del fleet
+    plain["update"] = held_to_plain("fleet.ragged.lowrank.update", kept, dev)
+    emit("fleet.ragged.lowrank.kernels", widest_launches=plain)
+    check({"cov_tiles", "lrgemm", "potrf", "trsm", "trail"} <= set(plain["cold"]),
+          f"fleet.ragged.lowrank: a kernel of the path was not held to its plain version: {sorted(plain['cold'])}")
+    torch.cuda.empty_cache()
+    return launches, {k: max(r[k]["max_abs_err"] for r in plain.values() if k in r)
+                      for k in set(plain["cold"]) | set(plain["update"])}
+
+
+def serve_traffic(b, seed, drift: bool):
+    """6 waves of seeded requests: (predicts [(problem, x, uncertainty)], observes [(problem, x, y)]) a wave.
+
+    With ``drift`` the observed targets climb by 0.5 a wave: the data drifts under the hyperparameters.
+    """
+    rng = np.random.default_rng(seed)
+    waves = []
+    for w in range(SERVE_WAVES):
+        nts = rng.integers(1, SERVE_NT_MAX + 1, SERVE_PREDICTS)
+        bs = rng.integers(1, SERVE_B_MAX + 1, SERVE_OBSERVES)
+        xt, _, _, _ = make_data(int(nts.sum()), 1, N_FEATURES, seed + 10 * w + 1)
+        xo, yo, _, _ = make_data(int(bs.sum()), 1, N_FEATURES, seed + 10 * w + 2)
+        cut_t, cut_o = np.cumsum([0, *nts]), np.cumsum([0, *bs])
+        predicts = [(int(p), xt[a:c], bool(q)) for p, a, c, q in
+                    zip(rng.integers(0, b, SERVE_PREDICTS), cut_t[:-1], cut_t[1:], rng.random(SERVE_PREDICTS) < 0.25)]
+        observes = [(int(p), xo[a:c], yo[a:c] + (0.5 * w if drift else 0.0)) for p, a, c in
+                    zip(rng.integers(0, b, SERVE_OBSERVES), cut_o[:-1], cut_o[1:])]
+        waves.append((predicts, observes))
+    return waves
+
+
+def serve_run(name, fleet, waves, dev, drift_steps=None):
+    """Drive a ContinuousBatcher over ``fleet`` through ``waves``; hold every result bitwise to a synchronous
+    ``predict_each`` on the wave's snapshot.  Per wave: host seconds of ``step``, device ms of its launches
+    (CUDA events around the call), and the host's wait for them after ``step`` returned."""
+    import repro_torch.obs as obs
+    from repro_torch.serve import ContinuousBatcher
+
+    d = N_FEATURES
+    expect = {}
+
+    def synchronous(wave):
+        """What the batcher dispatched this wave, by a synchronous predict_each on the same snapshot."""
+        predicts, _ = waves[wave]
+        tests = [[] for _ in range(fleet.batch_size)]
+        for p, x, _ in predicts:
+            tests[p].append(x)
+        tests = [np.concatenate(t) if t else np.zeros((0, d), np.float32) for t in tests]
+        want_unc = any(q for _, _, q in predicts)
+        out = fleet.predict_each(tests, full_cov=want_unc)
+        expect[wave] = [(o[0], torch.diagonal(o[1])) if want_unc else (o, None) for o in out]
+
+    state = {"wave": 0}
+
+    def reoptimize():
+        synchronous(state["wave"])  # the wave's snapshot, before the new hyperparameters
+        fleet.optimize(steps=drift_steps)
+
+    monitor = obs.DriftMonitor(alpha=0.5, threshold=0.02, warmup=1, cooldown=10 ** 6) if drift_steps else None
+    srv = ContinuousBatcher(fleet, drift_monitor=monitor, reoptimize=reoptimize if drift_steps else None)
+    per_wave, rids = [], []
+    for w, (predicts, observes) in enumerate(waves):
+        state["wave"] = w
+        for p, x, y in observes:
+            srv.submit_observe(p, x, y)
+        rids.append([(srv.submit_predict(p, x, uncertainty=q), p, q) for p, x, q in predicts])
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        ev0.record()
+        st = srv.step()
+        ev1.record()
+        t_ret = time.perf_counter()
+        ev1.synchronize()
+        wait = time.perf_counter() - t_ret
+        srv.flush()
+        if w not in expect:
+            synchronous(w)
+        torch.cuda.synchronize()
+        per_wave.append(dict(wave=w, host_s=st.duration_s, device_ms=ev0.elapsed_time(ev1), wait_after_return_s=wait,
+                             migrations=st.migrations, points_absorbed=st.points_absorbed,
+                             reoptimized=st.reoptimized, buckets=list(st.buckets)))
+    # every request's rows against the synchronous call's, bitwise
+    mismatched = 0
+    for w, wave_rids in enumerate(rids):
+        off = {}
+        for rid, p, q in wave_rids:
+            got = srv.result(rid)
+            k = (got[0] if q else got).shape[0]
+            o = off.get(p, 0)
+            mean, var = expect[w][p]
+            want_mean = mean[o:o + k].cpu()
+            ok = torch.equal(got[0] if q else got, want_mean)
+            if q:
+                ok = ok and torch.equal(got[1], var[o:o + k].cpu())
+            mismatched += not ok
+            off[p] = o + k
+    s = srv.summary()
+    service_s = sum(r["host_s"] + r["wait_after_return_s"] for r in per_wave)
+    return srv, dict(fleet=name, waves=per_wave, waves_per_s=len(waves) / service_s,
+                     requests_per_s=s["requests"] / service_s, latency_ms={"p50": s["p50_ms"], "p99": s["p99_ms"],
+                                                                           "max": s["max_ms"]},
+                     reoptimizations=s["reoptimizations"], requests=s["requests"], mismatched_results=mismatched)
+
+
+def phase_serve(x_train, y_train, x_test, dev):
+    """serve.fleet: a ContinuousBatcher over fleet.ragged's exact GPFleet, then over fleet.ragged.lowrank's
+    fleet (pinned inducing set) with one drift-triggered re-optimize; then the cost of telemetry at gp_16k."""
+    import repro_torch.obs as obs
+    from repro_torch.core import GaussianProcess, GPFleet
+
+    out = {}
+    _, xs, ys, shared, _ = ragged_data()
+    fleet = GPFleet(xs, ys, tile_size=TILE, device=dev)
+    fleet.predict(shared)  # a serving fleet is warm
+    srv, out["exact"] = serve_run("exact", fleet, serve_traffic(RAGGED_B, SEED + 400, drift=False), dev)
+    cold = GPFleet(fleet._xs, fleet._ys, tile_size=TILE, device=dev).predict(shared)
+    out["exact"]["after_vs_cold_mean_err"] = max_err(fleet.predict(shared), cold)
+    check(out["exact"]["after_vs_cold_mean_err"] <= FLEET_VS_SINGLE_TOL, f"serve.fleet exact after the waves: {out['exact']}")
+    del srv, fleet, cold
+    torch.cuda.empty_cache()
+    _, xs, ys, shared, u_pin = ragged_lowrank_data()
+    kw = dict(tile_size=TILE, method="lowrank", m_inducing=RLR_M, inducing=u_pin, device=dev)
+    fleet = GPFleet(xs, ys, **kw)
+    fleet.predict(shared)
+    srv, out["lowrank"] = serve_run("lowrank", fleet, serve_traffic(RLR_B, SEED + 500, drift=True), dev, drift_steps=2)
+    after = fleet.predict(shared)
+    cold = GPFleet(fleet._xs, fleet._ys, params=fleet.params, **kw).predict(shared)
+    out["lowrank"]["after_vs_cold_mean_err"] = max_err(after, cold)
+    out["lowrank"]["after_vs_cold_tol"] = RLR_UPDATE_TOL * max(1.0, float(cold.abs().max()))
+    del srv, fleet, cold, after
+    torch.cuda.empty_cache()
+    # telemetry: gp_16k's cold predict with obs off, on, off; bitwise equal outputs
+    times, outs = {"off": [], "on": []}, {}
+    GaussianProcess(x_train, y_train, tile_size=TILE, device=dev).predict(x_test)  # warm the allocator
+    for mode in ("off", "on", "on", "off"):
+        (obs.enable if mode == "on" else obs.disable)()
+        obs.reset()
+        res, t = wall_s(lambda: GaussianProcess(x_train, y_train, tile_size=TILE, device=dev).predict(x_test))
+        times[mode].append(t)
+        outs.setdefault(mode, res)
+        if mode == "on":
+            recorded = len(obs.snapshot()["events"])
+    obs.disable()
+    obs.reset()
+    telemetry = {"seconds": times, "overhead_ms": (np.mean(times["on"]) - np.mean(times["off"])) * 1e3,
+                 "bitwise_equal": bool(torch.equal(outs["on"], outs["off"])), "events_recorded_when_on": recorded}
+    emit("serve.fleet", config=f"ContinuousBatcher: {SERVE_WAVES} waves of {SERVE_PREDICTS} predictions (n̂ uniform in "
+         f"[1, {SERVE_NT_MAX}], a quarter with variances) and {SERVE_OBSERVES} observations (b uniform in "
+         f"[1, {SERVE_B_MAX}]), over fleet.ragged's exact fleet and fleet.ragged.lowrank's (pinned inducing set, "
+         "drifting targets, one re-optimize of 2 steps)", exact=out["exact"], lowrank=out["lowrank"], telemetry=telemetry,
+         note="service time of a wave = host seconds of step + the wait for its launches after step returned")
+    for name, r in out.items():
+        check(r["mismatched_results"] == 0, f"serve.fleet {name}: {r['mismatched_results']} results differ from a "
+              "synchronous predict_each on the same snapshot")
+    check(out["lowrank"]["reoptimizations"] == 1.0, f"serve.fleet lowrank: {out['lowrank']['reoptimizations']} re-optimizes")
+    check(out["lowrank"]["after_vs_cold_mean_err"] <= out["lowrank"]["after_vs_cold_tol"],
+          f"serve.fleet lowrank after the waves: {out['lowrank']}")
+    check(telemetry["bitwise_equal"] and telemetry["events_recorded_when_on"] > 0,
+          f"serve.fleet telemetry: {telemetry}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA card")
@@ -2957,10 +3264,13 @@ def main() -> None:
         launches_fleet = {k: launches_fleet[k] + launches_extra[k] for k in launches_fleet}
         errs_fleet.append({k: r["max_abs_err"] for k, r in plain.items()})
     launches_ragged, errs_ragged = phase_fleet_ragged(dev)
+    launches_ragged_lowrank, errs_ragged_lowrank = phase_fleet_ragged_lowrank(dev)
     # each kernel's largest error at the fleet paths' own widest launches (fleet.*.kernels)
     errs_by_path = {"fleet": {k: max(e[k] for e in errs_fleet if k in e) for k in FLEET_CHECKED
                               if any(k in e for e in errs_fleet)},
-                    "fleet_ragged": errs_ragged}
+                    "fleet_ragged": errs_ragged, "fleet_ragged_lowrank": errs_ragged_lowrank}
+    # the serving loop over both fleets, and the cost of telemetry at gp_16k
+    phase_serve(x_train, y_train, x_test, dev)
     phase_fleet_timing(xb, yb, xtb, dev)
     del xb, yb, xtb
 
@@ -2978,7 +3288,8 @@ def main() -> None:
     path_of["flash_attention"] = "lm"
     by_path = {"main": launches, "update": launches_update, "lowrank": launches_lowrank, "lm": launches_lm,
                "zoo": launches_zoo, "train": launches_train, "train_lowrank": launches_train_lowrank,
-               "fleet": launches_fleet, "fleet_ragged": launches_ragged}
+               "fleet": launches_fleet, "fleet_ragged": launches_ragged,
+               "fleet_ragged_lowrank": launches_ragged_lowrank}
     kernels = [
         {"name": name, "launches": by_path[path_of[name]][name], **row,
          "launches_by_path": {path: counts[name] for path, counts in by_path.items()},

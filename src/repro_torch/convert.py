@@ -120,6 +120,7 @@ def lowrank_state_from_numpy(
     params: km.SEKernelParams,
     jitter: float,
     mu_valid=None,
+    n_valid=None,
     *,
     kernel=None,
     device="cuda",
@@ -132,7 +133,11 @@ def lowrank_state_from_numpy(
     distinct inducing points; ``params`` comes from :func:`params_from_numpy`
     or :func:`kernel_params_from_numpy`.  A ``GPBatch`` state has the
     leading B axis on every array (``yty`` (B,)) and may have (B,) leaves.
-    The field the port adds, ``c_w = L_uu^-1 c``, is solved from them.
+    A ragged one (a ``GPFleet`` bucket) also has ``n_valid`` (B,) and
+    per-problem ``mu_valid`` (B,), which become (B,) int32 tensors on the
+    device.  The field the port adds, ``c_w = L_uu^-1 c``, is solved from
+    them (K_un's columns past a problem's ``n_valid`` are zero, so this is
+    W y of its valid rows).
     """
     dev = resolve_device(device)
 
@@ -150,16 +155,24 @@ def lowrank_state_from_numpy(
             f"{[tuple(a.shape) for a in stores]}, c_chunks {tuple(c.shape)}, gamma "
             f"{tuple(g.shape)} for tile size {m}"
         )
+    def counts(a, what):
+        v = torch.from_numpy(np.asarray(a, np.int32).reshape(-1).copy()).to(dev)
+        if not lead or v.shape != lead:
+            raise ValueError(f"{what} {tuple(v.shape)} needs a stacked state of {lead} problems")
+        return v
+
+    nv = None if n_valid is None else counts(n_valid, "n_valid")
     mv = None if mu_valid is None else np.asarray(mu_valid).reshape(-1)
-    if mv is not None and len(set(mv.tolist())) != 1:
-        raise ValueError(f"per-problem inducing counts {mv.tolist()} belong to a ragged state (not ported)")
+    if mv is not None and (nv is not None or len(set(mv.tolist())) != 1):
+        mv = counts(mv, "mu_valid")  # per problem, as a ragged state keeps it
+    elif mv is not None:
+        mv = int(mv[0])
     return LowRankState(
         u_chunks=uc, luu_packed=stores[0], b_packed=stores[1], lb_packed=stores[2],
         c_chunks=c, gamma=g, c_w=executor.run_solve(stores[0], c, lower=True, device=dev),
         yty=t(yty).reshape(lead), n=int(n), m=int(m),
         m_inducing=int(m_inducing), params=_params_to(params, dev), jitter=float(jitter),
-        mu_valid=None if mv is None else int(mv[0]),
-        kernel=km.resolve_kernel(kernel),
+        mu_valid=mv, n_valid=nv, kernel=km.resolve_kernel(kernel),
     )
 
 

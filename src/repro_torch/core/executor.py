@@ -51,6 +51,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+import repro_torch.obs as obs
 from repro_torch.core import kernels_math as km
 from repro_torch.core import scheduler as sch
 from repro_torch.core import tiling
@@ -122,10 +123,18 @@ def _arr(xs: Sequence[int]) -> np.ndarray:
     return np.asarray(xs, np.int64)
 
 
+_plan_stats_cache: Dict[int, dict] = {}
+
+
 def plan_wave_stats(plan: Plan) -> dict:
     """Static per-Plan wave digest: waves, launches, tasks by op family,
     bulk-op ride-alongs, and mean stream-pool occupancy (pool tasks per
-    pool-bearing wave over ``n_streams``; 1.0 for an unbounded pool)."""
+    pool-bearing wave over ``n_streams``; 1.0 for an unbounded pool).
+    Memoized per Plan (plans live in the lru caches), so recording a
+    dispatch costs a dict hit."""
+    st = _plan_stats_cache.get(id(plan))
+    if st is not None and st["_plan"] is plan:
+        return st["stats"]
     by_op: dict = {}
     bulk_tasks = pool_tasks = pool_waves = 0
     for level in plan.levels:
@@ -143,7 +152,7 @@ def plan_wave_stats(plan: Plan) -> dict:
         occupancy = pool_tasks / (pool_waves * plan.n_streams)
     else:
         occupancy = 1.0 if pool_tasks else 0.0
-    return {
+    stats = {
         "plan": plan.kind,
         "waves": len(plan.levels),
         "launches": plan.n_batches,
@@ -154,6 +163,23 @@ def plan_wave_stats(plan: Plan) -> dict:
         "occupancy": occupancy,
         "by_op": by_op,
     }
+    _plan_stats_cache[id(plan)] = {"_plan": plan, "stats": stats}
+    return stats
+
+
+def record_dispatch(kind: str, plan: Plan, *, device: torch.device, batched: bool) -> None:
+    """Count and log one dispatch of ``plan`` (callers guard with ``obs.enabled()``).
+
+    ``executor.dispatch.<kind>``, ``executor.launches`` and
+    ``executor.tasks.<op>`` counters and one ``executor.wave`` event, all
+    from the plan's static digest: nothing reads a device value.
+    """
+    st = plan_wave_stats(plan)
+    obs.inc(f"executor.dispatch.{kind}")
+    obs.inc("executor.launches", st["launches"])
+    for op, cnt in st["by_op"].items():
+        obs.inc(f"executor.tasks.{op}", cnt)
+    obs.event("executor.wave", dispatch=kind, backend=device.type, batched=bool(batched), **st)
 
 
 def _cholesky_batch(op: str, tasks: Sequence[sch.Task], m: int) -> Batch:
@@ -620,6 +646,8 @@ def run_program(
     m_tiles, m = xc.shape[-3], xc.shape[-2]
     q_tiles = xtc.shape[-3]
     plan = program_plan(m_tiles, q_tiles, uncertainty, n_streams)
+    if obs.enabled():
+        record_dispatch("run_program", plan, device=dev, batched=batched)
     dtype = xc.dtype
     lead = (xc.shape[0],) if batched else ()
     take, put, add = _env_ops(dev, batched)
@@ -934,6 +962,8 @@ def run_append(
             f"feature chunks ({m_store} tiles) inconsistent with packed store {tuple(lpacked.shape)}"
         )
     plan = update_append_plan(r_tiles, m_store, n_streams)
+    if obs.enabled():
+        record_dispatch("run_append", plan, device=dev, batched=batched)
     lead = (xc.shape[0],) if batched else ()
     take, put, _ = _env_ops(dev, batched)
     n_valid_new = _frontier(n_valid_new, dev)
@@ -1064,6 +1094,8 @@ def run_rank_update(
         )
     take, put, _ = _env_ops(dev, batched)
     plan = update_rank_plan(m_tiles, n_streams)
+    if obs.enabled():
+        record_dispatch("run_rank_update", plan, device=dev, batched=batched)
     uprep, uprow, ucarry = (_tile_dispatch(f, batched, batch_dispatch) for f in get_update_ops(sign))
     lead = lpacked.shape[:-3]
     xaux = torch.zeros(lead + (m_tiles,) + lpacked.shape[-2:], dtype=lpacked.dtype, device=dev)
@@ -1094,3 +1126,11 @@ def run_rank_update(
             else:
                 raise ValueError(bt.op)
     return lpacked, w
+
+
+obs.register_cache("executor.cholesky_plan", cholesky_plan)
+obs.register_cache("executor.solve_plan", solve_plan)
+obs.register_cache("executor.program_plan", program_plan)
+obs.register_cache("executor.lowrank_plan", lowrank_plan)
+obs.register_cache("executor.update_append_plan", update_append_plan)
+obs.register_cache("executor.update_rank_plan", update_rank_plan)

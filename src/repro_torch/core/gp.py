@@ -40,7 +40,14 @@ same key.
 :class:`GPBatch` runs B independent GPs of one size as ONE problem-batched
 program (every launch B times wider, the same plans as one GP), and
 :class:`GPFleet` B GPs of different sizes, bucketed by tile geometry with
-per-problem validity frontiers; both keep the contract above.
+per-problem validity frontiers, on either tier; both keep the contract above.
+
+Telemetry (:mod:`repro_torch.obs`, off by default): the cache counters
+``cache.posterior.*``, ``cache.lowrank.*`` and ``cache.bucket.*`` (``cold``
+on a build, ``warm`` on a hit), ``fleet.optimize``, and the health events
+``refactorize_fallback`` (a failed warm update that leaves the cache cold,
+with its ``site``) and ``lowrank_jitter_retry``.  Each records host values
+only.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+import repro_torch.obs as obs
 from repro_torch.core import kernels_math as km
 from repro_torch.core import lowrank
 from repro_torch.core import mll
@@ -75,7 +83,8 @@ def _lowrank_state_with_retry(build, base_jitter: float) -> lowrank.LowRankState
     near-duplicate rows and the jitter is too small: the factors come back
     non-finite.  The build is retried with the jitter raised tenfold, at
     most twice.  The probe reads only the two packed inner factors on the
-    host, once per cold build, never on the per-predict path.
+    host, once per cold build, never on the per-predict path; each retry is
+    a ``health.lowrank_jitter_retry`` event.
     """
     jit = float(base_jitter)
     state = build(jit)
@@ -83,6 +92,7 @@ def _lowrank_state_with_retry(build, base_jitter: float) -> lowrank.LowRankState
         if bool(torch.isfinite(state.luu_packed).all() & torch.isfinite(state.lb_packed).all()):
             return state
         jit = max(jit, lowrank.DEFAULT_JITTER) * 10.0
+        obs.health_event("lowrank_jitter_retry", jitter=jit)
         state = build(jit)
     return state
 
@@ -221,6 +231,7 @@ class GaussianProcess:
         """The packed Cholesky factor + alpha, cached across ``predict`` calls."""
         key = self._cache_key()
         if self._posterior is None or self._posterior_key != key:
+            obs.inc("cache.posterior.cold")
             self._posterior = pred.posterior_state(
                 self.x_train,
                 self.y_train,
@@ -233,6 +244,8 @@ class GaussianProcess:
                 device=self.device,
             )
             self._posterior_key = key
+        else:
+            obs.inc("cache.posterior.warm")
         return self._posterior
 
     def _lowrank_warm(self) -> bool:
@@ -245,6 +258,7 @@ class GaussianProcess:
         ``predict`` calls under the same key as :meth:`posterior`."""
         key = self._cache_key()
         if self._lowrank is None or self._lowrank_key != key:
+            obs.inc("cache.lowrank.cold")
             self._lowrank = _lowrank_state_with_retry(
                 lambda jit: lowrank.lowrank_state(
                     self.x_train,
@@ -264,6 +278,8 @@ class GaussianProcess:
                 lowrank.DEFAULT_JITTER if self.jitter is None else float(self.jitter),
             )
             self._lowrank_key = key
+        else:
+            obs.inc("cache.lowrank.warm")
         return self._lowrank
 
     def invalidate_cache(self) -> None:
@@ -319,6 +335,7 @@ class GaussianProcess:
                 )
                 self._posterior_key = self._cache_key()
             except upd.CholeskyUpdateError:
+                obs.health_event("refactorize_fallback", site="gp.update")
                 self.invalidate_cache()  # the next predict refactorizes
         else:
             self.invalidate_cache()
@@ -362,6 +379,7 @@ class GaussianProcess:
                 self._posterior = state.shrink(k, n_streams=self.n_streams)
                 self._posterior_key = self._cache_key()
             except upd.CholeskyUpdateError:
+                obs.health_event("refactorize_fallback", site="gp.forget")
                 self.invalidate_cache()
         else:
             self.invalidate_cache()
@@ -381,6 +399,7 @@ class GaussianProcess:
             )
             self._lowrank_key = self._cache_key()
         except upd.CholeskyUpdateError:
+            obs.health_event("refactorize_fallback", site="gp.update.lowrank" if sign > 0 else "gp.forget.lowrank")
             self.invalidate_cache()
 
     # -- prediction ---------------------------------------------------------
@@ -391,8 +410,10 @@ class GaussianProcess:
         cold staged -> posterior() then the tail."""
         key = self._cache_key()
         if self._posterior is not None and self._posterior_key == key:
+            obs.inc("cache.posterior.warm")
             state = self._posterior
         elif self.fused:
+            obs.inc("cache.posterior.cold")
             result, state = pred.predict_fused(
                 self.x_train,
                 self.y_train,
@@ -410,7 +431,7 @@ class GaussianProcess:
             self._posterior, self._posterior_key = state, key
             return result
         else:
-            state = self.posterior()
+            state = self.posterior()  # counts its own cold build
         return pred.predict_from_state(
             state, x_test, full_cov=full_cov, n_streams=self.n_streams
         )
@@ -669,6 +690,7 @@ class GPBatch:
         """
         key = self._cache_key()
         if self._posterior is None or self._posterior_key != key:
+            obs.inc("cache.posterior.cold")
             env, yc = pred.nlml_program_env(
                 self.x_train, self.y_train, self.params, self.tile_size, n_streams=self.n_streams,
                 update_dtype=self.update_dtype, dtype=self.dtype, batch_dispatch=self.batch_dispatch,
@@ -681,6 +703,8 @@ class GPBatch:
                 y_chunks=yc, kernel=self.kernel,
             )
             self._posterior_key = key
+        else:
+            obs.inc("cache.posterior.warm")
         return self._posterior
 
     @_ieee_on_device
@@ -688,6 +712,7 @@ class GPBatch:
         """The stacked Nystrom states (leading B axis), cached across calls."""
         key = self._cache_key()
         if self._lowrank is None or self._lowrank_key != key:
+            obs.inc("cache.lowrank.cold")
             self._lowrank = _lowrank_state_with_retry(
                 lambda jit: lowrank.lowrank_state(
                     self.x_train, self.y_train, self.params, self.m_inducing, self.tile_size,
@@ -698,6 +723,8 @@ class GPBatch:
                 lowrank.DEFAULT_JITTER if self.jitter is None else float(self.jitter),
             )
             self._lowrank_key = key
+        else:
+            obs.inc("cache.lowrank.warm")
         return self._lowrank
 
     # -- streaming updates --------------------------------------------------
@@ -732,12 +759,12 @@ class GPBatch:
         self.x_train = torch.cat([self.x_train, x_new], dim=1)
         self.y_train = torch.cat([self.y_train, y_new], dim=1)
         if self.method == "lowrank":
-            self._move(state, lambda st: lowrank.absorb(
+            self._move(state, "batch.update.lowrank", lambda st: lowrank.absorb(
                 st, x_new, y_new, sign=1, n_streams=self.n_streams, update_dtype=self.update_dtype,
                 batch_dispatch=self.batch_dispatch,
             ))
         else:
-            self._move(state, lambda st: st.extend(
+            self._move(state, "batch.update", lambda st: st.extend(
                 x_new, y_new, n_streams=self.n_streams, update_dtype=self.update_dtype,
                 batch_dispatch=self.batch_dispatch,
             ))
@@ -760,12 +787,13 @@ class GPBatch:
         x_old, y_old = self.x_train[:, :k], self.y_train[:, :k]
         self.x_train, self.y_train = self.x_train[:, k:], self.y_train[:, k:]
         if self.method == "lowrank":
-            self._move(state, lambda st: lowrank.absorb(
+            self._move(state, "batch.forget.lowrank", lambda st: lowrank.absorb(
                 st, x_old, y_old, sign=-1, n_streams=self.n_streams, update_dtype=self.update_dtype,
                 batch_dispatch=self.batch_dispatch,
             ))
         elif k % self.tile_size == 0:
-            self._move(state, lambda st: st.shrink(k, n_streams=self.n_streams, batch_dispatch=self.batch_dispatch))
+            self._move(state, "batch.forget",
+                       lambda st: st.shrink(k, n_streams=self.n_streams, batch_dispatch=self.batch_dispatch))
         else:
             self.invalidate_cache()
         return self
@@ -776,15 +804,17 @@ class GPBatch:
             return self._lowrank if self._lowrank_warm() else None
         return self._posterior if self._cache_warm() else None
 
-    def _move(self, state, step) -> None:
+    def _move(self, state, site: str, step) -> None:
         """Carry a warm ``state`` over a change of the data by ``step`` and cache it under the new
-        key; no state, or a step that fails numerically, leaves the cache cold."""
+        key; no state, or a step that fails numerically (a ``refactorize_fallback`` at ``site``),
+        leaves the cache cold."""
         self.invalidate_cache()
         if state is None:
             return
         try:
             state = step(state)
         except upd.CholeskyUpdateError:
+            obs.health_event("refactorize_fallback", site=site)
             return
         if self.method == "lowrank":
             self._lowrank, self._lowrank_key = state, self._cache_key()
@@ -803,10 +833,12 @@ class GPBatch:
             )
         key = self._cache_key()
         if self._posterior is not None and self._posterior_key == key:
+            obs.inc("cache.posterior.warm")
             return pred.predict_from_state_batched(
                 self._posterior, x_test, full_cov=full_cov, n_streams=self.n_streams,
                 batch_dispatch=self.batch_dispatch,
             )
+        obs.inc("cache.posterior.cold")
         result, state = pred.predict_fused_batched(
             self.x_train, self.y_train, x_test, self.params, self.tile_size, full_cov=full_cov,
             n_streams=self.n_streams, update_dtype=self.update_dtype, dtype=self.dtype,
@@ -887,14 +919,27 @@ class GPBatch:
 class _Bucket:
     """One bucket of a :class:`GPFleet`: problems that share a tile geometry."""
 
-    idx: Tuple[int, ...]                     # fleet indices, bucket order
-    state: Optional[pred.PosteriorState]     # stacked ragged state (warm) or None
-    key: object                              # fleet cache key at build time
+    idx: Tuple[int, ...]  # fleet indices, bucket order
+    state: object         # stacked ragged state (a PosteriorState or a LowRankState) or None
+    key: object           # fleet cache key at build time
+
+
+def _index(idx, device) -> torch.Tensor:
+    """Fleet indices as an int64 tensor on ``device``, by a pinned copy (no stream sync)."""
+    return km._to_device(torch.tensor(list(idx), dtype=torch.int64), device)
+
+
+def _padded_block(rows, idx) -> torch.Tensor:
+    """The bucket's blocks ``rows[i]`` (i in ``idx``), zero-padded along their first axis to the longest, stacked."""
+    b_max = max(rows[i].shape[0] for i in idx)
+    return torch.stack([
+        torch.nn.functional.pad(rows[i], (0, 0) * (rows[i].ndim - 1) + (0, b_max - rows[i].shape[0])) for i in idx
+    ])
 
 
 @dataclasses.dataclass
 class GPFleet:
-    """B independent GPs of different sizes, bucketed by tile geometry (the exact tier).
+    """B independent GPs of different sizes, bucketed by tile geometry, on either tier.
 
     Problems are grouped into buckets whose tile-count capacities come from
     ``tiling.bucket_boundaries`` (powers of two by default), zero-padded to
@@ -909,9 +954,18 @@ class GPFleet:
     gather) before the warm append, so migration never refactorizes.
     ``optimize`` fits each problem at its own size.
 
+    ``method="lowrank"`` (with ``m_inducing``; ``strategy``, ``inducing``,
+    a shared (m_inducing, D) set or a per-problem (B, m_inducing, D) one,
+    and ``jitter`` as :class:`GaussianProcess` takes them) keeps a ragged
+    Nystrom state per bucket (:func:`repro_torch.core.lowrank.lowrank_state`
+    with ``n_valid``; each problem's ``mu_valid`` is its own).  That state is
+    mu-sized, so a problem that changes bucket moves by a row gather of the
+    warm state, then one ragged :func:`~repro_torch.core.lowrank.absorb` per
+    destination bucket; K_uu is never factored again.  ``nlml`` is the
+    whitened form of ``GPBatch``'s low-rank NLML.
+
     The contract of :class:`GPBatch`; leaves shared or (B,) (gathered per
-    bucket).  ``method="lowrank"`` (with its ``m_inducing``, ``strategy``,
-    ``inducing`` and ``jitter``) and ``mesh=`` are not ported.
+    bucket).  ``mesh=`` is not ported.
     """
 
     x_train: Sequence            # length-B list of (n_i, D) or (n_i,) arrays
@@ -927,16 +981,17 @@ class GPFleet:
     kernel: Optional[object] = None
     method: str = "exact"
     device: object = "cuda"
+    m_inducing: Optional[int] = None
+    strategy: str = "subset"
+    inducing: Optional[object] = None  # (m_inducing, D) shared or (B, m_inducing, D)
+    jitter: Optional[float] = None
 
     def __post_init__(self):
         _no_mesh(self.mesh, "GPFleet")
-        if self.method == "lowrank":
-            raise NotImplementedError(
-                "GPFleet(method='lowrank'): the low-rank tier of ragged fleets is not ported "
-                "(ROADMAP.md queue 1, step 5b)"
-            )
-        if self.method != "exact":
+        if self.method not in ("exact", "lowrank"):
             raise ValueError(f"method must be 'exact' or 'lowrank', got {self.method!r}")
+        if self.method == "lowrank" and self.m_inducing is None:
+            raise ValueError("method='lowrank' requires m_inducing")
         if self.batch_dispatch not in ("flat", "vmap"):
             raise ValueError(f"batch_dispatch must be 'flat' or 'vmap', got {self.batch_dispatch!r}")
         self.device = resolve_device(self.device)
@@ -969,6 +1024,15 @@ class GPFleet:
         self._ys: List[torch.Tensor] = ys
         _validate_fleet_params(self.params, self.kernel, len(xs), "GPFleet")
         self.params = _params_on(self.params, self.device)
+        if self.inducing is not None:
+            ind = torch.as_tensor(self.inducing, device=self.device).to(self.dtype, copy=True)
+            if ind.ndim not in (2, 3) or ind.shape[-2:] != (self.m_inducing, d) or (
+                    ind.ndim == 3 and ind.shape[0] != len(xs)):
+                raise ValueError(
+                    f"GPFleet inducing must be ({self.m_inducing}, {d}) shared or "
+                    f"({len(xs)}, {self.m_inducing}, {d}) per problem; got {tuple(ind.shape)}"
+                )
+            self.inducing = ind
         self._buckets: Dict[int, _Bucket] = {}
         self._version = 0
         self._params_bytes = _FleetKey()
@@ -992,6 +1056,8 @@ class GPFleet:
         return (
             self._version, self.kernel, self._params_bytes(self.params), self.tile_size,
             self.n_streams, str(self.update_dtype), str(self.dtype), self.batch_dispatch, bounds,
+            self.method, self.m_inducing, self.strategy, None if self.jitter is None else float(self.jitter),
+            None if self.inducing is None else (id(self.inducing), self.inducing._version),
         )
 
     def invalidate_cache(self) -> None:
@@ -999,7 +1065,7 @@ class GPFleet:
 
     def _bucket_params(self, idx):
         """Per-problem leaves gathered at the bucket's rows; shared leaves pass through."""
-        return km.gather_params(self.params, torch.as_tensor(idx, device=self.device), self.kernel)
+        return km.gather_params(self.params, _index(idx, self.device), self.kernel)
 
     def _stack(self, idx, cap_tiles):
         """The bucket's problems zero-padded to the capacity and stacked, and their (B,) sizes."""
@@ -1010,14 +1076,34 @@ class GPFleet:
         nv = km._to_device(torch.tensor([self._ys[i].shape[0] for i in idx], dtype=torch.int32), self.device)
         return xs, ys, nv
 
-    def _bucket_state(self, cap_tiles, idx) -> pred.PosteriorState:
+    def _bucket_inducing(self, idx):
+        """The explicit inducing set of the bucket's problems (shared stays (m, D)), or None."""
+        if self.inducing is None or self.inducing.ndim == 2:
+            return self.inducing
+        return self.inducing.index_select(0, _index(idx, self.device))
+
+    def _bucket_state(self, cap_tiles, idx):
         """The bucket's warm stacked state, built cold on a miss."""
         key = self._cache_key()
         rec = self._buckets.get(cap_tiles)
         if rec is not None and rec.key == key and rec.idx == tuple(idx) and rec.state is not None:
+            obs.inc("cache.bucket.warm")
             return rec.state
+        obs.inc("cache.bucket.cold")
         xs, ys, nv = self._stack(idx, cap_tiles)
         bp = self._bucket_params(idx)
+        if self.method == "lowrank":
+            ind = self._bucket_inducing(idx)
+            state = _lowrank_state_with_retry(
+                lambda jit: lowrank.lowrank_state(
+                    xs, ys, bp, self.m_inducing, self.tile_size, strategy=self.strategy, inducing=ind,
+                    jitter=jit, n_streams=self.n_streams, update_dtype=self.update_dtype, dtype=self.dtype,
+                    batch_dispatch=self.batch_dispatch, n_valid=nv, kernel=self.kernel, device=self.device,
+                ),
+                lowrank.DEFAULT_JITTER if self.jitter is None else float(self.jitter),
+            )
+            self._buckets[cap_tiles] = _Bucket(tuple(idx), state, key)
+            return state
         env, yc = pred.nlml_program_env(
             xs, ys, bp, self.tile_size, n_streams=self.n_streams, update_dtype=self.update_dtype,
             dtype=self.dtype, batch_dispatch=self.batch_dispatch, n_valid=nv, kernel=self.kernel,
@@ -1031,6 +1117,18 @@ class GPFleet:
         )
         self._buckets[cap_tiles] = _Bucket(tuple(idx), state, key)
         return state
+
+    def _predict_bucket(self, state, xt, full_cov: bool, nt_valid=None):
+        """One bucket's batched warm head on its stacked test points, on the fleet's tier."""
+        if self.method == "lowrank":
+            return lowrank.predict_from_lowrank_state(
+                state, xt, full_cov=full_cov, n_streams=self.n_streams, dtype=self.dtype,
+                nt_valid=nt_valid, batch_dispatch=self.batch_dispatch,
+            )
+        return pred.predict_from_state_batched(
+            state, xt, full_cov=full_cov, n_streams=self.n_streams, nt_valid=nt_valid,
+            batch_dispatch=self.batch_dispatch,
+        )
 
     # -- prediction ---------------------------------------------------------
 
@@ -1054,11 +1152,8 @@ class GPFleet:
         sigma = torch.zeros((b, nh, nh), dtype=self.dtype, device=self.device) if full_cov else None
         for cap, idx in self.bucket_assignment().items():
             state = self._bucket_state(cap, idx)
-            xt = x_test.expand((len(idx),) + x_test.shape)
-            out = pred.predict_from_state_batched(
-                state, xt, full_cov=full_cov, n_streams=self.n_streams, batch_dispatch=self.batch_dispatch
-            )
-            rows = torch.as_tensor(idx, device=self.device)
+            out = self._predict_bucket(state, x_test.expand((len(idx),) + x_test.shape), full_cov)
+            rows = _index(idx, self.device)
             if full_cov:
                 mean[rows], sigma[rows] = out
             else:
@@ -1086,7 +1181,9 @@ class GPFleet:
         Ragged n̂_i are padded to each bucket's largest and masked with
         ``nt_valid``: one warm batched call a bucket, the results cut back
         to each problem's own n̂_i.  Returns a length-B list of (n̂_i,) means,
-        or of ``(mean, cov)`` with cov (n̂_i, n̂_i) when ``full_cov``.
+        or of ``(mean, cov)`` with cov (n̂_i, n̂_i) when ``full_cov``.  The
+        calls only enqueue work on the card: nothing here reads a device
+        value, so the caller's next host work overlaps the launches.
         """
         b = self.batch_size
         if len(x_test_list) != b:
@@ -1110,11 +1207,8 @@ class GPFleet:
                     out[i] = (empty, empty_cov) if full_cov else empty
                 continue
             state = self._bucket_state(cap, idx)
-            nt_max = max(nts)
-            xt = torch.stack([torch.nn.functional.pad(tests[i], (0, 0, 0, nt_max - tests[i].shape[0])) for i in idx])
-            res = pred.predict_from_state_batched(
-                state, xt, full_cov=full_cov, n_streams=self.n_streams,
-                nt_valid=torch.tensor(nts, dtype=torch.int32), batch_dispatch=self.batch_dispatch,
+            res = self._predict_bucket(
+                state, _padded_block(tests, idx), full_cov, torch.tensor(nts, dtype=torch.int32)
             )
             for pos, i in enumerate(idx):
                 k = nts[pos]
@@ -1125,13 +1219,16 @@ class GPFleet:
 
     @_ieee_on_device
     def nlml(self) -> torch.Tensor:
-        """The (B,) NLMLs, one masked head per bucket."""
+        """The (B,) NLMLs, one masked head per bucket (low-rank: the whitened form, as GPBatch)."""
         out = torch.zeros((self.batch_size,), dtype=self.dtype, device=self.device)
         for cap, idx in self.bucket_assignment().items():
             state = self._bucket_state(cap, idx)
-            _, ys, nv = self._stack(idx, cap)
-            vals = mll.nlml_from_state(state, ys, dtype=self.dtype, n_valid=nv)
-            out[torch.as_tensor(idx, device=self.device)] = vals.to(self.dtype)
+            if self.method == "lowrank":
+                vals = lowrank.whitened_nlml(state, dtype=self.dtype)
+            else:
+                _, ys, nv = self._stack(idx, cap)
+                vals = mll.nlml_from_state(state, ys, dtype=self.dtype, n_valid=nv)
+            out[_index(idx, self.device)] = vals.to(self.dtype)
         return out
 
     def log_marginal_likelihood(self) -> torch.Tensor:
@@ -1142,22 +1239,30 @@ class GPFleet:
         """Fit every problem's hyperparameters at its own size (no padding rows in the loss).
 
         A loop of single-problem fits (:func:`mll.optimize_hyperparameters`
-        on the problem's gathered leaves, through the tiled program); the
-        results are stacked into (B,) + base leaves, so a leaf that started
-        shared comes back per problem.  The caches are invalidated.
+        on the problem's gathered leaves, through the tiled program or, on
+        the low-rank tier, the Nystrom NLML with the fleet's inducing
+        options); the results are stacked into (B,) + base leaves, so a leaf
+        that started shared comes back per problem.  The caches are
+        invalidated.
         """
+        lr_tier = self.method == "lowrank"
         fitted = []
         for i in range(self.batch_size):
             pi = km.gather_params(self.params, i, self.kernel)
+            ind = self.inducing
+            if ind is not None and ind.ndim == 3:
+                ind = ind[i]
             new_pi, _ = mll.optimize_hyperparameters(
-                self._xs[i], self._ys[i], pi, steps=steps, lr=lr, dtype=self.dtype, method="tiled",
-                tile_size=self.tile_size, n_streams=self.n_streams, update_dtype=self.update_dtype,
-                kernel=self.kernel, device=self.device,
+                self._xs[i], self._ys[i], pi, steps=steps, lr=lr, dtype=self.dtype,
+                method="lowrank" if lr_tier else "tiled", tile_size=self.tile_size, n_streams=self.n_streams,
+                update_dtype=self.update_dtype, kernel=self.kernel, m_inducing=self.m_inducing,
+                strategy=self.strategy, inducing=ind if lr_tier else None, jitter=self.jitter, device=self.device,
             )
             fitted.append(new_pi)
         self.params = km.tree_map(
             lambda *leaves: torch.stack([torch.as_tensor(l, device=self.device) for l in leaves]), *fitted
         )
+        obs.inc("fleet.optimize")
         self.invalidate_cache()  # the factors belong to the old hyperparameters
         return self
 
@@ -1169,8 +1274,10 @@ class GPFleet:
 
         Problems that stay inside their bucket extend warm in O(n^2 b);
         problems that outgrow it migrate: the factor is re-embedded into the
-        destination geometry as ``blockdiag(L, I)`` and extended there.  A
-        cold or numerically failed bucket refactorizes on the next call.
+        destination geometry as ``blockdiag(L, I)`` and extended there (the
+        low-rank tier: a row gather of the mu-sized state, then one ragged
+        absorb).  A cold or numerically failed bucket refactorizes on the
+        next call.
         """
         b = self.batch_size
         if len(x_new_list) != b or len(y_new_list) != b:
@@ -1191,7 +1298,7 @@ class GPFleet:
             return self
         old_key = self._cache_key()
         # each problem's warm source row: i -> (cap_old, state, row position)
-        src: Dict[int, Tuple[int, pred.PosteriorState, int]] = {}
+        src: Dict[int, Tuple[int, object, int]] = {}
         for cap, idx in self.bucket_assignment().items():
             rec = self._buckets.get(cap)
             if rec is not None and rec.key == old_key and rec.idx == tuple(idx) and rec.state is not None:
@@ -1205,22 +1312,32 @@ class GPFleet:
         self._version += 1
         new_key = self._cache_key()
         new_buckets: Dict[int, _Bucket] = {}
-        fpad = torch.nn.functional.pad
+        lr_tier = self.method == "lowrank"
         for cap, idx in self.bucket_assignment().items():
             state = None
             if all(i in src for i in idx):
                 try:
-                    state = self._transfer_bucket(cap, idx, src, old_ns)
                     cnt = [counts[i] for i in idx]
+                    if lr_tier:
+                        state = self._gather_lowrank_rows(cap, idx, src)
+                    else:
+                        state = self._transfer_bucket(cap, idx, src, old_ns)
                     if any(cnt):
-                        b_max = max(cnt)
-                        xa = torch.stack([fpad(xn[i], (0, 0, 0, b_max - xn[i].shape[0])) for i in idx])
-                        ya = torch.stack([fpad(yn[i], (0, b_max - yn[i].shape[0])) for i in idx])
-                        state = upd.extend_state_ragged(
-                            state, xa, ya, cnt, n_streams=self.n_streams, update_dtype=self.update_dtype,
-                            batch_dispatch=self.batch_dispatch,
-                        )
+                        xa, ya = _padded_block(xn, idx), _padded_block(yn, idx)
+                        if lr_tier:
+                            state = lowrank.absorb(
+                                state, xa, ya, torch.tensor(cnt, dtype=torch.int32), sign=1,
+                                n_streams=self.n_streams, update_dtype=self.update_dtype,
+                                batch_dispatch=self.batch_dispatch,
+                            )
+                        else:
+                            state = upd.extend_state_ragged(
+                                state, xa, ya, cnt, n_streams=self.n_streams, update_dtype=self.update_dtype,
+                                batch_dispatch=self.batch_dispatch,
+                            )
                 except upd.CholeskyUpdateError:
+                    obs.health_event("refactorize_fallback", site="fleet.update.lowrank" if lr_tier else "fleet.update",
+                                     cap=cap)
                     state = None
             new_buckets[cap] = _Bucket(tuple(idx), state, new_key)
         self._buckets = new_buckets
@@ -1251,4 +1368,38 @@ class GPFleet:
             lpacked=torch.stack(lp), alpha=torch.stack(al), x_chunks=torch.stack(xc),
             n=cap * self.tile_size, m=self.tile_size, params=self._bucket_params(idx),
             beta=torch.stack(be), y_chunks=torch.stack(yc), n_valid=nv, kernel=self.kernel,
+        )
+
+    def _gather_lowrank_rows(self, cap, idx, src) -> lowrank.LowRankState:
+        """A destination bucket's pre-absorb low-rank state: a row gather of the warm sources.
+
+        Every per-problem piece is mu-sized, so nothing is padded or
+        re-embedded.  The port's ``c_w`` is gathered with the rest, and the
+        (B,) frontiers are gathered on the device, never read on the host.
+        """
+        rows = [src[i][1:] for i in idx]
+
+        def g(field):
+            return torch.stack([getattr(st, field)[pos] for st, pos in rows])
+
+        def frontier(field, default):
+            """A (B,) frontier from each source's own: its (B,) row, its int, or ``default(state)``."""
+            if all(getattr(st, field) is None for st, _ in rows):
+                return None
+            out = []
+            for st, pos in rows:
+                v = getattr(st, field)
+                if isinstance(v, torch.Tensor):
+                    out.append(v[pos].to(torch.int32))
+                else:
+                    out.append(torch.full((), default(st) if v is None else v, dtype=torch.int32, device=self.device))
+            return torch.stack(out)
+
+        return lowrank.LowRankState(
+            u_chunks=g("u_chunks"), luu_packed=g("luu_packed"), b_packed=g("b_packed"),
+            lb_packed=g("lb_packed"), c_chunks=g("c_chunks"), gamma=g("gamma"), c_w=g("c_w"),
+            yty=g("yty"), n=cap * self.tile_size, m=self.tile_size, m_inducing=self.m_inducing,
+            params=self._bucket_params(idx), jitter=rows[0][0].jitter,
+            mu_valid=frontier("mu_valid", lambda st: st.m_inducing), n_valid=frontier("n_valid", lambda st: st.n),
+            kernel=self.kernel,
         )

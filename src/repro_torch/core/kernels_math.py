@@ -950,21 +950,65 @@ def mask_tiles(k, row0, col0, n_valid_r, n_valid_c, symmetric: bool, diagval=Non
 # ---------------------------------------------------------------------------
 
 
-def assemble_covariance(x: torch.Tensor, params, *, kernel=None) -> torch.Tensor:
-    """Full training covariance K = K_XX + sigma^2 I, diagonal pinned exactly."""
+def _index_grid(rows: int, cols: int, device):
+    return (torch.arange(rows, device=device)[:, None], torch.arange(cols, device=device)[None, :])
+
+
+def _cast(t: torch.Tensor, dtype) -> torch.Tensor:
+    """``t`` in ``dtype``; ``dtype=None`` keeps it as it is (the port's own callers)."""
+    return t if dtype is None else t.to(dtype)
+
+
+def assemble_covariance(x: torch.Tensor, params, *, kernel=None, n_valid: Optional[int] = None,
+                        dtype=torch.float32) -> torch.Tensor:
+    """Full training covariance K = K_XX + sigma^2 I, diagonal pinned exactly.
+
+    Rows >= ``n_valid`` of x are padding (any values): the padded region is
+    identity on the diagonal and zero elsewhere, as the tiled assembly pins it.
+    """
     kernel = resolve_kernel(kernel)
-    k = kernel.kfree(params, x, x)
-    eye = torch.eye(x.shape[0], dtype=torch.bool, device=x.device)
-    return torch.where(eye, _diag_value(kernel, params, k.dtype, k.device), k)
+    x = _cast(x, dtype)
+    k = _cast(kernel.kfree(params, x, x), dtype)
+    n_pad = x.shape[0]
+    i, j = _index_grid(n_pad, n_pad, x.device)
+    k = torch.where(i == j, _diag_value(kernel, params, k.dtype, k.device), k)
+    if n_valid is not None and n_valid != n_pad:
+        k = torch.where((i < n_valid) & (j < n_valid), k, (i == j).to(k.dtype))
+    return k
 
 
 def assemble_cross_covariance(
-    x_test: torch.Tensor, x_train: torch.Tensor, params, *, kernel=None
+    x_test: torch.Tensor, x_train: torch.Tensor, params, *, kernel=None,
+    n_test_valid: Optional[int] = None, n_train_valid: Optional[int] = None, dtype=torch.float32,
 ) -> torch.Tensor:
-    """Cross covariance K_{X̂,X} (n̂ × n)."""
-    return resolve_kernel(kernel).kfree(params, x_test, x_train)
+    """Cross covariance K_{X̂,X} (n̂_pad × n_pad), rows and columns past the valid counts zero."""
+    k = _cast(resolve_kernel(kernel).kfree(params, _cast(x_test, dtype), _cast(x_train, dtype)), dtype)
+    nt, ntr = k.shape
+    if (n_test_valid is not None and n_test_valid != nt) or (n_train_valid is not None and n_train_valid != ntr):
+        i, j = _index_grid(nt, ntr, k.device)
+        valid = torch.ones((nt, ntr), dtype=torch.bool, device=k.device)
+        if n_test_valid is not None:
+            valid &= i < n_test_valid
+        if n_train_valid is not None:
+            valid &= j < n_train_valid
+        k = torch.where(valid, k, torch.zeros((), dtype=k.dtype, device=k.device))
+    return k
 
 
-def assemble_prior_covariance(x_test: torch.Tensor, params, *, kernel=None) -> torch.Tensor:
-    """Prior test covariance K_{X̂,X̂}, without observation noise."""
-    return resolve_kernel(kernel).kfree(params, x_test, x_test)
+def assemble_prior_covariance(
+    x_test: torch.Tensor, params, *, kernel=None, n_valid: Optional[int] = None,
+    include_noise: bool = False, dtype=torch.float32,
+) -> torch.Tensor:
+    """Prior test covariance K_{X̂,X̂}, with the observation noise on its diagonal
+    when ``include_noise``; the padded region past ``n_valid`` is zero."""
+    kernel = resolve_kernel(kernel)
+    xt = _cast(x_test, dtype)
+    k = _cast(kernel.kfree(params, xt, xt), dtype)
+    n_pad = k.shape[0]
+    i, j = _index_grid(n_pad, n_pad, k.device)
+    zero = torch.zeros((), dtype=k.dtype, device=k.device)
+    if include_noise:
+        k = k + torch.where(i == j, torch.as_tensor(kernel.noise(params), dtype=k.dtype, device=k.device), zero)
+    if n_valid is not None and n_valid != n_pad:
+        k = torch.where((i < n_valid) & (j < n_valid), k, zero)
+    return k

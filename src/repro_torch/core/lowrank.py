@@ -49,16 +49,23 @@ covariance contractions) stay ``torch.matmul``/``torch.einsum``, with TF32
 off on the card.  Every entry point takes B stacked problems of one size
 ((B, n, D) inputs; a state's tensors gain the leading B axis), with shared
 or per-problem ((B,) leaves) hyperparameters: each launch then covers the
-B problems' tiles (``GPBatch(method="lowrank")``).  Ragged problems
-(per-problem ``n_valid``) come with a later slice.  The NLML's gradient
-and training are :func:`repro_torch.core.mll.nlml_lowrank`.
+B problems' tiles (``GPBatch(method="lowrank")``).  Ragged problems,
+zero-padded to one capacity, pass per-problem frontiers: ``n_valid`` (B,)
+to :func:`lowrank_state`, ``counts`` (B,) to :func:`absorb` and
+``nt_valid`` (B,) to :func:`predict_from_lowrank_state`
+(``GPFleet(method="lowrank")``).  The frontiers stay (B,) int32 tensors on
+the device and go to cov_tiles as row/column frontiers; no entry point
+reads one on the host.  Each problem's count of distinct inducing points,
+``mu_valid = min(m_inducing, n_valid)``, is such a tensor too: K_uu's rows
+past it keep their identity pin, so they add log 1 to log det B.  The
+NLML's gradient and training are :func:`repro_torch.core.mll.nlml_lowrank`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -82,9 +89,15 @@ DEFAULT_JITTER = 1e-4
 # ---------------------------------------------------------------------------
 
 
-def _subset_indices(mu: int, nv: int, device) -> torch.Tensor:
+def _subset_indices(mu: int, nv, device) -> torch.Tensor:
     """Strided subset indices: distinct for the first min(mu, nv) rows even
-    when nv < mu (the tail repeats the last point)."""
+    when nv < mu (the tail repeats the last point).  ``nv`` an int gives
+    (mu,); a tensor of counts (a 0-d or (B,)) gives ``nv.shape + (mu,)``,
+    computed on the device."""
+    if isinstance(nv, torch.Tensor):
+        nv = nv.to(device=device, dtype=torch.int64)[..., None]
+        idx = torch.arange(mu, dtype=torch.int64, device=device) * nv // nv.clamp(min=1, max=mu)
+        return torch.minimum(idx, (nv - 1).clamp(min=0))
     step = max(min(mu, nv), 1)
     idx = torch.arange(mu, dtype=torch.int64, device=device) * nv // step
     return idx.clamp(0, max(nv - 1, 0))
@@ -119,8 +132,9 @@ def select_inducing(
     *,
     strategy: str = "subset",
     inducing=None,
+    n_valid=None,
     kmeans_iters: int = 4,
-) -> Tuple[torch.Tensor, Optional[int]]:
+) -> Tuple[torch.Tensor, Optional[Union[int, torch.Tensor]]]:
     """Pick inducing inputs u (m_inducing, D) from training inputs x (n, D).
 
     Returns ``(u, mu_valid)``: ``mu_valid`` is the count of distinct
@@ -129,6 +143,11 @@ def select_inducing(
     device.  u is detached: the inducing set is fixed data, not a parameter.
     Stacked x (B, n, D) gives u (B, m_inducing, D), one set per problem; an
     explicit (m_inducing, D) set is then shared by every problem.
+
+    ``n_valid`` marks ragged problems (rows past it are padding): an int for
+    one problem, or (B,) counts for stacked x.  Each problem then draws only
+    from its first ``n_valid[i]`` rows, and ``mu_valid`` is the (B,) int32
+    tensor ``min(m_inducing, n_valid)`` on x's device.
     """
     batched = x.ndim == 3
     if inducing is not None:
@@ -141,7 +160,15 @@ def select_inducing(
         if batched and u.ndim == 2:
             u = u.expand((x.shape[0],) + u.shape)
         return u.detach(), None
-    nv = x.shape[-2]
+    if batched and n_valid is not None:
+        nv = pred._valid(n_valid, x.device)
+        if strategy == "subset":
+            idx = _subset_indices(m_inducing, nv, x.device)  # (B, m_inducing)
+            u = torch.gather(x, 1, idx[..., None].expand(idx.shape + (x.shape[-1],)))
+        else:
+            u = torch.stack([_select_one(xi, m_inducing, strategy, nvi, kmeans_iters) for xi, nvi in zip(x, nv)])
+        return u.detach(), nv.clamp(max=m_inducing)
+    nv = x.shape[-2] if n_valid is None else int(n_valid)
     if batched and strategy == "subset":  # one index set serves every problem of one size
         u = x[:, _subset_indices(m_inducing, nv, x.device)]
     elif batched:
@@ -170,12 +197,14 @@ class LowRankState:
     gamma: torch.Tensor       # (MU, m) tiled A^-1 c, solved as L_uu^-T B^-1 c_w
     c_w: torch.Tensor         # (MU, m) tiled W y (= L_uu^-1 c), contracted from W itself
     yty: torch.Tensor         # 0-d (or (B,)): y^T y
-    n: int                    # training rows absorbed
+    n: int                    # training rows absorbed (the padded count of a ragged state)
     m: int                    # tile size
     m_inducing: int
     params: object
     jitter: float
-    mu_valid: Optional[int] = None  # distinct inducing points, when < m_inducing
+    # distinct inducing points, when < m_inducing: an int, or (B,) int32 on the device
+    mu_valid: Optional[Union[int, torch.Tensor]] = None
+    n_valid: Optional[torch.Tensor] = None  # (B,) int32 on the device: a ragged state's rows
     kernel: km.Kernel = km.SQUARED_EXPONENTIAL
 
     @property
@@ -188,8 +217,19 @@ class LowRankState:
 # ---------------------------------------------------------------------------
 
 
-def _mu_valid(state: LowRankState) -> int:
+def _mu_valid(state: LowRankState):
     return state.m_inducing if state.mu_valid is None else state.mu_valid
+
+
+def _masked_yty(yc: torch.Tensor, nv) -> torch.Tensor:
+    """sum y^2 over each problem's rows below ``nv`` (an int or (B,)): rows
+    past the frontier may hold a caller's padding, not zeros."""
+    row = torch.arange(yc.shape[-2] * yc.shape[-1], device=yc.device).reshape(yc.shape[-2:])
+    if isinstance(nv, torch.Tensor):
+        mask = row < nv.reshape(nv.shape + (1, 1))
+    else:
+        mask = row < nv
+    return torch.sum(torch.where(mask, yc * yc, torch.zeros((), dtype=yc.dtype, device=yc.device)), dim=(-2, -1))
 
 
 def _noise(kernel, params, like: torch.Tensor) -> torch.Tensor:
@@ -202,19 +242,22 @@ def _lift(v: torch.Tensor, ndim: int) -> torch.Tensor:
     return v.reshape(v.shape + (1,) * ndim)
 
 
-def _retune_diag(packed, mu_tiles: int, m: int, delta, mu_valid: int) -> torch.Tensor:
+def _retune_diag(packed, mu_tiles: int, m: int, delta, mu_valid) -> torch.Tensor:
     """Shift the valid diagonal of packed symmetric tiles by ``delta``, in place.
 
     Symmetric assembly pins the diagonal to diag + noise; the inner matrices
     want jitter instead, so the diagonal is corrected after assembly by
     delta = jitter - noise on rows < mu_valid (padding rows keep their
     identity pin).  Two roundings, as the reference makes them.
+    ``mu_valid`` is an int or a (B,) tensor of per-problem rows.
     """
     axis = packed.ndim - 3
     idx = torch.from_numpy(triangular._diag_slots(mu_tiles)).to(packed.device)
     diag = packed.index_select(axis, idx)  # ((B,) MU, m, m)
     row = torch.arange(mu_tiles * m, device=packed.device).reshape(mu_tiles, m)
     zero = torch.zeros((), dtype=packed.dtype, device=packed.device)
+    if isinstance(mu_valid, torch.Tensor):
+        mu_valid = _lift(mu_valid, 2)
     shift = torch.where(row < mu_valid, _lift(delta, 2), zero)  # ((B,) MU, m)
     packed.index_copy_(axis, idx, diag + torch.diag_embed(shift))
     return packed
@@ -275,6 +318,7 @@ def lowrank_state(
     update_dtype=None,
     dtype=torch.float32,
     batch_dispatch: str = "flat",
+    n_valid=None,
     kernel=None,
     device="cuda",
 ) -> LowRankState:
@@ -284,7 +328,9 @@ def lowrank_state(
     (c = K_un y and c_w = W y) and the tiled Cholesky of K_uu and of B; the
     solves and the Gram of W are plain torch.  K_un and W are freed before
     B is factored.  Stacked x (B, n, D) / y (B, n) build B states at once,
-    each launch over the B problems' tiles.
+    each launch over the B problems' tiles.  ``n_valid`` (an int, or (B,)
+    for stacked x) marks ragged problems: rows past it are padding, masked
+    out of K_un (a column frontier of its cov_tiles launch) and of y^T y.
     """
     dev = resolve_device(device)
     kernel = km.resolve_kernel(kernel)
@@ -298,7 +344,10 @@ def lowrank_state(
             f"{tuple(x.shape)} and {tuple(y.shape)}"
         )
     n = x.shape[-2]
-    u, mu_valid = select_inducing(x, m_inducing, strategy=strategy, inducing=inducing)
+    if n_valid is not None:
+        n_valid = pred._valid(n_valid, dev) if batched else int(n_valid)
+    nv = n if n_valid is None else n_valid
+    u, mu_valid = select_inducing(x, m_inducing, strategy=strategy, inducing=inducing, n_valid=n_valid)
     uc = tiling.pad_features(u, tile_size)
     xc = tiling.pad_features(x, tile_size)
     yc = tiling.pad_vector(y, tile_size)
@@ -310,9 +359,9 @@ def lowrank_state(
     kuu = pred.assemble_packed_covariance(uc, params, mv, kernel=kernel, batch_dispatch=bd)
     kuu = _retune_diag(kuu, mu_tiles, tile_size, torch.as_tensor(jitter, dtype=dtype, device=dev) - noise, mv)
     if batched:
-        kun = pred.assemble_cross_tiles_batched(uc, xc, params, mv, n, kernel=kernel, batch_dispatch=bd)
+        kun = pred.assemble_cross_tiles_batched(uc, xc, params, mv, nv, kernel=kernel, batch_dispatch=bd)
     else:
-        kun = pred.assemble_cross_tiles(uc, xc, params, mv, n, kernel=kernel)  # (MU, M, m, m)
+        kun = pred.assemble_cross_tiles(uc, xc, params, mv, nv, kernel=kernel)  # (MU, M, m, m)
     c = executor.run_lowrank_contraction(kun, yc, n_streams=n_streams, device=dev)
     luu = executor.run_cholesky(
         kuu, n_streams=n_streams, update_dtype=update_dtype, batch_dispatch=bd, device=dev
@@ -331,8 +380,9 @@ def lowrank_state(
     return LowRankState(
         u_chunks=uc, luu_packed=luu, b_packed=b_packed, lb_packed=lb, c_chunks=c,
         gamma=_inner_solve(luu, lb, c_w, n_streams, dev), c_w=c_w,
-        yty=torch.sum(yc * yc, dim=(-2, -1)), n=n, m=tile_size, m_inducing=m_inducing,
-        params=params, jitter=float(jitter), mu_valid=mu_valid, kernel=kernel,
+        yty=_masked_yty(yc, nv), n=n, m=tile_size, m_inducing=m_inducing,
+        params=params, jitter=float(jitter), mu_valid=mu_valid,
+        n_valid=n_valid if isinstance(n_valid, torch.Tensor) else None, kernel=kernel,
     )
 
 
@@ -345,6 +395,7 @@ def absorb(
     state: LowRankState,
     x_new,
     y_new,
+    counts=None,
     *,
     sign: int = 1,
     n_streams: Optional[int] = None,
@@ -356,7 +407,10 @@ def absorb(
     The inducing set stays fixed; only the inner system B, the projections
     c = K_un y and c_w = W y and the counters change.  One ``cov_tiles``,
     two ``lrgemm`` and the tiled Cholesky of B on the card.  A stacked state
-    takes (B, b, D) / (B, b): the same count b for every problem.  Raises
+    takes (B, b, D) / (B, b); ``counts`` ((B,), or an int) marks a ragged
+    block whose problem i brings only its first ``counts[i]`` rows: the rest
+    are a column frontier of K_ub, so they add nothing to B, c or y^T y,
+    and a ragged state's ``n_valid`` moves by ``counts``.  Raises
     :class:`repro_torch.core.update.CholeskyUpdateError` when the refreshed
     factor goes non-finite (``sign=-1`` can remove more than the inner
     system holds); callers rebuild cold.  ``state`` is not modified.
@@ -367,16 +421,20 @@ def absorb(
     y_new = torch.as_tensor(y_new, device=dev).to(dtype)
     y_new = y_new.reshape(y_new.shape[0], -1) if batched else y_new.reshape(-1)
     b = x_new.shape[-2]
+    if counts is None:
+        cnt = b
+    else:
+        cnt = pred._valid(counts, dev) if batched else int(counts)
     xbc = tiling.pad_features(x_new, state.m)
     ybc = tiling.pad_vector(y_new, state.m)
     if batched:
         kub = pred.assemble_cross_tiles_batched(
-            state.u_chunks, xbc, state.params, _mu_valid(state), b, kernel=kernel,
+            state.u_chunks, xbc, state.params, _mu_valid(state), cnt, kernel=kernel,
             batch_dispatch=batch_dispatch,
         )
     else:
         kub = pred.assemble_cross_tiles(
-            state.u_chunks, xbc, state.params, _mu_valid(state), b, kernel=kernel
+            state.u_chunks, xbc, state.params, _mu_valid(state), cnt, kernel=kernel
         )
     dc = executor.run_lowrank_contraction(kub, ybc, n_streams=n_streams, device=dev)
     # whitened block W_b = L_uu^-1 K_ub; the inducing factor never changes
@@ -391,10 +449,13 @@ def absorb(
     )
     upd._check(lb, "low-rank inner-system refactorization")
     c_w = state.c_w + s * dc_w
+    nv = state.n_valid
+    if nv is not None:
+        nv = nv + sign * (cnt.to(nv.dtype) if isinstance(cnt, torch.Tensor) else cnt)
     return dataclasses.replace(
         state, b_packed=b_packed, lb_packed=lb, c_chunks=c,
         gamma=_inner_solve(state.luu_packed, lb, c_w, n_streams, dev), c_w=c_w,
-        yty=state.yty + s * torch.sum(ybc * ybc, dim=(-2, -1)), n=state.n + sign * b,
+        yty=state.yty + s * _masked_yty(ybc, cnt), n=state.n + sign * b, n_valid=nv,
     )
 
 
@@ -409,6 +470,8 @@ def predict_from_lowrank_state(
     *,
     full_cov: bool = False,
     n_streams: Optional[int] = None,
+    dtype=None,
+    nt_valid=None,
     batch_dispatch: str = "flat",
 ):
     """Posterior mean (and with ``full_cov`` the covariance) from a cached state.
@@ -416,22 +479,30 @@ def predict_from_lowrank_state(
     One ``cov_tiles`` (CROSS) and mean = s^-2 K_*u gamma; with ``full_cov``
     also the PRIOR grid, V1 = L_uu^-1 K_u* and V2 = L_B^-1 V1 by tiled matrix
     solves, and two Gram products.  The covariance's diagonal is clamped at
-    zero, as the reference clamps it.  A stacked state takes (B, n̂, D).
+    zero, as the reference clamps it.  A stacked state takes (B, n̂, D), and
+    ``nt_valid`` ((B,) or an int) the per-problem test counts: the rows past
+    a problem's count are a row frontier of CROSS and PRIOR.  ``dtype``
+    (default the state's) is the test points' dtype.
     """
-    dev, dtype = state.device, state.c_chunks.dtype
+    dev = state.device
+    dtype = state.c_chunks.dtype if dtype is None else dtype
     batched = state.c_chunks.ndim == 3
     x_test = torch.as_tensor(x_test, device=dev).to(dtype)
     nt = x_test.shape[-2]
+    if nt_valid is None:
+        ntv = nt
+    else:
+        ntv = pred._valid(nt_valid, dev) if batched else int(nt_valid)
     xtc = tiling.pad_features(x_test, state.m)
     table = pred._table(state.params, state.kernel, xtc)
     if batched:
         kstar = pred.assemble_cross_tiles_batched(
-            xtc, state.u_chunks, state.params, nt, _mu_valid(state), kernel=state.kernel, table=table,
+            xtc, state.u_chunks, state.params, ntv, _mu_valid(state), kernel=state.kernel, table=table,
             batch_dispatch=batch_dispatch,
         )  # (B, Q, MU, m, m)
     else:
         kstar = pred.assemble_cross_tiles(
-            xtc, state.u_chunks, state.params, nt, _mu_valid(state), kernel=state.kernel, table=table
+            xtc, state.u_chunks, state.params, ntv, _mu_valid(state), kernel=state.kernel, table=table
         )  # (Q, MU, m, m)
     inv_noise = _lift(1.0 / _noise(state.kernel, state.params, state.gamma), 2)
     mean = inv_noise * triangular.tiled_matvec(kstar, state.gamma)
@@ -447,10 +518,10 @@ def predict_from_lowrank_state(
     v2 = executor.run_solve(state.lb_packed, v1, lower=True, n_streams=n_streams, device=dev)
     if batched:
         covt = pred.assemble_prior_tiles_batched(
-            xtc, state.params, nt, kernel=state.kernel, table=table, batch_dispatch=batch_dispatch
+            xtc, state.params, ntv, kernel=state.kernel, table=table, batch_dispatch=batch_dispatch
         )
     else:
-        covt = pred.assemble_prior_tiles(xtc, state.params, nt, kernel=state.kernel, table=table)
+        covt = pred.assemble_prior_tiles(xtc, state.params, ntv, kernel=state.kernel, table=table)
     covt -= triangular.tiled_gram(v1)
     covt += triangular.tiled_gram(v2)
     cov = tiling.untile_dense(covt)
@@ -459,25 +530,32 @@ def predict_from_lowrank_state(
     return mean, cov[..., :nt, :nt]
 
 
-def _woodbury_nlml(state: LowRankState, ctac: torch.Tensor) -> torch.Tensor:
-    """0.5 [ s^-2 y^T y - s^-4 c^T A^-1 c + n log s^2 + log det B + n log 2 pi ], given c^T A^-1 c."""
+def _woodbury_nlml(state: LowRankState, ctac: torch.Tensor, dtype=None) -> torch.Tensor:
+    """0.5 [ s^-2 y^T y - s^-4 c^T A^-1 c + n log s^2 + log det B + n log 2 pi ], given c^T A^-1 c.
+
+    n is each problem's own row count on a ragged state (``n_valid``)."""
     noise = _noise(state.kernel, state.params, state.c_chunks)
     inv = 1.0 / noise
     quad = inv * state.yty - inv * inv * ctac
     logdet_b = triangular.logdet_from_factor(state.lb_packed, state.u_chunks.shape[-3])
-    nv = torch.as_tensor(float(state.n), dtype=noise.dtype, device=noise.device)
+    if state.n_valid is None:
+        nv = torch.as_tensor(float(state.n), dtype=noise.dtype, device=noise.device)
+    else:
+        nv = state.n_valid.to(noise.dtype)
     log2pi = torch.as_tensor(math.log(2.0 * math.pi), dtype=noise.dtype, device=noise.device)
-    return 0.5 * (quad + nv * torch.log(noise) + logdet_b + nv * log2pi)
+    out = 0.5 * (quad + nv * torch.log(noise) + logdet_b + nv * log2pi)
+    return out if dtype is None else out.to(dtype)
 
 
-def nlml_from_lowrank_state(state: LowRankState) -> torch.Tensor:
+def nlml_from_lowrank_state(state: LowRankState, *, dtype=None) -> torch.Tensor:
     """Woodbury / matrix-determinant-lemma NLML from the cached pieces, the
     reference's formula: c^T A^-1 c = c . gamma (a state carried over from
-    the JAX package holds the reference's c and gamma)."""
-    return _woodbury_nlml(state, torch.sum(state.c_chunks * state.gamma, dim=(-2, -1)))
+    the JAX package holds the reference's c and gamma); in ``dtype``
+    (default the state's)."""
+    return _woodbury_nlml(state, torch.sum(state.c_chunks * state.gamma, dim=(-2, -1)), dtype)
 
 
-def whitened_nlml(state: LowRankState) -> torch.Tensor:
+def whitened_nlml(state: LowRankState, *, dtype=None) -> torch.Tensor:
     """The same NLML with c^T A^-1 c = |L_B^-1 c_w|^2, in the whitened
     coordinates that gamma is solved in: the value that
     ``GaussianProcess.nlml()`` returns and
@@ -488,7 +566,7 @@ def whitened_nlml(state: LowRankState) -> torch.Tensor:
     form does not have.
     """
     z = executor.run_solve(state.lb_packed, state.c_w, lower=True, device=state.device)
-    return _woodbury_nlml(state, torch.sum(z * z, dim=(-2, -1)))
+    return _woodbury_nlml(state, torch.sum(z * z, dim=(-2, -1)), dtype)
 
 
 def predict_lowrank(

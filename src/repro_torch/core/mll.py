@@ -66,7 +66,7 @@ def negative_log_marginal_likelihood(
     """Exact NLML through the dense Cholesky (differentiable)."""
     x, y = _inputs(x, y, dtype, resolve_device(device))
     n = y.shape[0]
-    k = km.assemble_covariance(x, params, kernel=kernel)
+    k = km.assemble_covariance(x, params, kernel=kernel, dtype=None)
     l = chol.monolithic_cholesky(k)
     beta = torch.linalg.solve_triangular(l, y[:, None], upper=False)
     quad = torch.sum(beta * beta)
@@ -490,6 +490,7 @@ def nlml_lowrank_batched(
     update_dtype=None,
     dtype=torch.float32,
     batch_dispatch: str = "flat",
+    n_valid=None,
     kernel=None,
     device="cuda",
 ) -> torch.Tensor:
@@ -497,6 +498,8 @@ def nlml_lowrank_batched(
 
     Differentiated by autograd through the build (the blocked rule is
     single-problem); the value is the whitened one (:func:`lowrank.whitened_nlml`).
+    ``n_valid`` (B,) marks zero-padded ragged problems: each NLML is then
+    that of the problem's own rows.
     """
     dev = resolve_device(device)
     x, y = _batched_inputs(x, y, dtype, dev)
@@ -505,7 +508,7 @@ def nlml_lowrank_batched(
         x, y, params, m_inducing, tile_size, strategy=strategy, inducing=inducing,
         jitter=lowrank.DEFAULT_JITTER if jitter is None else float(jitter),
         n_streams=n_streams, update_dtype=update_dtype, dtype=dtype,
-        batch_dispatch=batch_dispatch, kernel=kernel, device=dev,
+        batch_dispatch=batch_dispatch, n_valid=n_valid, kernel=kernel, device=dev,
     )
     return lowrank.whitened_nlml(state)
 
@@ -680,6 +683,20 @@ def adam_batched(loss, raw0, steps: int, lr: float):
     return _adam(objective, raw0, steps, lr)
 
 
+def adam_scan(loss, steps: int, lr: float):
+    """The reference's name and call form: ``adam_scan(loss, steps, lr)(raw0)`` is ``adam(loss, raw0, steps, lr)``.
+
+    Returns the function ``raw0 -> (raw_final, losses)``; the steps run as
+    a Python loop of eager updates (there is no trace to compile here).
+    """
+    return lambda raw0: adam(loss, raw0, steps, lr)
+
+
+def adam_scan_batched(loss, steps: int, lr: float):
+    """The reference's name and call form of :func:`adam_batched`: ``raw0 -> (raw_final, losses (steps, B))``."""
+    return lambda raw0: adam_batched(loss, raw0, steps, lr)
+
+
 def optimize_hyperparameters(
     x,
     y,
@@ -740,6 +757,7 @@ def optimize_hyperparameters_batched(
     strategy: str = "subset",
     inducing=None,
     jitter=None,
+    n_valid=None,
     device="cuda",
 ) -> Tuple:
     """Train B problems' hyperparameters side by side (independent Adam moments per problem).
@@ -748,8 +766,10 @@ def optimize_hyperparameters_batched(
     (B,).  Returns (params with (B,) leaves, loss curves (steps, B)).
     ``method="tiled"`` evaluates the B NLMLs through one problem-batched
     program a step (:func:`nlml_tiled_batched`), ``"lowrank"`` the Nystrom
-    NLMLs (:func:`nlml_lowrank_batched`, needs ``m_inducing``),
-    ``"monolithic"`` the dense reference per problem.
+    NLMLs (:func:`nlml_lowrank_batched`, needs ``m_inducing``; ``n_valid``
+    (B,) trains zero-padded ragged problems on their own rows, as the
+    reference passes it to the low-rank loss), ``"monolithic"`` the dense
+    reference per problem.
     """
     dev = resolve_device(device)
     x, y = _batched_inputs(x, y, dtype, dev)
@@ -771,7 +791,7 @@ def optimize_hyperparameters_batched(
             return nlml_lowrank_batched(
                 x, y, unpack(raw), m_inducing=m_inducing, tile_size=tile_size, strategy=strategy,
                 inducing=inducing, jitter=jitter, n_streams=n_streams, update_dtype=update_dtype,
-                dtype=dtype, batch_dispatch=batch_dispatch, kernel=kernel, device=dev,
+                dtype=dtype, batch_dispatch=batch_dispatch, n_valid=n_valid, kernel=kernel, device=dev,
             )
     elif method == "monolithic":
         def loss(raw):

@@ -41,6 +41,7 @@ from typing import Optional
 
 import torch
 
+import repro_torch.obs as obs
 from repro_torch.core import cholesky as chol
 from repro_torch.core import executor
 from repro_torch.core import kernels_math as km
@@ -250,6 +251,7 @@ def predict_from_state(
     """
     params, kernel, m = state.params, state.kernel, state.m
     dev = state.device
+    obs.inc("predict.warm_tail")
     nh = x_test.shape[0]
     xtc = tiling.pad_features(
         torch.as_tensor(x_test, device=dev), m, dtype=state.x_chunks.dtype
@@ -403,6 +405,7 @@ def predict_from_state_batched(
     """
     params, kernel, m = state.params, state.kernel, state.m
     dev = state.device
+    obs.inc("predict.warm_tail_batched")
     b, nh = x_test.shape[0], x_test.shape[1]
     dtype = state.x_chunks.dtype if dtype is None else dtype
     xtc = tiling.pad_features(torch.as_tensor(x_test, device=dev), m, dtype=dtype)
@@ -510,14 +513,14 @@ def predict_monolithic(
     x = torch.as_tensor(x_train, device=dev).to(dtype)
     y = torch.as_tensor(y_train, device=dev).to(dtype)
     xt = torch.as_tensor(x_test, device=dev).to(dtype)
-    k = km.assemble_covariance(x, params, kernel=kernel)
+    k = km.assemble_covariance(x, params, kernel=kernel, dtype=None)
     l = chol.monolithic_cholesky(k)
     beta = torch.linalg.solve_triangular(l, y[:, None], upper=False)
     alpha = torch.linalg.solve_triangular(l.mT, beta, upper=True)[:, 0]
-    kstar = km.assemble_cross_covariance(xt, x, params, kernel=kernel)
+    kstar = km.assemble_cross_covariance(xt, x, params, kernel=kernel, dtype=None)
     mean = kstar @ alpha
     if not full_cov:
         return mean
     v = torch.linalg.solve_triangular(l, kstar.mT, upper=False)
-    prior = km.assemble_prior_covariance(xt, params, kernel=kernel)
+    prior = km.assemble_prior_covariance(xt, params, kernel=kernel, dtype=None)
     return mean, prior - v.mT @ v

@@ -367,6 +367,13 @@ def build_program_schedule(
     )
 
 
+def build_nlml_schedule(m_tiles: int) -> Schedule:
+    """The NLML prefix of the prediction program: ASSEMBLE, the factorization
+    and both substitutions (``q_tiles = 0``), the forward program that
+    :func:`repro_torch.core.mll.nlml_tiled` differentiates."""
+    return build_program_schedule(m_tiles, 0, uncertainty=False)
+
+
 # ---------------------------------------------------------------------------
 # Streaming-update DAGs: block Cholesky append / rank update.
 # ---------------------------------------------------------------------------
@@ -612,3 +619,14 @@ def split_by_op(tasks: Iterable[Task]) -> Dict[str, List[Task]]:
     for t in tasks:
         out.setdefault(t[0], []).append(t)
     return out
+
+
+def theoretical_task_counts(m_tiles: int) -> Dict[str, int]:
+    """Tasks per op family of an M-tile tiled Cholesky, in closed form."""
+    m = m_tiles
+    return {
+        POTRF: m,
+        TRSM: m * (m - 1) // 2,
+        SYRK: m * (m - 1) // 2,
+        GEMM: m * (m - 1) * (m - 2) // 6,
+    }

@@ -44,6 +44,12 @@ def packed_index(i: int, j: int, m_tiles: int) -> int:
     return off + (i - j)
 
 
+def column_slice(j: int, m_tiles: int) -> Tuple[int, int]:
+    """(start, stop) flat range of packed column j (diagonal tile first)."""
+    off = j * m_tiles - (j * (j - 1)) // 2
+    return off, off + (m_tiles - j)
+
+
 def pad_amount(n: int, m: int) -> int:
     """Padding needed to round n up to a multiple of the tile size m."""
     return (-n) % m
@@ -300,3 +306,13 @@ def bucket_problems(ns, m: int, boundaries=DEFAULT_BUCKETS):
         cap = next(c for c in caps if c >= nd)
         out.setdefault(cap, []).append(i)
     return dict(sorted(out.items()))
+
+
+def packed_bytes(m_tiles: int, m: int, dtype=torch.float32) -> int:
+    """Bytes of a packed lower store of M tiles of m x m."""
+    return num_packed_tiles(m_tiles) * m * m * torch.empty((), dtype=dtype).element_size()
+
+
+def dense_bytes(n: int, dtype=torch.float32) -> int:
+    """Bytes of a dense n x n matrix."""
+    return n * n * torch.empty((), dtype=dtype).element_size()

@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
+import repro_torch.obs as obs
 from repro_torch.core import executor
 from repro_torch.core import kernels_math as km
 from repro_torch.core import predict as pred
@@ -55,6 +56,7 @@ class CholeskyUpdateError(RuntimeError):
 
 def _check(t: torch.Tensor, what: str) -> None:
     if not bool(torch.isfinite(t).all()):
+        obs.health_event("nan_guard_trip", what=what)
         raise CholeskyUpdateError(
             f"incremental {what} went non-finite (non-positive-definite head); "
             "fall back to a full refactorization"

@@ -371,3 +371,27 @@ def test_descriptor_table_has_one_row_per_problem(name):
             torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
     shared = tkm.descriptor_table(kern_t, singles[0], 2, torch.float32, "cpu")
     assert shared.problems == 1 and shared.launches[0].table.dtype == torch.float32
+
+
+@pytest.mark.parametrize("name", ["se", "matern32", "se_ard2"])
+def test_dense_assembly_with_padding_matches_reference(name, rng):
+    """The dense ``assemble_*`` with the reference's padding counts, noise switch and dtype:
+    padded rows and columns are identity (training) or zero (cross, prior), as the reference's."""
+    kern_j, kern_t, pj, pt = _params(name, rng)
+    x = rng.standard_normal((11, 2)).astype(np.float32)
+    xt = rng.standard_normal((7, 2)).astype(np.float32)
+    xj, xtj, xc, xtc = jnp.asarray(x), jnp.asarray(xt), torch.from_numpy(x), torch.from_numpy(xt)
+    for nv in (None, 11, 8):
+        np.testing.assert_allclose(tkm.assemble_covariance(xc, pt, kernel=kern_t, n_valid=nv).numpy(),
+                                   np.asarray(jkm.assemble_covariance(xj, pj, kernel=kern_j, n_valid=nv)), rtol=0, atol=1e-5)
+    for ntv, nv in ((None, None), (5, None), (None, 9), (4, 6)):
+        np.testing.assert_allclose(tkm.assemble_cross_covariance(xtc, xc, pt, kernel=kern_t, n_test_valid=ntv, n_train_valid=nv).numpy(),
+            np.asarray(jkm.assemble_cross_covariance(xtj, xj, pj, kernel=kern_j, n_test_valid=ntv, n_train_valid=nv)),
+            rtol=0, atol=1e-5)
+    for nv in (None, 5):
+        for noise in (False, True):
+            np.testing.assert_allclose(tkm.assemble_prior_covariance(xtc, pt, kernel=kern_t, n_valid=nv, include_noise=noise).numpy(),
+                np.asarray(jkm.assemble_prior_covariance(xtj, pj, kernel=kern_j, n_valid=nv, include_noise=noise)),
+                rtol=0, atol=1e-5)
+    k64 = tkm.assemble_covariance(xc, pt, kernel=kern_t, dtype=torch.float64)
+    assert k64.dtype == torch.float64 and tkm.assemble_covariance(xc.double(), pt, kernel=kern_t).dtype == torch.float32

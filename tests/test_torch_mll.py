@@ -190,6 +190,24 @@ def test_optimize_trajectory_matches_the_reference():
     np.testing.assert_allclose(l_t.numpy(), l_m.numpy(), rtol=1e-3, atol=1e-2)
 
 
+def test_adam_scan_names_match_the_reference():
+    """``adam_scan``/``adam_scan_batched`` in the reference's call form: the same trajectory as the JAX scan
+    on a quadratic, one run and three side by side."""
+    target = np.asarray([[0.5, -1.0, 2.0], [1.5, 0.0, -0.5], [3.0, 1.0, 1.0]], np.float32)
+    raw0 = np.zeros((3, 3), np.float32)
+    r_j, l_j = jmll.adam_scan(lambda r: jnp.sum((r - target[0]) ** 2), 25, 0.1)(jnp.asarray(raw0[0]))
+    r_t, l_t = mll.adam_scan(lambda r: torch.sum((r - torch.from_numpy(target[0])) ** 2), 25, 0.1)(
+        torch.from_numpy(raw0[0]))
+    np.testing.assert_allclose(r_t.numpy(), np.asarray(r_j), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(l_t.numpy(), np.asarray(l_j), rtol=1e-5, atol=1e-5)
+    rb_j, lb_j = jmll.adam_scan_batched(lambda r: jnp.sum((r - target) ** 2, axis=-1), 25, 0.1)(jnp.asarray(raw0))
+    rb_t, lb_t = mll.adam_scan_batched(lambda r: torch.sum((r - torch.from_numpy(target)) ** 2, dim=-1), 25, 0.1)(
+        torch.from_numpy(raw0))
+    assert lb_t.shape == (25, 3)
+    np.testing.assert_allclose(rb_t.numpy(), np.asarray(rb_j), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(lb_t.numpy(), np.asarray(lb_j), rtol=1e-5, atol=1e-5)
+
+
 def test_gp_optimize_tiled_runs_zero_dense_choleskys(monkeypatch):
     """pipeline="tiled" training never calls the dense Cholesky, and the NLML falls; matern52 as the reference."""
     rng = np.random.default_rng(9)

@@ -231,8 +231,10 @@ def test_fleet_optimize_fits_each_problem_alone():
 
 def test_fleet_validation_and_unported_options():
     xs, ys = _data()
-    with pytest.raises(NotImplementedError, match="step 5b"):
+    with pytest.raises(ValueError, match="requires m_inducing"):
         GPFleet(xs, ys, method="lowrank", device=CPU)
+    with pytest.raises(ValueError, match="inducing must be"):
+        GPFleet(xs, ys, method="lowrank", m_inducing=4, inducing=np.zeros((3, D)), device=CPU)
     with pytest.raises(NotImplementedError, match="step 10"):
         GPFleet(xs, ys, mesh=object(), device=CPU)
     with pytest.raises(ValueError, match="share D"):

@@ -113,6 +113,22 @@ def test_program_schedule_matches_reference(m_tiles, q_tiles, uncertainty):
     )
 
 
+@pytest.mark.parametrize("m_tiles", [1, 3, 6])
+def test_nlml_schedule_task_counts_and_sizes_match_reference(m_tiles):
+    """The API of the reference's scheduler and tiling that callers of both reach: the NLML
+    prefix schedule, the closed-form task counts, packed column ranges and store sizes."""
+    t, j = tsch.build_nlml_schedule(m_tiles), jsch.build_nlml_schedule(m_tiles)
+    assert _levels(t) == _levels(j) and (t.kind, t.q_tiles, t.uncertainty) == (j.kind, j.q_tiles, j.uncertainty)
+    assert tsch.theoretical_task_counts(m_tiles) == jsch.theoretical_task_counts(m_tiles)
+    assert tsch.theoretical_task_counts(m_tiles) == tsch.build_schedule(m_tiles).op_counts()
+    for col in range(m_tiles):
+        assert ttil.column_slice(col, m_tiles) == jtil.column_slice(col, m_tiles)
+    for tdt, jdt in ((torch.float32, jnp.float32), (torch.float64, jnp.float64), (torch.bfloat16, jnp.bfloat16)):
+        assert ttil.packed_bytes(m_tiles, 16, tdt) == jtil.packed_bytes(m_tiles, 16, jdt)
+        assert ttil.dense_bytes(m_tiles * 16, tdt) == jtil.dense_bytes(m_tiles * 16, jdt)
+    assert ttil.packed_bytes(m_tiles, 16) == jtil.packed_bytes(m_tiles, 16)
+
+
 @pytest.mark.parametrize("n_streams", [1, 2, 5])
 @pytest.mark.parametrize("m_tiles", [2, 5, 16])
 def test_wavefront_waves_match_reference(m_tiles, n_streams):

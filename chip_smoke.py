@@ -6,6 +6,31 @@ Run from the root of a checkout:  python3 chip_smoke.py
 1. env      the card's name and power limit, torch, CUDA and nvcc versions;
 2. build    compiles the seven kernels from src/repro_torch/kernels/csrc/ with
             nvcc for sm_90a, in parallel (into build/repro_torch/, git-ignored);
+2b. multi  (right after the build, while this process holds nothing on the
+            card) a world of 2 ranks for fleet.sharded (below), spawned
+            first so that it runs while this process makes data.msd:
+            gp_dist_32k's data (n_train 32768, n_test 16384) from
+            repro_torch.data.msd, its seconds and z-scores; then one
+            spawned world of 4 ranks, all on cuda:0 over gloo (a 2 x 2
+            ("data", "model") mesh; the float64 reference factors go to the
+            ranks by CUDA IPC): dist.probe (both collectives on CUDA tensors),
+            dist.cholesky (the MSD covariance at tile 128, M = 256, against
+            a float64 factor; the bf16 update on the reference's test
+            matrix A A^T + nI held to relative error < 0.02), dist.predict
+            (distributed_gp_predict_fn with variances against a float64
+            dense solve and beside the single-card port, rank 0's wall time
+            between barriers, each rank's seconds inside collectives, its
+            launches against the schedule and its peak memory) and
+            dist.kernels (each kernel's widest launch, kept in a second run
+            that is neither timed nor counted, held to its plain version).
+            fleet.sharded: fleet_batch and fleet_ragged (a migrating
+            update, two ContinuousBatcher waves) unsharded on rank 0, on a
+            2-rank data mesh and on a 1-rank mesh, against each other (bitwise on the 1-rank mesh, within
+            5e-4 where sharding narrows a launch, 1e-5 reported), the plan
+            cache after each, and each tile op's width invariance; and
+            multi.total against its 60 s budget.  P x Q ranks share one card:
+            these phases prove the algorithm, not multi-GPU scaling.
+            ``--only-multi`` runs env, build and these phases alone;
 3. kernel   one phase per kernel: its wrapper against its plain PyTorch
             version on its path's own tiles (gp_16k, m = 512, D = 16,
             float32), plus float64 and ragged-edge cases; times the kernel,
@@ -159,6 +184,7 @@ import re
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -262,6 +288,9 @@ def bound_ms(n_bytes: float, n_ops: float, peak_flops: float = PEAK_FP32_FLOPS):
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    if a.ndim > 1 and a.numel() > 2**26:  # in slices along the first axis: the float64 copies stay small
+        step = max(1, 2**26 // a[0].numel())
+        return max(max_err(u, v) for u, v in zip(a.split(step), b.split(step)))
     return float((a.double() - b.double()).abs().max())
 
 
@@ -3187,6 +3216,618 @@ def phase_serve(x_train, y_train, x_test, dev):
           f"serve.fleet telemetry: {telemetry}")
 
 
+# ---------------------------------------------------------------------------
+# Multi-device (step 10a): P x Q ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+#
+# The smoke test needs one card, and NCCL refuses two ranks on one GPU,
+# so these phases spawn one process a rank on cuda:(rank % device_count)
+# over gloo, which stages CUDA tensors through the host.  That proves the
+# algorithm, each rank's kernels and the collectives on the card; it does
+# not measure multi-GPU scaling.  The parent builds the kernels first, so
+# the ranks only load them.  A rank that raises or fails a check makes the
+# spawn raise in the parent, and the script exits non-zero.
+
+DIST_GRID = (2, 2)            # ("data", "model"): P = Q = 2
+DIST_BF16_RTOL = 0.02         # the reference's mixed-precision rule (tests/test_distributed_gp.py)
+SHARDED_FLEET_TOL = 1e-5      # the reference's sharded-against-unsharded rule (tests/test_sharded_fleet.py)
+# the rule on the card where sharding narrows a launch: cuBLAS's batched GEMV and triangular solves pick another
+# algorithm at another problem count (scripts/batch_invariance.py); largest readings 6.1e-5, 1.72e-4 and 1.83e-4
+SHARDED_FLEET_CARD_TOL = 5e-4
+MULTI_BUDGET_S = 60.0         # the multi-device phases' share of the script's wall time that was planned
+SHARDED_WAVES = 2
+
+
+def _rank_entry(rank, world, tmp, job, args, shared_q):
+    """One rank: its card, the default group over gloo on a FileStore, the job; its result saved for the parent.
+
+    CUDA tensors of the parent come through ``shared_q`` (CUDA IPC), not as spawn arguments, which a process
+    keeps to its end: the rank drops them when the job returns, so that the parent can free them.
+    """
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(str(Path(tmp) / "store"), world), rank=rank,
+                            world_size=world)
+    try:
+        shared = [shared_q.get()] if shared_q is not None else []
+        result = RANK_JOBS[job](rank, world, *shared, *args)
+        del shared
+        torch.cuda.synchronize()
+        torch.save(result, Path(tmp) / f"rank{rank}.pt")
+        dist.barrier()
+    except BaseException:
+        # the parent's spawn reports one rank's error, often a peer's lost connection: show each rank's own
+        print(f"rank {rank} of {world} failed:", file=sys.stderr, flush=True)
+        traceback.print_exc()
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+class Ranks:
+    """``world`` spawned ranks running ``job``; ``join()`` returns their results by rank (it raises if one fails).
+
+    ``shared``, CUDA tensors of this process, goes to every rank by CUDA IPC as the job's first argument.
+    """
+
+    def __init__(self, job: str, world: int, *args, shared=None):
+        import tempfile
+
+        import torch.multiprocessing as mp
+
+        self.world, self.shared, self.t0 = world, shared, time.perf_counter()
+        shared_q = None
+        if shared is not None:
+            shared_q = mp.get_context("spawn").SimpleQueue()
+            for _ in range(world):
+                shared_q.put(shared)
+        self._queue = shared_q  # held until the join: a rank that starts late still opens its semaphore
+        self._tmp = tempfile.TemporaryDirectory()
+        self._ranks = mp.start_processes(_rank_entry, args=(world, self._tmp.name, job, args, shared_q),
+                                         nprocs=world, join=False, start_method="spawn")
+
+    def join(self):
+        """(the results by rank, the world's wall seconds from its spawn)."""
+        import multiprocessing
+
+        try:
+            while not self._ranks.join():
+                pass
+            out = [torch.load(Path(self._tmp.name) / f"rank{r}.pt", weights_only=False) for r in range(self.world)]
+        finally:
+            self._tmp.cleanup()
+        seconds = time.perf_counter() - self.t0
+        del self._ranks
+        multiprocessing.active_children()
+        if self.shared is not None:
+            self.shared = self._queue = None
+            torch.cuda.ipc_collect()  # the ranks have dropped the shared tensors: free this process's side
+        return out, seconds
+
+
+def _here():
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def timed_between_barriers(fn):
+    """(result, seconds on this rank's clock from one barrier to the next, the device work included)."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    return out, time.perf_counter() - t0
+
+
+def probe_job(rank, world):
+    """Both collectives of repro_torch.dist.collectives on CUDA tensors over gloo, float32 and bf16."""
+    from repro_torch.dist import collectives as coll
+    from repro_torch.launch.mesh import make_fleet_mesh
+
+    mesh = make_fleet_mesh()
+    x = torch.full((3,), float(rank + 1), device=_here())
+    s, g = coll.psum(x, mesh, ("data",)), coll.gather_axes(x, mesh, ("data",))
+    gb = coll.gather_axes(x.to(torch.bfloat16), mesh, ("data",))
+    return dict(mesh_device=mesh.device_type, device=str(s.device), psum=s.tolist(), gather=g.tolist(),
+                gather_bf16=gb.float().tolist())
+
+
+def report_probe(ranks):
+    want = [[float(r + 1)] * 3 for r in range(len(ranks))]
+    total = [float(sum(range(1, len(ranks) + 1)))] * 3
+    ok = all(r["psum"] == total and r["gather"] == want and r["gather_bf16"] == want
+             and r["device"].startswith("cuda") and r["mesh_device"] == "cuda" for r in ranks)
+    emit("dist.probe", backend="gloo", ranks=ranks,
+         note="all_reduce and the list form of all_gather on CUDA tensors, float32 and bf16, every rank on one card")
+    check(ok, f"dist.probe: gloo collectives on CUDA tensors gave {ranks}")
+
+
+def _dist_mesh():
+    from repro_torch.launch.mesh import make_test_mesh
+
+    return make_test_mesh(DIST_GRID, ("data", "model"))
+
+
+def _owned_tiles(dense, mesh, m):
+    """This rank's (Mp, Mq, m, m) block-cyclic tiles of a dense (n, n) matrix, as a view."""
+    from repro_torch.dist import collectives as coll
+
+    p, q = DIST_GRID
+    mp, mq = dense.shape[0] // (p * m), dense.shape[1] // (q * m)
+    pr, pc = coll.linear_index(mesh, ("data",)), coll.linear_index(mesh, ("model",))
+    return dense.view(mp, p, m, mq, q, m)[:, pr, :, :, pc, :].permute(0, 2, 1, 3)
+
+
+def _factor_error(local, l64, mesh):
+    """max |L - L64| over this rank's lower tiles (the diagonal tiles' lower triangles), and max |L| there."""
+    from repro_torch.dist import collectives as coll
+
+    p, q = DIST_GRID
+    mp, mq, m, _ = local.shape
+    pr, pc = coll.linear_index(mesh, ("data",)), coll.linear_index(mesh, ("model",))
+    ref = _owned_tiles(l64, mesh, m)
+    glob_k = torch.arange(mq, device=local.device) * q + pc
+    err = big = 0.0
+    for a in range(mp):
+        gi = a * p + pr
+        tile = local[a].double()                                     # (Mq, m, m)
+        want = ref[a]
+        keep = (glob_k < gi)[:, None, None] | ((glob_k == gi)[:, None, None]
+                                              & torch.ones(m, m, dtype=torch.bool, device=local.device).tril())
+        err = max(err, float(((tile - want).abs() * keep).max()))
+        big = max(big, float((tile.abs() * keep).max()))
+    return err, big
+
+
+def cholesky_job(rank, world, x, l64, k_spd, l64_spd):
+    """dist.cholesky: this rank's block of the MSD covariance, factored once (``unroll`` changes nothing in eager
+    torch: the CPU tests hold both values), then the bf16 update on the reference's well-conditioned test matrix
+    A A^T + n I (on the MSD covariance the bf16 update is not finite, as the reference's own at n = 1024)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.gp_msd import GP_DIST_32K
+    from repro_torch.core import distributed as dgp
+    from repro_torch.core import tiling
+    from repro_torch.core.kernels_math import SEKernelParams
+    from repro_torch.dist import collectives as coll
+    from repro_torch.kernels import ops
+
+    mesh = _dist_mesh()
+    m, n = GP_DIST_32K.tile_size, GP_DIST_32K.n_train
+    xc = tiling.pad_features(torch.from_numpy(x).to(_here()), m)
+    msd_local = dgp.local_covariance(mesh, xc, SEKernelParams.paper_defaults(), n)
+    spd_local = _owned_tiles(k_spd, mesh, m).contiguous()
+    rows = {}
+    for name, local, ref, kw in (("float32", msd_local, l64, {}),
+                                 ("bf16", spd_local, l64_spd, {"update_dtype": torch.bfloat16})):
+        fn = dgp.distributed_cholesky_fn(mesh, m_tiles=n // m, **kw)
+        ops.reset_launch_counts()
+        coll.reset_stats()
+        torch.cuda.reset_peak_memory_stats()
+        factor, seconds = timed_between_barriers(lambda: fn(local))
+        err, big = _factor_error(factor, ref, mesh)
+        rows[name] = dict(seconds=seconds, collective_host_s=coll.STATS["seconds"], collectives=coll.STATS["calls"],
+                          collective_bytes_sent=coll.STATS["bytes"], launches=ops.launch_counts(), max_abs_err=err,
+                          max_abs_factor=big, finite=bool(torch.isfinite(factor).all()),
+                          peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del factor
+        dist.barrier()
+    return dict(grid=[coll.linear_index(mesh, ("data",)), coll.linear_index(mesh, ("model",))], rows=rows)
+
+
+def predict_job(rank, world, x, y, xt):
+    """dist.predict: the distributed GP prediction with variances, timed and counted; then a second run, neither
+    timed nor counted, in which rank 0 keeps each kernel's widest launch."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.gp_msd import GP_DIST_32K
+    from repro_torch.core import distributed as dgp
+    from repro_torch.core import tiling
+    from repro_torch.core.kernels_math import SEKernelParams
+    from repro_torch.dist import collectives as coll
+    from repro_torch.kernels import ops
+
+    mesh = _dist_mesh()
+    m, n, nt = GP_DIST_32K.tile_size, GP_DIST_32K.n_train, GP_DIST_32K.n_test
+    dev = _here()
+    params = SEKernelParams.paper_defaults()
+    chunks = (tiling.pad_features(torch.from_numpy(x).to(dev), m), tiling.pad_vector(torch.from_numpy(y).to(dev), m),
+              tiling.pad_features(torch.from_numpy(xt).to(dev), m))
+    # warm the libraries, cuBLAS and the groups on 16 tiles before the timed call
+    small = dgp.distributed_gp_predict_fn(mesh, m_tiles=16, tile_size=m, n_valid=16 * m, n_test_valid=4 * m,
+                                          params=params)
+    small(chunks[0][:16], chunks[1][:16], chunks[2][:4])
+    fn = dgp.distributed_gp_predict_fn(mesh, m_tiles=n // m, tile_size=m, n_valid=n, n_test_valid=nt, params=params)
+    ops.reset_launch_counts()
+    coll.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (mean, var), seconds = timed_between_barriers(lambda: fn(*chunks))
+    out = dict(seconds=seconds, collective_host_s=coll.STATS["seconds"], collectives=coll.STATS["calls"],
+               collective_bytes_sent=coll.STATS["bytes"], launches=ops.launch_counts(),
+               peak_memory_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+               grid=[coll.linear_index(mesh, ("data",)), coll.linear_index(mesh, ("model",))])
+    with widest_launches() if rank == 0 else contextlib.nullcontext({}) as kept:
+        fn(*chunks)
+    # every rank's cached blocks go back to the card before rank 0 holds the kept launches to their plain versions
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        out["mean"], out["var"] = mean.reshape(-1)[:nt].cpu(), var.reshape(-1)[:nt].cpu()
+        out["plain"] = held_to_plain("dist.predict", kept, dev)
+    else:
+        out["digest"] = [float(mean.double().sum()), float(var.double().sum())]
+    return out
+
+
+def dense_factor(x, dev):
+    """(float64 factor of the SE covariance at the paper's defaults, max |L32 - L64| of the dense float32 one)."""
+    from repro_torch.core import kernels_math as km
+
+    p = km.SEKernelParams.paper_defaults()
+    k32 = km.assemble_covariance(torch.from_numpy(x).to(dev), p, dtype=None)
+    l64 = torch.linalg.cholesky(k32.double())
+    l32 = torch.linalg.cholesky(k32)
+    del k32
+    err32 = float((l32.double() - l64).abs().max())
+    del l32
+    torch.cuda.empty_cache()
+    return l64, err32
+
+
+def spd_factor(n, dev):
+    """The reference's bf16 test matrix at n: K = A A^T + n I (A standard normal, seed SEED, float32) and the
+    float64 factor of it (tests/test_distributed_gp.py::test_mixed_precision_distributed_cholesky)."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    a = torch.randn(n, n, generator=g, device=dev)
+    k = a @ a.T
+    del a
+    k.diagonal().add_(n)
+    l64 = torch.linalg.cholesky(k.double())
+    return k, l64
+
+
+def msd_data():
+    """data.msd: gp_dist_32k's train and test sets from repro_torch.data.msd, with the z-score checks."""
+    from repro_torch.configs.gp_msd import GP_DIST_32K as cfg
+    from repro_torch.data import msd
+
+    (x, y, xt, yt), t_data = wall_s(lambda: msd.make_dataset(cfg.n_train, cfg.n_test, seed=SEED))
+    z = dict(y_train_mean=float(y.mean()), y_train_std=float(y.std()), x_train_std=float(x.std()),
+             x_expected_std=float(1 / np.sqrt(2 * msd.MSDConfig().n_regressors)))
+    finite = all(np.isfinite(a).all() for a in (x, y, xt, yt))
+    emit("data.msd", config=f"{cfg.name} (src/repro/configs/gp_msd.py:18), MSDConfig() defaults, seed {SEED}",
+         seconds=t_data, shapes=[list(a.shape) for a in (x, y, xt, yt)], dtype=str(x.dtype), zscore=z, finite=finite,
+         note="repro_torch.data.msd.make_dataset: the RK4 on Python floats, in the reference's operation order")
+    check(finite and x.shape == (cfg.n_train, 16) and xt.shape == (cfg.n_test, 16), "data.msd: shapes or values")
+    check(abs(z["y_train_mean"]) < 0.05 and abs(z["y_train_std"] - 1) < 0.05
+          and abs(z["x_train_std"] / z["x_expected_std"] - 1) < 0.05, f"data.msd: not z-scored: {z}")
+    return x, y, xt, yt
+
+
+def report_cholesky(ranks, err32, scale):
+    """dist.cholesky: the float32 factors against PERF.md §2's rule, the bf16 update on A A^T + n I against the
+    reference's rule; the bf16 update on the MSD covariance is reported, not held (see its note)."""
+    from repro_torch.configs.gp_msd import GP_DIST_32K as cfg
+    from repro_torch.core import distributed as dgp
+
+    p, q = DIST_GRID
+    m_tiles = cfg.n_train // cfg.tile_size
+    want = [dgp.schedule_launches(m_tiles, p, q, pr, pc) for pr in range(p) for pc in range(q)]
+    bound = 2 * err32 + 1e-4 * scale
+    rows = {}
+    for name in ("float32", "bf16"):
+        per = [r["rows"][name] for r in ranks]
+        err = max(r["max_abs_err"] for r in per)
+        rows[name] = dict(seconds_rank0=per[0]["seconds"], max_abs_err=err, finite=all(r["finite"] for r in per),
+                          rel_err=err / max(r["max_abs_factor"] for r in per),
+                          collective_host_s=[r["collective_host_s"] for r in per],
+                          collectives=[r["collectives"] for r in per],
+                          collective_mib_sent=[r["collective_bytes_sent"] / 2**20 for r in per],
+                          launches=[r["launches"] for r in per], peak_memory_gib=[r["peak_memory_gib"] for r in per])
+        got = [{k: r["launches"][k] for k in MAIN_KERNELS} for r in per]
+        check(got == want, f"dist.cholesky {name}: launches {got} differ from the schedule's {want}")
+    emit("dist.cholesky", config=f"{cfg.name}: n = {cfg.n_train}, tile {cfg.tile_size} (M = {m_tiles}), SE at the "
+         f"paper's defaults, {p} x {q} grid of ranks on one card over gloo", rows=rows, schedule_launches=want,
+         dense_f32_err=err32, max_abs_l64=scale, bound=bound,
+         rule=f"float32: max|L - L64| <= 2 x dense float32 torch.linalg.cholesky error + 1e-4 max|L64|; bf16 update "
+              f"on A A^T + n I (the reference's test matrix, tests/test_distributed_gp.py): max|L - L64| / max|L| < "
+              f"{DIST_BF16_RTOL}",
+         note="P x Q ranks sharing one H100, not multi-GPU scaling")
+    check(rows["float32"]["max_abs_err"] <= bound, f"dist.cholesky: {rows['float32']['max_abs_err']} above {bound}")
+    check(rows["bf16"]["rel_err"] < DIST_BF16_RTOL, f"dist.cholesky bf16: relative error {rows['bf16']['rel_err']}")
+
+
+def report_predict(ranks, x, y, xt, yt, dev):
+    """dist.predict against a float64 dense solve (PERF.md §2's rule) and beside the single-card port."""
+    from repro_torch.configs.gp_msd import GP_DIST_32K as cfg
+    from repro_torch.core import GaussianProcess
+    from repro_torch.core import distributed as dgp
+
+    p, q = DIST_GRID
+    m_tiles = cfg.n_train // cfg.tile_size
+    mean_ref, var_ref = dense_reference(x, y, xt, dev)
+    mono = GaussianProcess(x, y, pipeline="monolithic", device=dev)
+    mono.predict(xt[:1024])  # warm
+    (mean_d, var_d), t_dense = wall_s(lambda: mono.predict_with_uncertainty(xt))
+    del mono
+    e, dense, mean_bound, var_bound = accuracy_bounds(mean_ref, var_ref, mean_d, var_d)
+    del mean_d, var_d
+    GaussianProcess(x[:4096], y[:4096], tile_size=1024, device=dev).predict_with_uncertainty(xt[:1024])  # warm
+    single = GaussianProcess(x, y, tile_size=1024, device=dev)
+    (mean_s, var_s), t_single = wall_s(lambda: single.predict_with_uncertainty(xt))
+    del single
+    torch.cuda.empty_cache()
+    mean, var = ranks[0]["mean"].to(dev), ranks[0]["var"].to(dev)
+    res = dict(mean_err=e(mean, mean_ref), var_err=e(var, var_ref), mean_err_single_card=e(mean_s, mean_ref),
+               var_err_single_card=e(var_s, var_ref), dist_vs_single_card_mean=max_err(mean, mean_s),
+               dist_vs_single_card_var=max_err(var, var_s), **dense, mean_bound=mean_bound, var_bound=var_bound,
+               test_rmse=float(((mean.double() - torch.from_numpy(yt).to(dev)) ** 2).mean().sqrt()))
+    digests = [float(mean.double().sum()), float(var.double().sum())]
+    same = all(r["digest"] == digests for r in ranks[1:])
+    want = [dgp.schedule_launches(m_tiles, p, q, pr, pc, predict=True) for pr in range(p) for pc in range(q)]
+    got = [{k: r["launches"][k] for k in MAIN_KERNELS} for r in ranks]
+    emit("dist.predict", config=f"{cfg.name}: n_train = {cfg.n_train}, n_test = {cfg.n_test}, tile {cfg.tile_size}, "
+         f"{p} x {q} grid, distributed_gp_predict_fn with variances", accuracy=res, bound_rule=BOUND_RULE,
+         replicated_on_every_rank=same,
+         seconds={"dist_4_ranks_rank0_between_barriers": ranks[0]["seconds"],
+                  "single_card_port_tiled_1024_cold": t_single, "dense_f32_monolithic_cold": t_dense},
+         collective_host_s=[r["collective_host_s"] for r in ranks], collectives=[r["collectives"] for r in ranks],
+         collective_mib_sent=[r["collective_bytes_sent"] / 2**20 for r in ranks],
+         launches=[r["launches"] for r in ranks], schedule_launches=want,
+         peak_memory_gib=[r["peak_memory_gib"] for r in ranks],
+         note="4 ranks share one H100 over gloo (host-staged collectives): the algorithm, not multi-GPU scaling")
+    check(got == want, f"dist.predict: launches {got} differ from the schedule's {want}")
+    check(same and bool(torch.isfinite(mean).all() and torch.isfinite(var).all()), "dist.predict: ranks disagree")
+    check(res["mean_err"] <= mean_bound and res["var_err"] <= var_bound, f"dist.predict outside the rule: {res}")
+    emit("dist.kernels", widest_launches=ranks[0]["plain"], tile=cfg.tile_size,
+         note="each kernel's widest launch on rank 0's path, against its plain version")
+    return ranks[0]["launches"], {k: r["max_abs_err"] for k, r in ranks[0]["plain"].items()}
+
+
+def _fleet_results(batch, xtb, ragged, shared, each, xa, ya, waves):
+    """fleet.sharded's calls on one GPBatch and one GPFleet: their results on the host, and their seconds."""
+    from repro_torch.serve import ContinuousBatcher
+
+    out, t = {}, {}
+    out["batch_cold"], t["batch_cold"] = wall_s(lambda: batch.predict_with_uncertainty(xtb))
+    out["batch_nlml"] = batch.nlml()
+    out["batch_warm"], t["batch_warm"] = wall_s(lambda: batch.predict(xtb))
+    out["ragged_cold"], t["ragged_cold"] = wall_s(lambda: ragged.predict_with_uncertainty(shared))
+    out["ragged_each"], t["ragged_each"] = wall_s(lambda: ragged.predict_each(each))
+    out["ragged_nlml"] = ragged.nlml()
+    _, t["ragged_update"] = wall_s(lambda: ragged.update(xa, ya))
+    out["ragged_warm"] = all(b.state is not None for b in ragged._buckets.values())
+    out["ragged_after"], t["ragged_after"] = wall_s(lambda: ragged.predict(shared))
+    srv, served = ContinuousBatcher(ragged), []
+    t0 = time.perf_counter()
+    for predicts, observes in waves:
+        for p, x, y in observes:
+            srv.submit_observe(p, x, y)
+        ids = [srv.submit_predict(p, x, uncertainty=q) for p, x, q in predicts]
+        srv.step()
+        srv.flush()
+        served += [srv.result(i) for i in ids]
+    t["serve_waves"] = time.perf_counter() - t0
+    out["served"] = served
+
+    def host(v):
+        if isinstance(v, torch.Tensor):
+            return v.cpu()
+        return type(v)(host(u) for u in v) if isinstance(v, (list, tuple)) else v
+
+    return {k: host(v) for k, v in out.items()}, t
+
+
+def fleet_sharded_job(rank, world, fleet_args):
+    """fleet.sharded: rank 0 runs the calls unsharded alone, then both ranks on a 2-rank data mesh, then rank 0
+    on a 1-rank mesh; the plan cache is read after each."""
+    import torch.distributed as dist
+
+    from repro_torch.core import GPBatch, GPFleet, executor
+    from repro_torch.launch.mesh import make_fleet_mesh
+
+    xb, yb, xtb, xs, ys, shared, each, xa, ya = fleet_args
+    meshes = {"none": None, "data2": make_fleet_mesh(2), "data1": make_fleet_mesh(1)}  # every rank makes each mesh
+    dev = _here()
+    waves = serve_traffic(len(xs), SEED, False)[:SHARDED_WAVES]
+    out, seconds, plans = {}, {}, {}
+    for name, mesh in meshes.items():
+        dist.barrier()
+        if rank != 0 and name != "data2":
+            continue
+        batch = GPBatch(xb, yb, tile_size=TILE, device=dev, mesh=mesh)
+        ragged = GPFleet(xs, ys, tile_size=TILE, device=dev, mesh=mesh)
+        torch.cuda.reset_peak_memory_stats()
+        out[name], seconds[name] = _fleet_results(batch, xtb, ragged, shared, each, xa, ya, waves)
+        out[name]["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out[name]["batch_rows"] = batch.posterior().lpacked.shape[0]
+        out[name]["ragged_rows"] = {cap: rec.state.lpacked.shape[0] for cap, rec in ragged._buckets.items()}
+        info = executor.program_plan.cache_info()
+        plans[name] = (info.misses, info.currsize)
+        del batch, ragged
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return dict(results=out, seconds=seconds, plans=plans)
+
+
+def dist_job(rank, world, factors, x, y, xt):
+    """The 4-rank world's jobs in order: the probe, the Cholesky (the reference factors come by CUDA IPC), the
+    prediction."""
+    out = {"probe": probe_job(rank, world)}
+    out["cholesky"] = cholesky_job(rank, world, x, *factors)
+    del factors
+    torch.cuda.empty_cache()
+    out["predict"] = predict_job(rank, world, x, y, xt)
+    return out
+
+
+SHARDED_RESULTS = ("batch_cold", "batch_nlml", "batch_warm", "ragged_cold", "ragged_each", "ragged_nlml", "ragged_after",
+                   "served")
+
+
+def _diff(a, b, rel: bool = False):
+    """(largest |a - b| (relative to |b| with ``rel``) over matching tensors, bitwise equal) of two results of one
+    structure."""
+    if rel:
+        return _diff(a / b.abs(), b / b.abs()) if isinstance(a, torch.Tensor) else _diff(a, b)
+    if isinstance(a, dict):
+        parts = [_diff(a[k], b[k]) for k in a if k in b]
+    elif isinstance(a, (list, tuple)):
+        parts = [_diff(u, v) for u, v in zip(a, b)]
+    elif isinstance(a, torch.Tensor):
+        return (max_err(a, b) if a.numel() else 0.0), torch.equal(a, b)
+    else:
+        return 0.0, a == b
+    return max([0.0] + [p[0] for p in parts]), all(p[1] for p in parts)
+
+
+SHARDED_RULE = ("bitwise equal where the launches keep their widths (a 1-rank mesh, replicated buckets); where "
+                "sharding narrows a launch, within SHARDED_FLEET_CARD_TOL = 5e-4 (means and variances absolute, NLMLs "
+                "relative), since the plain batched GEMV and triangular solves change their rounding with the problem "
+                "count (width_invariance; the tile kernels do not); the reference's 1e-5 is reported beside it "
+                "(within_1e_5) and is not met on the card")
+
+
+def width_invariance(dev):
+    """Each tile op on G tiles and on the first G/2 of them: is a tile's result the same whatever the launch's width?
+
+    At fleet.sharded's tile (512; a fleet of 16 against a rank's 8) and the distributed path's (128).
+    """
+    from repro_torch.core import kernels_math as km
+    from repro_torch.kernels import ops
+
+    out = {}
+    for m, g in ((512, 32), (128, 64)):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        a, b, c = (torch.randn(g, m, m, device=dev, generator=gen) / m**0.5 for _ in range(3))
+        spd = a @ a.mT + torch.eye(m, device=dev)
+        low = torch.linalg.cholesky(spd).contiguous()
+        xa, xb = (torch.randn(g, m, N_FEATURES, device=dev, generator=gen) / 4 for _ in range(2))
+        se = km.SEKernelParams.paper_defaults()
+        cases = {"potrf": lambda k: ops.potrf(spd[:k]), "trsm": lambda k: ops.trsm(low[:k], b[:k]),
+                 "trail": lambda k: ops.trail(c[:k], a[:k], b[:k]),
+                 "cov_tiles": lambda k: ops.cov_tiles(xa[:k], xb[:k], 0, 0, m, m, se, symmetric=False)}
+        for name, fn in cases.items():
+            whole, half = fn(g)[: g // 2], fn(g // 2)
+            out[f"{name}.m{m}"] = dict(widths=[g, g // 2], bitwise=torch.equal(whole, half),
+                                       max_abs_diff=max_err(whole, half))
+    # the plain batched contractions and solves of the executor's GEMV/TRSV steps, 16 problems against 8
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    z, g, m = 16, 4, 512
+    tiles = torch.randn(z, g, m, m, device=dev, generator=gen) / m
+    vec = torch.randn(z, g, m, device=dev, generator=gen)
+    low = torch.linalg.cholesky(tiles @ tiles.mT + torch.eye(m, device=dev)).contiguous()
+    plain = {"einsum zgab,zgb->zga": lambda k: torch.einsum("zgab,zgb->zga", tiles[:k], vec[:k]),
+             "einsum zgqab,zqb->zga": lambda k: torch.einsum("zgqab,zqb->zga", tiles[:k, None], vec[:k]),
+             "solve_triangular": lambda k: torch.linalg.solve_triangular(low[:k], vec[:k, ..., None], upper=False)}
+    for name, fn in plain.items():
+        whole, half = fn(z)[: z // 2], fn(z // 2)
+        out[name] = dict(problems=[z, z // 2], bitwise=torch.equal(whole, half), max_abs_diff=max_err(whole, half))
+    return out
+
+
+def fleet_sharded_args():
+    """fleet_batch's and fleet_ragged's data, and fleet.ragged's arrivals (two problems migrate)."""
+    from repro_torch.core import tiling
+
+    xb, yb, xtb, _ = fleet_data(FLEET_B, FLEET_N, FLEET_NT, SEED)
+    ns, xs, ys, shared, each = ragged_data()
+    assign = tiling.bucket_problems(ns, TILE)
+    rng = np.random.default_rng(SEED + 2)
+    arrive = [min(int(k), cap_of(assign, i) * TILE - int(ns[i])) for i, k in enumerate(rng.integers(0, 300, RAGGED_B))]
+    movers = [idx[-1] for cap, idx in assign.items() if cap < max(assign)][-2:]
+    for i in movers:
+        arrive[i] = cap_of(assign, i) * TILE - int(ns[i]) + 100
+    x_new, y_new, _, _ = make_data(sum(arrive), 1, N_FEATURES, SEED + 100)
+    cuts = np.cumsum([0] + arrive)
+    xa = [x_new[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    ya = [y_new[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    return (xb, yb, xtb, xs, ys, shared, each, xa, ya), assign, movers
+
+
+def report_fleet_sharded(ranks, assign, movers):
+    rows = {}
+    unsharded = ranks[0]["results"]["none"]
+    for r, res in enumerate(ranks):
+        for name in ("data2", "data1"):
+            if name in res["results"]:
+                got, want = res["results"][name], unsharded
+                by = {k: _diff(got[k], want[k], rel=k.endswith("nlml")) for k in SHARDED_RESULTS}
+                worst = max(d for d, _ in by.values())
+                rows[f"rank{r}.{name}"] = dict(max_diff=worst, bitwise=all(same for _, same in by.values()),
+                                               within_1e_5=worst <= SHARDED_FLEET_TOL,
+                                               by_result={k: d for k, (d, _) in by.items()})
+    plans_same = len({v for res in ranks for v in res["plans"].values()}) == 1
+    r0 = ranks[0]["results"]
+    widths = width_invariance(_here())
+    emit("fleet.sharded", config=f"fleet_batch ({FLEET_B} x {FLEET_N}, n_test {FLEET_NT}) and fleet_ragged ({RAGGED_B} "
+         f"sizes in [{RAGGED_LO}, {RAGGED_HI}], pow2 buckets, a migrating update, {SHARDED_WAVES} ContinuousBatcher "
+         f"waves), tile {TILE}, on a 2-rank ('data',) mesh and a 1-rank mesh, ranks sharing one card over gloo",
+         against_unsharded=rows, rule=SHARDED_RULE, width_invariance=widths,
+         plan_cache_by_mesh=[res["plans"] for res in ranks],
+         plan_cache_identical=plans_same, buckets={cap: len(idx) for cap, idx in assign.items()},
+         local_rows={"batch": {k: v["batch_rows"] for k, v in r0.items()},
+                     "ragged_after_update": {k: v["ragged_rows"] for k, v in r0.items()}},
+         migrated=movers, warm_after_update={k: v["ragged_warm"] for k, v in r0.items()},
+         seconds_by_rank=[res["seconds"] for res in ranks],
+         peak_memory_gib=[{k: v["peak_memory_gib"] for k, v in res["results"].items()} for res in ranks],
+         note="'none': rank 0 alone, unsharded; 'data2': both ranks at once on one card; 'data1': rank 0 alone")
+    check(rows["rank0.data1"]["bitwise"], f"fleet.sharded: a 1-rank mesh differs from no mesh: {rows}")
+    check(all(v["max_diff"] <= SHARDED_FLEET_CARD_TOL for v in rows.values()), f"fleet.sharded against unsharded: {rows}")
+    check(plans_same, f"fleet.sharded: the plan cache differs across world sizes: {[r['plans'] for r in ranks]}")
+    check(all(v["ragged_warm"] for v in r0.values()), "fleet.sharded: a bucket went cold in the update")
+
+
+def card_memory(before: str) -> None:
+    free, total = torch.cuda.mem_get_info()
+    emit("multi.memory", before=before, card_free_gib=free / 2**30, card_total_gib=total / 2**30,
+         parent_allocated_gib=torch.cuda.memory_allocated() / 2**30,
+         parent_reserved_gib=torch.cuda.memory_reserved() / 2**30)
+
+
+def phase_multi(dev):
+    """The multi-device phases: a 2-rank world (fleet.sharded) that runs while this process makes data.msd; a
+    4-rank world (dist.probe, dist.cholesky, dist.predict, dist.kernels); and the phases' wall time."""
+    t0 = time.perf_counter()
+    fleet_args, assign, movers = fleet_sharded_args()
+    card_memory("fleet.sharded")
+    fleet_world = Ranks("fleet_sharded", 2, fleet_args)
+    x, y, xt, yt = msd_data()
+    fleet_ranks, t_fleet = fleet_world.join()
+    report_fleet_sharded(fleet_ranks, assign, movers)
+    del fleet_args, fleet_world
+    torch.cuda.empty_cache()
+    l64, err32 = dense_factor(x, dev)
+    scale = float(l64.abs().max())
+    factors = (l64, *spd_factor(x.shape[0], dev))
+    card_memory("dist")
+    p, q = DIST_GRID
+    ranks, t_dist = Ranks("dist", p * q, x, y, xt, shared=factors).join()
+    del l64, factors
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    report_probe([r["probe"] for r in ranks])
+    report_cholesky([r["cholesky"] for r in ranks], err32, scale)
+    launches, errs = report_predict([r["predict"] for r in ranks], x, y, xt, yt, dev)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    emit("multi.total", seconds=seconds, budget_s=MULTI_BUDGET_S, over_budget_s=seconds - MULTI_BUDGET_S,
+         world_seconds={"dist": t_dist, "fleet_sharded": t_fleet},
+         note="the multi-device phases' wall time, the data and the references included, against the budget")
+    return launches, errs
+
+
+RANK_JOBS = {"dist": dist_job, "fleet_sharded": fleet_sharded_job}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA card")
@@ -3200,6 +3841,12 @@ def main() -> None:
     t_start = time.perf_counter()
     smi = phase_env()
     phase_build()
+    # multi-device first, while this process holds nothing on the card: gp_dist_32k's block-cyclic Cholesky and
+    # prediction on a 2 x 2 grid of ranks, then sharded fleets
+    launches_dist, errs_dist = phase_multi(dev)
+    if sys.argv[1:] == ["--only-multi"]:  # a quicker run of the multi-device phases alone; no contract line
+        emit("total", seconds=time.perf_counter() - t_start, note="--only-multi")
+        return
     x_train, y_train, x_test, y_test = make_data(N_TRAIN, N_TEST, N_FEATURES, SEED)
     emit("data", n_train=N_TRAIN, n_test=N_TEST, features=N_FEATURES, tile_size=TILE, seed=SEED,
          config="gp_16k (src/repro/configs/gp_msd.py:11)")
@@ -3274,6 +3921,8 @@ def main() -> None:
     phase_fleet_timing(xb, yb, xtb, dev)
     del xb, yb, xtb
 
+    errs_by_path["dist"] = errs_dist
+
     # gemma2-2b served at full width: the flash kernel, then the serving path
     rows["flash_attention"] = flash_phase(dev)
     model, cfg, prompts, launches_lm = phase_lm(dev)
@@ -3289,7 +3938,8 @@ def main() -> None:
     by_path = {"main": launches, "update": launches_update, "lowrank": launches_lowrank, "lm": launches_lm,
                "zoo": launches_zoo, "train": launches_train, "train_lowrank": launches_train_lowrank,
                "fleet": launches_fleet, "fleet_ragged": launches_ragged,
-               "fleet_ragged_lowrank": launches_ragged_lowrank}
+               "fleet_ragged_lowrank": launches_ragged_lowrank,
+               "dist": {k: launches_dist.get(k, 0) for k in NO_LAUNCHES}}
     kernels = [
         {"name": name, "launches": by_path[path_of[name]][name], **row,
          "launches_by_path": {path: counts[name] for path, counts in by_path.items()},

@@ -129,3 +129,18 @@ class ModelConfig:
     def _ffn_params(self, ff: int) -> int:
         mult = 3 if self.mlp in ("swiglu", "geglu") else 2
         return mult * self.d_model * ff
+
+
+@dataclasses.dataclass(frozen=True)
+class GPShapeConfig:
+    """Problem sizes of the paper's own (GP) cells: a copy of the JAX package's ``GPShapeConfig``."""
+
+    name: str
+    n_train: int
+    n_test: int
+    tile_size: int
+
+    @property
+    def m_tiles(self) -> int:
+        assert self.n_train % self.tile_size == 0
+        return self.n_train // self.tile_size

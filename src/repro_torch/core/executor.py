@@ -56,6 +56,7 @@ from repro_torch.core import kernels_math as km
 from repro_torch.core import scheduler as sch
 from repro_torch.core import tiling
 from repro_torch.device import resolve_device
+from repro_torch.dist import collectives as coll
 from repro_torch.kernels import ops
 
 
@@ -621,6 +622,7 @@ def run_program(
     batch_dispatch: str = "flat",
     kernel=None,
     device="cuda",
+    mesh=None,
 ) -> Dict[str, torch.Tensor]:
     """Execute the fused prediction pipeline as one multi-stage program.
 
@@ -638,7 +640,13 @@ def run_program(
     wider).  ``params`` leaves may be shared or (B,); ``n_valid`` /
     ``nt_valid`` may be (B,) int tensors of per-problem row counts (a
     ragged bucket): only the masked assembly reads them, on the device.
+
+    **Sharded fleets:** under a ``mesh`` (a ``DeviceMesh``) the buffers are
+    this rank's slice of B, as the caller gives them
+    (:mod:`repro_torch.dist.sharding`); the program and its Plan are the
+    same at every world size, and no collective runs inside it.
     """
+    coll.check_mesh(mesh, "run_program")
     dev = resolve_device(device)
     kernel = km.resolve_kernel(kernel)
     xc, xtc = torch.as_tensor(xc, device=dev), torch.as_tensor(xtc, device=dev)
@@ -925,6 +933,7 @@ def run_append(
     batch_dispatch: str = "flat",
     kernel=None,
     device="cuda",
+    mesh=None,
 ) -> torch.Tensor:
     """Solve one appended tile-row against the frozen factor.
 
@@ -944,7 +953,10 @@ def run_append(
     tiles followed by the factored corner.  The inputs are only read; the
     caller scatters the row into a grown or refilled copy of the store
     (``tiling.grow_packed_indices`` / ``tiling.replace_row_indices``).
+    Under a ``mesh`` the B axis is this rank's slice, as :func:`run_program`
+    takes it.
     """
+    coll.check_mesh(mesh, "run_append")
     dev = resolve_device(device)
     kernel = km.resolve_kernel(kernel)
     lpacked = torch.as_tensor(lpacked, device=dev)
@@ -1074,6 +1086,7 @@ def run_rank_update(
     n_streams: Optional[int] = None,
     batch_dispatch: str = "flat",
     device="cuda",
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blocked rank-b up/downdate: L' L'^T = L L^T + sign * W W^T.
 
@@ -1081,8 +1094,10 @@ def run_rank_update(
     tile-row; unused trailing columns of a rank-b < m carry must be zero),
     both with the optional leading problem axis B.  Works on copies of both
     and returns (new factor, final carry).  NaNs in the new factor signal a
-    failed (non-PD) downdate.
+    failed (non-PD) downdate.  Under a ``mesh`` the B axis is this rank's
+    slice, as :func:`run_program` takes it.
     """
+    coll.check_mesh(mesh, "run_rank_update")
     dev = resolve_device(device)
     lpacked = torch.as_tensor(lpacked, device=dev).clone()
     w = torch.as_tensor(w, device=dev).clone()

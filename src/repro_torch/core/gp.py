@@ -67,6 +67,8 @@ from repro_torch.core import predict as pred
 from repro_torch.core import tiling
 from repro_torch.core import update as upd
 from repro_torch.device import resolve_device
+from repro_torch.dist import collectives as coll
+from repro_torch.dist import sharding as sh
 
 
 def _params_key(params):
@@ -533,11 +535,6 @@ class GaussianProcess:
 # ---------------------------------------------------------------------------
 
 
-def _no_mesh(mesh, cls: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(f"{cls}(mesh=...): sharded fleets are not ported (ROADMAP.md queue 1, step 10)")
-
-
 def _validate_fleet_params(params, kernel, b: int, cls: str) -> None:
     """Every hyperparameter leaf: its base shape (shared) or (B,) + base (per problem)."""
     base = km.tree_leaves(kernel.base_ndims(params))
@@ -604,7 +601,16 @@ class GPBatch:
     under :func:`ieee_float32_matmul` on the card.  ``method="lowrank"``
     runs the fleet's Nystrom states as one batched build.
     ``batch_dispatch="vmap"`` launches once per problem (the reference's
-    second mode).  ``mesh=`` is not ported.
+    second mode).
+
+    ``mesh`` (a ``DeviceMesh`` with named dims, DESIGN.md §12) shards the
+    problem axis over its DP axes: every rank constructs the batch from the
+    same data and makes the same calls, runs the programs on its own
+    contiguous slice of B (the whole of B when no DP axis divides it), and
+    keeps the states of that slice.  ``predict*`` and ``nlml`` return the
+    global results on every rank, ``update``/``forget`` act on the slice and
+    keep it warm, and ``optimize`` fits the slice, then gathers the leaves.
+    The mesh is part of the cache key.
     """
 
     x_train: torch.Tensor
@@ -625,7 +631,7 @@ class GPBatch:
     jitter: Optional[float] = None
 
     def __post_init__(self):
-        _no_mesh(self.mesh, "GPBatch")
+        coll.check_mesh(self.mesh, "GPBatch")
         self.device = resolve_device(self.device)
         self.kernel = km.resolve_kernel(self.kernel)
         if self.params is None:
@@ -658,6 +664,24 @@ class GPBatch:
     def batch_size(self) -> int:
         return self.x_train.shape[0]
 
+    # -- this rank's slice under a mesh --------------------------------------
+
+    def _local(self, t):
+        """This rank's rows of a B-leading tensor (all of them without a mesh)."""
+        return sh.device_put_fleet(t, self.mesh)
+
+    def _local_params(self):
+        return sh.local_params(self.params, self.mesh, self.batch_size, self.kernel)
+
+    def _local_inducing(self):
+        if self.inducing is None or self.inducing.ndim == 2:
+            return self.inducing
+        return self._local(self.inducing)
+
+    def _gather(self, out):
+        """The global result (a tensor or a tuple) from this rank's slice."""
+        return sh.gather_tree(out, self.mesh, self.batch_size)
+
     # -- cached posterior ---------------------------------------------------
 
     def _cache_key(self):
@@ -666,7 +690,7 @@ class GPBatch:
             self.kernel, self._params_bytes(self.params), self.tile_size, self.n_streams,
             str(self.update_dtype), str(self.dtype), self.batch_dispatch, self.method,
             self.m_inducing, self.strategy, None if self.jitter is None else float(self.jitter),
-            None if self.inducing is None else (id(self.inducing), self.inducing._version),
+            None if self.inducing is None else (id(self.inducing), self.inducing._version), self.mesh,
         )
 
     def invalidate_cache(self) -> None:
@@ -694,12 +718,12 @@ class GPBatch:
             env, yc = pred.nlml_program_env(
                 self.x_train, self.y_train, self.params, self.tile_size, n_streams=self.n_streams,
                 update_dtype=self.update_dtype, dtype=self.dtype, batch_dispatch=self.batch_dispatch,
-                kernel=self.kernel, device=self.device,
+                kernel=self.kernel, device=self.device, mesh=self.mesh,
             )
             self._posterior = pred.PosteriorState(
                 lpacked=env["packed"], alpha=env["alpha"],
-                x_chunks=tiling.pad_features(self.x_train, self.tile_size, dtype=self.dtype),
-                n=self.x_train.shape[1], m=self.tile_size, params=self.params, beta=env["y"],
+                x_chunks=tiling.pad_features(self._local(self.x_train), self.tile_size, dtype=self.dtype),
+                n=self.x_train.shape[1], m=self.tile_size, params=self._local_params(), beta=env["y"],
                 y_chunks=yc, kernel=self.kernel,
             )
             self._posterior_key = key
@@ -715,8 +739,8 @@ class GPBatch:
             obs.inc("cache.lowrank.cold")
             self._lowrank = _lowrank_state_with_retry(
                 lambda jit: lowrank.lowrank_state(
-                    self.x_train, self.y_train, self.params, self.m_inducing, self.tile_size,
-                    strategy=self.strategy, inducing=self.inducing, jitter=jit,
+                    self._local(self.x_train), self._local(self.y_train), self._local_params(), self.m_inducing,
+                    self.tile_size, strategy=self.strategy, inducing=self._local_inducing(), jitter=jit,
                     n_streams=self.n_streams, update_dtype=self.update_dtype, dtype=self.dtype,
                     batch_dispatch=self.batch_dispatch, kernel=self.kernel, device=self.device,
                 ),
@@ -760,13 +784,13 @@ class GPBatch:
         self.y_train = torch.cat([self.y_train, y_new], dim=1)
         if self.method == "lowrank":
             self._move(state, "batch.update.lowrank", lambda st: lowrank.absorb(
-                st, x_new, y_new, sign=1, n_streams=self.n_streams, update_dtype=self.update_dtype,
-                batch_dispatch=self.batch_dispatch,
+                st, self._local(x_new), self._local(y_new), sign=1, n_streams=self.n_streams,
+                update_dtype=self.update_dtype, batch_dispatch=self.batch_dispatch,
             ))
         else:
             self._move(state, "batch.update", lambda st: st.extend(
                 x_new, y_new, n_streams=self.n_streams, update_dtype=self.update_dtype,
-                batch_dispatch=self.batch_dispatch,
+                batch_dispatch=self.batch_dispatch, mesh=self.mesh,
             ))
         return self
 
@@ -788,12 +812,12 @@ class GPBatch:
         self.x_train, self.y_train = self.x_train[:, k:], self.y_train[:, k:]
         if self.method == "lowrank":
             self._move(state, "batch.forget.lowrank", lambda st: lowrank.absorb(
-                st, x_old, y_old, sign=-1, n_streams=self.n_streams, update_dtype=self.update_dtype,
-                batch_dispatch=self.batch_dispatch,
+                st, self._local(x_old), self._local(y_old), sign=-1, n_streams=self.n_streams,
+                update_dtype=self.update_dtype, batch_dispatch=self.batch_dispatch,
             ))
         elif k % self.tile_size == 0:
-            self._move(state, "batch.forget",
-                       lambda st: st.shrink(k, n_streams=self.n_streams, batch_dispatch=self.batch_dispatch))
+            self._move(state, "batch.forget", lambda st: st.shrink(
+                k, n_streams=self.n_streams, batch_dispatch=self.batch_dispatch, mesh=self.mesh))
         else:
             self.invalidate_cache()
         return self
@@ -827,22 +851,23 @@ class GPBatch:
         """Cold: ONE batched fused program, which also fills the cache; warm: the batched tail."""
         x_test = self._prep(x_test)
         if self.method == "lowrank":
-            return lowrank.predict_from_lowrank_state(
-                self.lowrank_posterior(), x_test, full_cov=full_cov, n_streams=self.n_streams,
+            return self._gather(lowrank.predict_from_lowrank_state(
+                self.lowrank_posterior(), self._local(x_test), full_cov=full_cov, n_streams=self.n_streams,
                 batch_dispatch=self.batch_dispatch,
-            )
+            ))
         key = self._cache_key()
         if self._posterior is not None and self._posterior_key == key:
             obs.inc("cache.posterior.warm")
             return pred.predict_from_state_batched(
                 self._posterior, x_test, full_cov=full_cov, n_streams=self.n_streams,
-                batch_dispatch=self.batch_dispatch,
+                batch_dispatch=self.batch_dispatch, mesh=self.mesh,
             )
         obs.inc("cache.posterior.cold")
         result, state = pred.predict_fused_batched(
             self.x_train, self.y_train, x_test, self.params, self.tile_size, full_cov=full_cov,
             n_streams=self.n_streams, update_dtype=self.update_dtype, dtype=self.dtype,
             with_state=True, batch_dispatch=self.batch_dispatch, kernel=self.kernel, device=self.device,
+            mesh=self.mesh,
         )
         self._posterior, self._posterior_key = state, key
         return result
@@ -868,8 +893,8 @@ class GPBatch:
     def nlml(self) -> torch.Tensor:
         """The (B,) NLMLs from the cached stacked state (low-rank: whitened, as GaussianProcess)."""
         if self.method == "lowrank":
-            return lowrank.whitened_nlml(self.lowrank_posterior())
-        return mll.nlml_from_state(self.posterior(), self.y_train, dtype=self.dtype)
+            return self._gather(lowrank.whitened_nlml(self.lowrank_posterior()))
+        return self._gather(mll.nlml_from_state(self.posterior(), self._local(self.y_train), dtype=self.dtype))
 
     def log_marginal_likelihood(self) -> torch.Tensor:
         return -self.nlml()
@@ -877,15 +902,17 @@ class GPBatch:
     @_ieee_on_device
     def optimize(self, steps: int = 100, lr: float = 0.05) -> "GPBatch":
         """Adam on the B NLMLs side by side, independent moments per problem
-        (:func:`mll.optimize_hyperparameters_batched`); the leaves come back (B,)."""
-        self.params, _ = mll.optimize_hyperparameters_batched(
-            self.x_train, self.y_train, self.params, steps=steps, lr=lr, dtype=self.dtype,
-            method="lowrank" if self.method == "lowrank" else "tiled", tile_size=self.tile_size,
+        (:func:`mll.optimize_hyperparameters_batched`); the leaves come back (B,).
+        Under a mesh each rank fits its slice and the leaves are gathered."""
+        fitted, _ = mll.optimize_hyperparameters_batched(
+            self._local(self.x_train), self._local(self.y_train), self._local_params(), steps=steps, lr=lr,
+            dtype=self.dtype, method="lowrank" if self.method == "lowrank" else "tiled", tile_size=self.tile_size,
             n_streams=self.n_streams, update_dtype=self.update_dtype, batch_dispatch=self.batch_dispatch,
             kernel=self.kernel, m_inducing=self.m_inducing, strategy=self.strategy,
-            inducing=self.inducing if self.method == "lowrank" else None, jitter=self.jitter,
+            inducing=self._local_inducing() if self.method == "lowrank" else None, jitter=self.jitter,
             device=self.device,
         )
+        self.params = km.tree_map(self._gather, fitted)
         self.invalidate_cache()  # the factors belong to the old hyperparameters
         return self
 
@@ -929,9 +956,10 @@ def _index(idx, device) -> torch.Tensor:
     return km._to_device(torch.tensor(list(idx), dtype=torch.int64), device)
 
 
-def _padded_block(rows, idx) -> torch.Tensor:
-    """The bucket's blocks ``rows[i]`` (i in ``idx``), zero-padded along their first axis to the longest, stacked."""
-    b_max = max(rows[i].shape[0] for i in idx)
+def _padded_block(rows, idx, over=None) -> torch.Tensor:
+    """The bucket's blocks ``rows[i]`` (i in ``idx``), zero-padded along their first axis to the longest of
+    ``over`` (default ``idx``), stacked."""
+    b_max = max(rows[i].shape[0] for i in (idx if over is None else over))
     return torch.stack([
         torch.nn.functional.pad(rows[i], (0, 0) * (rows[i].ndim - 1) + (0, b_max - rows[i].shape[0])) for i in idx
     ])
@@ -965,7 +993,10 @@ class GPFleet:
     whitened form of ``GPBatch``'s low-rank NLML.
 
     The contract of :class:`GPBatch`; leaves shared or (B,) (gathered per
-    bucket).  ``mesh=`` is not ported.
+    bucket).  Under a ``mesh`` each bucket's problems are split over the DP
+    axes when its width divides, and replicated otherwise; every rank keeps
+    the states of its share, results are gathered per bucket, and a
+    migrating row that another rank holds comes over by a psum-mask.
     """
 
     x_train: Sequence            # length-B list of (n_i, D) or (n_i,) arrays
@@ -987,7 +1018,7 @@ class GPFleet:
     jitter: Optional[float] = None
 
     def __post_init__(self):
-        _no_mesh(self.mesh, "GPFleet")
+        coll.check_mesh(self.mesh, "GPFleet")
         if self.method not in ("exact", "lowrank"):
             raise ValueError(f"method must be 'exact' or 'lowrank', got {self.method!r}")
         if self.method == "lowrank" and self.m_inducing is None:
@@ -1057,11 +1088,20 @@ class GPFleet:
             self._version, self.kernel, self._params_bytes(self.params), self.tile_size,
             self.n_streams, str(self.update_dtype), str(self.dtype), self.batch_dispatch, bounds,
             self.method, self.m_inducing, self.strategy, None if self.jitter is None else float(self.jitter),
-            None if self.inducing is None else (id(self.inducing), self.inducing._version),
+            None if self.inducing is None else (id(self.inducing), self.inducing._version), self.mesh,
         )
 
     def invalidate_cache(self) -> None:
         self._buckets = {}
+
+    def _mine(self, idx) -> Tuple[int, ...]:
+        """This rank's share of a bucket's problems (all of them without a mesh, or when its width does not divide)."""
+        idx = tuple(idx)
+        return idx if self.mesh is None else idx[sh.fleet_spec(self.mesh, len(idx))]
+
+    def _gather(self, out, idx):
+        """A bucket's global result (a tensor or a tuple, rows in ``idx`` order) from this rank's share."""
+        return sh.gather_tree(out, self.mesh, len(idx))
 
     def _bucket_params(self, idx):
         """Per-problem leaves gathered at the bucket's rows; shared leaves pass through."""
@@ -1090,10 +1130,11 @@ class GPFleet:
             obs.inc("cache.bucket.warm")
             return rec.state
         obs.inc("cache.bucket.cold")
-        xs, ys, nv = self._stack(idx, cap_tiles)
-        bp = self._bucket_params(idx)
+        mine = self._mine(idx)
+        xs, ys, nv = self._stack(mine, cap_tiles)
+        bp = self._bucket_params(mine)
         if self.method == "lowrank":
-            ind = self._bucket_inducing(idx)
+            ind = self._bucket_inducing(mine)
             state = _lowrank_state_with_retry(
                 lambda jit: lowrank.lowrank_state(
                     xs, ys, bp, self.m_inducing, self.tile_size, strategy=self.strategy, inducing=ind,
@@ -1152,7 +1193,8 @@ class GPFleet:
         sigma = torch.zeros((b, nh, nh), dtype=self.dtype, device=self.device) if full_cov else None
         for cap, idx in self.bucket_assignment().items():
             state = self._bucket_state(cap, idx)
-            out = self._predict_bucket(state, x_test.expand((len(idx),) + x_test.shape), full_cov)
+            out = self._predict_bucket(state, x_test.expand((len(self._mine(idx)),) + x_test.shape), full_cov)
+            out = self._gather(out, idx)
             rows = _index(idx, self.device)
             if full_cov:
                 mean[rows], sigma[rows] = out
@@ -1207,9 +1249,12 @@ class GPFleet:
                     out[i] = (empty, empty_cov) if full_cov else empty
                 continue
             state = self._bucket_state(cap, idx)
+            mine = self._mine(idx)
             res = self._predict_bucket(
-                state, _padded_block(tests, idx), full_cov, torch.tensor(nts, dtype=torch.int32)
+                state, _padded_block(tests, mine, idx), full_cov,
+                torch.tensor([tests[i].shape[0] for i in mine], dtype=torch.int32),
             )
+            res = self._gather(res, idx)
             for pos, i in enumerate(idx):
                 k = nts[pos]
                 out[i] = (res[0][pos, :k], res[1][pos, :k, :k]) if full_cov else res[pos, :k]
@@ -1226,9 +1271,9 @@ class GPFleet:
             if self.method == "lowrank":
                 vals = lowrank.whitened_nlml(state, dtype=self.dtype)
             else:
-                _, ys, nv = self._stack(idx, cap)
+                _, ys, nv = self._stack(self._mine(idx), cap)
                 vals = mll.nlml_from_state(state, ys, dtype=self.dtype, n_valid=nv)
-            out[_index(idx, self.device)] = vals.to(self.dtype)
+            out[_index(idx, self.device)] = self._gather(vals.to(self.dtype), idx)
         return out
 
     def log_marginal_likelihood(self) -> torch.Tensor:
@@ -1243,11 +1288,12 @@ class GPFleet:
         the low-rank tier, the Nystrom NLML with the fleet's inducing
         options); the results are stacked into (B,) + base leaves, so a leaf
         that started shared comes back per problem.  The caches are
-        invalidated.
+        invalidated.  Under a mesh each rank fits its share of each bucket,
+        and the fitted leaves are gathered bucket by bucket.
         """
         lr_tier = self.method == "lowrank"
-        fitted = []
-        for i in range(self.batch_size):
+
+        def fit(i):
             pi = km.gather_params(self.params, i, self.kernel)
             ind = self.inducing
             if ind is not None and ind.ndim == 3:
@@ -1258,10 +1304,18 @@ class GPFleet:
                 update_dtype=self.update_dtype, kernel=self.kernel, m_inducing=self.m_inducing,
                 strategy=self.strategy, inducing=ind if lr_tier else None, jitter=self.jitter, device=self.device,
             )
-            fitted.append(new_pi)
-        self.params = km.tree_map(
-            lambda *leaves: torch.stack([torch.as_tensor(l, device=self.device) for l in leaves]), *fitted
-        )
+            return new_pi
+
+        def stack(trees):
+            return km.tree_map(lambda *leaves: torch.stack([torch.as_tensor(l, device=self.device) for l in leaves]),
+                               *trees)
+
+        fitted: List[object] = [None] * self.batch_size
+        for idx in (self.bucket_assignment().values() if self.mesh is not None else [range(self.batch_size)]):
+            got = km.tree_map(lambda l: self._gather(l, idx), stack([fit(i) for i in self._mine(idx)]))
+            for pos, i in enumerate(idx):
+                fitted[i] = km.tree_map(lambda l: l[pos], got)
+        self.params = stack(fitted)
         obs.inc("fleet.optimize")
         self.invalidate_cache()  # the factors belong to the old hyperparameters
         return self
@@ -1277,7 +1331,8 @@ class GPFleet:
         destination geometry as ``blockdiag(L, I)`` and extended there (the
         low-rank tier: a row gather of the mu-sized state, then one ragged
         absorb).  A cold or numerically failed bucket refactorizes on the
-        next call.
+        next call.  Under a mesh a migrating row that another rank holds
+        comes over by a psum-mask among the ranks that split the fleet.
         """
         b = self.batch_size
         if len(x_new_list) != b or len(y_new_list) != b:
@@ -1297,13 +1352,16 @@ class GPFleet:
         if not any(counts):
             return self
         old_key = self._cache_key()
-        # each problem's warm source row: i -> (cap_old, state, row position)
-        src: Dict[int, Tuple[int, object, int]] = {}
-        for cap, idx in self.bucket_assignment().items():
-            rec = self._buckets.get(cap)
-            if rec is not None and rec.key == old_key and rec.idx == tuple(idx) and rec.state is not None:
-                for pos, i in enumerate(idx):
-                    src[i] = (cap, rec.state, pos)
+        old_assign = self.bucket_assignment()
+        # the warm buckets (agreed by every rank under a mesh) and each problem's source in them
+        warm = {cap: self._warm(cap, idx, old_key) for cap, idx in old_assign.items()}
+        if self.mesh is not None:
+            flags = torch.tensor([int(w) for w in warm.values()], dtype=torch.int32, device=self.device)
+            agreed = sh.psum_dp(flags, self.mesh).tolist()
+            peers = len(sh.dp_peers(self.mesh))
+            warm = {cap: a == peers for cap, a in zip(warm, agreed)}
+        src = {i: (cap, pos) for cap, idx in old_assign.items() if warm[cap] for pos, i in enumerate(idx)}
+        old = {cap: self._buckets[cap].state for cap in old_assign if warm[cap]}
         old_ns = self.sizes
         for i in range(b):
             if counts[i]:
@@ -1317,23 +1375,24 @@ class GPFleet:
             state = None
             if all(i in src for i in idx):
                 try:
+                    rows = self._source_rows(cap, idx, src, old, old_assign)
+                    mine = self._mine(idx)
+                    rows = [rows[i] for i in mine]
+                    state = (self._lowrank_from_rows(cap, mine, rows, [old[src[i][0]] for i in mine]) if lr_tier
+                             else self._exact_from_rows(cap, mine, rows, old_ns))
                     cnt = [counts[i] for i in idx]
-                    if lr_tier:
-                        state = self._gather_lowrank_rows(cap, idx, src)
-                    else:
-                        state = self._transfer_bucket(cap, idx, src, old_ns)
                     if any(cnt):
-                        xa, ya = _padded_block(xn, idx), _padded_block(yn, idx)
                         if lr_tier:
+                            loc = [counts[i] for i in mine]
                             state = lowrank.absorb(
-                                state, xa, ya, torch.tensor(cnt, dtype=torch.int32), sign=1,
-                                n_streams=self.n_streams, update_dtype=self.update_dtype,
-                                batch_dispatch=self.batch_dispatch,
+                                state, _padded_block(xn, mine), _padded_block(yn, mine),
+                                torch.tensor(loc, dtype=torch.int32), sign=1, n_streams=self.n_streams,
+                                update_dtype=self.update_dtype, batch_dispatch=self.batch_dispatch,
                             )
                         else:
                             state = upd.extend_state_ragged(
-                                state, xa, ya, cnt, n_streams=self.n_streams, update_dtype=self.update_dtype,
-                                batch_dispatch=self.batch_dispatch,
+                                state, _padded_block(xn, idx), _padded_block(yn, idx), cnt, n_streams=self.n_streams,
+                                update_dtype=self.update_dtype, batch_dispatch=self.batch_dispatch, mesh=self.mesh,
                             )
                 except upd.CholeskyUpdateError:
                     obs.health_event("refactorize_fallback", site="fleet.update.lowrank" if lr_tier else "fleet.update",
@@ -1343,63 +1402,98 @@ class GPFleet:
         self._buckets = new_buckets
         return self
 
-    def _transfer_bucket(self, cap, idx, src, old_ns) -> pred.PosteriorState:
-        """A destination bucket's pre-append state from warm source rows.
+    def _warm(self, cap, idx, key) -> bool:
+        rec = self._buckets.get(cap)
+        return rec is not None and rec.key == key and rec.idx == tuple(idx) and rec.state is not None
 
-        A factor that crosses a geometry boundary is re-embedded as
-        blockdiag(L, I) (``tiling.embed_packed``, a gather); the chunk
-        stacks are zero-padded to the new capacity.
+    def _holders(self, cap_s, pos, old_assign):
+        """The DP ranks (indices into ``sh.dp_peers``) that hold row ``pos`` of old bucket ``cap_s``."""
+        width = len(old_assign[cap_s])
+        return [k for k, c in enumerate(sh.dp_peers(self.mesh))
+                if pos in range(width)[sh.slice_of(self.mesh, width, c)]]
+
+    def _source_rows(self, cap, idx, src, old, old_assign) -> Dict[int, Dict[str, torch.Tensor]]:
+        """Each problem of this rank's share of bucket ``cap``: its warm row in the new geometry, {field: tensor}.
+
+        A row the rank does not hold comes from the lowest DP rank that
+        does, by one psum-mask a field over the ranks that split the fleet
+        (every rank computes the same exchange from the assignment).
         """
-        fpad = torch.nn.functional.pad
-        lp, al, xc, be, yc = [], [], [], [], []
-        for i in idx:
-            cap_s, st, pos = src[i]
-            lpi = st.lpacked[pos]
-            if cap_s != cap:
-                lpi = tiling.embed_packed(lpi, cap_s, cap)
+        mine = self._mine(idx)
+        if self.mesh is None:
+            return {i: self._source_row(cap, i, src, old, old_assign) for i in mine}
+        peers = sh.dp_peers(self.mesh)
+        me = peers.index(coll.coordinates(self.mesh))
+        holders = {i: self._holders(*src[i], old_assign) for i in idx}
+        wanted = sorted({i for k, c in enumerate(peers)
+                         for i in tuple(idx)[sh.slice_of(self.mesh, len(idx), c)] if k not in holders[i]})
+        rows = {i: self._source_row(cap, i, src, old, old_assign) for i in mine if me in holders[i]}
+        if wanted:
+            sent = {i: self._source_row(cap, i, src, old, old_assign) for i in wanted if holders[i][0] == me}
+            template = next(iter(sent.values())) if sent else self._source_row(
+                cap, mine[0], src, old, old_assign, shape_only=True)
+            got = {}
+            for name, t in template.items():
+                buf = torch.zeros((len(wanted),) + tuple(t.shape), dtype=t.dtype, device=self.device)
+                for k, i in enumerate(wanted):
+                    if i in sent:
+                        buf[k] = sent[i][name]
+                got[name] = sh.psum_dp(buf, self.mesh)
+            for k, i in enumerate(wanted):
+                if i in mine and i not in rows:
+                    rows[i] = {name: v[k] for name, v in got.items()}
+        return rows
+
+    def _source_row(self, cap, i, src, old, old_assign, shape_only: bool = False) -> Dict[str, torch.Tensor]:
+        """Problem i's warm row moved into geometry ``cap`` (a factor re-embedded as blockdiag(L, I), chunk
+        stacks zero-padded; the low-rank tier's mu-sized pieces as they are).  ``shape_only`` gives zeros of
+        the row's shapes, for a rank that holds none of the rows it exchanges."""
+        cap_s, pos = src[i]
+        st = old[cap_s]
+        # the row's place in this rank's share of the old bucket (any row, for the shapes alone)
+        pos = 0 if shape_only else pos - self._mine(range(len(old_assign[cap_s])))[0]
+        if self.method == "lowrank":
+            row = {f: getattr(st, f)[pos] for f in _LOWRANK_ROW}
+            for f, default in (("mu_valid", st.m_inducing), ("n_valid", st.n)):
+                v = getattr(st, f)
+                row[f] = (v[pos].to(torch.int32) if isinstance(v, torch.Tensor)
+                          else torch.tensor(default if v is None else v, dtype=torch.int32, device=self.device))
+        else:
+            fpad = torch.nn.functional.pad
             pad = cap - cap_s
-            lp.append(lpi)
-            al.append(fpad(st.alpha[pos], (0, 0, 0, pad)))
-            be.append(fpad(st.beta[pos], (0, 0, 0, pad)))
-            yc.append(fpad(st.y_chunks[pos], (0, 0, 0, pad)))
-            xc.append(fpad(st.x_chunks[pos], (0, 0, 0, 0, 0, pad)))
-        nv = km._to_device(torch.tensor([old_ns[i] for i in idx], dtype=torch.int32), self.device)
+            lp = st.lpacked[pos]
+            row = {"lpacked": lp if cap_s == cap else tiling.embed_packed(lp, cap_s, cap),
+                   "alpha": fpad(st.alpha[pos], (0, 0, 0, pad)), "beta": fpad(st.beta[pos], (0, 0, 0, pad)),
+                   "y_chunks": fpad(st.y_chunks[pos], (0, 0, 0, pad)),
+                   "x_chunks": fpad(st.x_chunks[pos], (0, 0, 0, 0, 0, pad))}
+        return {k: torch.zeros_like(v) for k, v in row.items()} if shape_only else row
+
+    def _exact_from_rows(self, cap, mine, rows, old_ns) -> pred.PosteriorState:
+        """A destination bucket's pre-append state from its rows (transferred or migrated)."""
+        nv = km._to_device(torch.tensor([old_ns[i] for i in mine], dtype=torch.int32), self.device)
+        st = {f: torch.stack([r[f] for r in rows]) for f in rows[0]}
         return pred.PosteriorState(
-            lpacked=torch.stack(lp), alpha=torch.stack(al), x_chunks=torch.stack(xc),
-            n=cap * self.tile_size, m=self.tile_size, params=self._bucket_params(idx),
-            beta=torch.stack(be), y_chunks=torch.stack(yc), n_valid=nv, kernel=self.kernel,
+            lpacked=st["lpacked"], alpha=st["alpha"], x_chunks=st["x_chunks"], n=cap * self.tile_size,
+            m=self.tile_size, params=self._bucket_params(mine), beta=st["beta"], y_chunks=st["y_chunks"],
+            n_valid=nv, kernel=self.kernel,
         )
 
-    def _gather_lowrank_rows(self, cap, idx, src) -> lowrank.LowRankState:
+    def _lowrank_from_rows(self, cap, mine, rows, srcs) -> lowrank.LowRankState:
         """A destination bucket's pre-absorb low-rank state: a row gather of the warm sources.
 
         Every per-problem piece is mu-sized, so nothing is padded or
-        re-embedded.  The port's ``c_w`` is gathered with the rest, and the
-        (B,) frontiers are gathered on the device, never read on the host.
+        re-embedded; the frontiers are (B,) on the device, never read on the
+        host, and stay None where every source state's (``srcs``, one a row)
+        is (the sources' own choice, the same on every rank).
         """
-        rows = [src[i][1:] for i in idx]
-
-        def g(field):
-            return torch.stack([getattr(st, field)[pos] for st, pos in rows])
-
-        def frontier(field, default):
-            """A (B,) frontier from each source's own: its (B,) row, its int, or ``default(state)``."""
-            if all(getattr(st, field) is None for st, _ in rows):
-                return None
-            out = []
-            for st, pos in rows:
-                v = getattr(st, field)
-                if isinstance(v, torch.Tensor):
-                    out.append(v[pos].to(torch.int32))
-                else:
-                    out.append(torch.full((), default(st) if v is None else v, dtype=torch.int32, device=self.device))
-            return torch.stack(out)
-
+        st = {f: torch.stack([r[f] for r in rows]) for f in rows[0]}
         return lowrank.LowRankState(
-            u_chunks=g("u_chunks"), luu_packed=g("luu_packed"), b_packed=g("b_packed"),
-            lb_packed=g("lb_packed"), c_chunks=g("c_chunks"), gamma=g("gamma"), c_w=g("c_w"),
-            yty=g("yty"), n=cap * self.tile_size, m=self.tile_size, m_inducing=self.m_inducing,
-            params=self._bucket_params(idx), jitter=rows[0][0].jitter,
-            mu_valid=frontier("mu_valid", lambda st: st.m_inducing), n_valid=frontier("n_valid", lambda st: st.n),
-            kernel=self.kernel,
+            **{f: st[f] for f in _LOWRANK_ROW}, n=cap * self.tile_size, m=self.tile_size,
+            m_inducing=self.m_inducing, params=self._bucket_params(mine), jitter=srcs[0].jitter,
+            mu_valid=None if all(s.mu_valid is None for s in srcs) else st["mu_valid"],
+            n_valid=None if all(s.n_valid is None for s in srcs) else st["n_valid"], kernel=self.kernel,
         )
+
+
+# the per-problem pieces of a low-rank state that a migration moves
+_LOWRANK_ROW = ("u_chunks", "luu_packed", "b_packed", "lb_packed", "c_chunks", "gamma", "c_w", "yty")

@@ -47,6 +47,8 @@ from repro_torch.core import executor
 from repro_torch.core import kernels_math as km
 from repro_torch.core import tiling, triangular
 from repro_torch.device import resolve_device
+from repro_torch.dist import collectives as coll
+from repro_torch.dist import sharding as sh
 from repro_torch.kernels import ops
 
 
@@ -336,6 +338,7 @@ def predict_fused_batched(
     nt_valid=None,
     kernel=None,
     device="cuda",
+    mesh=None,
 ):
     """Fused prediction of B independent GPs in ONE problem-batched program.
 
@@ -347,9 +350,27 @@ def predict_fused_batched(
     ``nt_valid``, per-problem test counts (rows past a problem's count come
     back zero).  Returns mean (B, n̂), or ``(mean, sigma)`` with sigma
     (B, n̂, n̂); with ``with_state=True`` also the stacked PosteriorState.
+
+    **Sharded fleets:** under a ``mesh`` (a ``DeviceMesh``) every rank passes
+    the same global stacks, runs its own slice of B
+    (:mod:`repro_torch.dist.sharding`), and gets the global result, gathered
+    once; the state is the rank's slice.
     """
-    dev = resolve_device(device)
+    coll.check_mesh(mesh, "predict_fused_batched")
     kernel = km.resolve_kernel(kernel)
+    if mesh is not None:
+        bg = x_train.shape[0]
+        out = predict_fused_batched(
+            *(sh.device_put_fleet(torch.as_tensor(a), mesh) for a in (x_train, y_train, x_test)),
+            sh.local_params(params, mesh, bg, kernel), m, full_cov=full_cov, n_streams=n_streams,
+            update_dtype=update_dtype, dtype=dtype, with_state=with_state, batch_dispatch=batch_dispatch,
+            n_valid=sh.local_rows(n_valid, mesh, bg), nt_valid=sh.local_rows(nt_valid, mesh, bg),
+            kernel=kernel, device=device,
+        )
+        if not with_state:
+            return sh.gather_tree(out, mesh, bg)
+        return sh.gather_tree(out[0], mesh, bg), out[1]
+    dev = resolve_device(device)
     b, n, nh = x_train.shape[0], x_train.shape[1], x_test.shape[1]
     xc, yc, xtc = _prepare(x_train, y_train, x_test, m, dtype, dev)
     ragged = n_valid is not None
@@ -392,6 +413,7 @@ def predict_from_state_batched(
     dtype=None,
     nt_valid=None,
     batch_dispatch: str = "flat",
+    mesh=None,
 ):
     """Warm batched prediction from a stacked :class:`PosteriorState`.
 
@@ -401,8 +423,18 @@ def predict_from_state_batched(
     masks the cross covariance at each problem's own frontier: the padded
     feature rows are zeros, and an unmasked K_* column against them would
     be k(x̂, 0) != 0 against a factor that is identity there.  ``nt_valid``
-    (an int or (B,)) masks per-problem test counts.
+    (an int or (B,)) masks per-problem test counts.  Under a ``mesh`` the
+    state is this rank's slice of the fleet and x_test (B, n̂, D) the global
+    stack; the result is global, gathered once.
     """
+    coll.check_mesh(mesh, "predict_from_state_batched")
+    if mesh is not None:
+        bg = x_test.shape[0]
+        out = predict_from_state_batched(
+            state, sh.device_put_fleet(x_test, mesh), full_cov=full_cov, n_streams=n_streams, dtype=dtype,
+            nt_valid=sh.local_rows(nt_valid, mesh, bg), batch_dispatch=batch_dispatch,
+        )
+        return sh.gather_tree(out, mesh, bg)
     params, kernel, m = state.params, state.kernel, state.m
     dev = state.device
     obs.inc("predict.warm_tail_batched")
@@ -441,6 +473,7 @@ def nlml_program_env(
     n_valid=None,
     kernel=None,
     device="cuda",
+    mesh=None,
 ):
     """Run the NLML prefix of the fused program: the prediction program with zero test tiles.
 
@@ -453,17 +486,23 @@ def nlml_program_env(
     ``index_copy_``/``index_add_``, and the tile ops keep their gradients
     (:mod:`repro_torch.kernels.ops`).  Batched x_train (B, n, D) /
     y_train (B, n) give B factors and weight chunks; a ragged bucket passes
-    ``n_valid`` (B,).
+    ``n_valid`` (B,).  Under a ``mesh`` the stacks are global and the
+    environment (an internal state) holds this rank's slice of B.
     """
+    coll.check_mesh(mesh, "nlml_program_env")
     dev = resolve_device(device)
     kernel = km.resolve_kernel(kernel)
+    if mesh is not None and torch.as_tensor(x_train).ndim == 3:
+        bg = x_train.shape[0]
+        x_train, y_train = (sh.device_put_fleet(torch.as_tensor(a), mesh) for a in (x_train, y_train))
+        params, n_valid = sh.local_params(params, mesh, bg, kernel), sh.local_rows(n_valid, mesh, bg)
     n = x_train.shape[-2]
     xc, yc, _ = _prepare(x_train, y_train, None, m, dtype, dev)
     xtc = xc.new_zeros(xc.shape[:-3] + (0, m, xc.shape[-1]))
     env = executor.run_program(
         xc, yc, xtc, params, n if n_valid is None else _valid(n_valid, dev), 0,
         n_streams=n_streams, update_dtype=update_dtype, batch_dispatch=batch_dispatch,
-        kernel=kernel, device=dev,
+        kernel=kernel, device=dev, mesh=mesh,
     )
     return env, yc
 

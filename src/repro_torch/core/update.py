@@ -44,6 +44,8 @@ from repro_torch.core import executor
 from repro_torch.core import kernels_math as km
 from repro_torch.core import predict as pred
 from repro_torch.core import tiling, triangular
+from repro_torch.dist import collectives as coll
+from repro_torch.dist import sharding as sh
 
 
 class CholeskyUpdateError(RuntimeError):
@@ -75,8 +77,28 @@ def _live_chunks(state) -> Tuple[torch.Tensor, torch.Tensor]:
     return beta, yc
 
 
+def _row_beta(row, beta, y_row, r_tiles: int, batched: bool) -> torch.Tensor:
+    """beta_R = corner^{-1} (y_row - sum_{j<R} row_j beta_j) for the appended row R.
+
+    The prefix of a grown forward-triangular system never changes.  A
+    stacked fleet takes the tile products, then the sum over j, and solves
+    on a contiguous corner, so that each problem's result is the same
+    whatever B is (an einsum folds B into one product whose rounding changes
+    with B: a sharded fleet would differ from the unsharded one).  A single
+    GP takes one einsum.
+    """
+    corner = row[..., r_tiles, :, :]
+    if batched:
+        s = (row[..., :r_tiles, :, :] @ beta[..., :r_tiles, :, None]).sum(-3)[..., 0]
+        corner = corner.contiguous()
+    else:
+        s = torch.einsum("...jab,...jb->...a", row[..., :r_tiles, :, :], beta[..., :r_tiles, :])
+    rhs = (y_row - s).to(corner.dtype)[..., None]
+    return torch.linalg.solve_triangular(corner, rhs, upper=False)[..., 0]
+
+
 def _append_row(lpacked, xc, yc, beta, x_row, y_row, params, r_tiles, n_valid_new, grow, *,
-                n_streams, update_dtype, batch_dispatch, kernel):
+                n_streams, update_dtype, batch_dispatch, kernel, mesh=None):
     """One tile-row append: solve the row, repack the store, extend beta.
 
     Every operand may carry the leading problem axis B.  Returns new
@@ -87,14 +109,9 @@ def _append_row(lpacked, xc, yc, beta, x_row, y_row, params, r_tiles, n_valid_ne
     row = executor.run_append(
         lpacked, xc, x_row, params, r_tiles, n_valid_new,
         n_streams=n_streams, update_dtype=update_dtype, batch_dispatch=batch_dispatch,
-        kernel=kernel, device=dev,
+        kernel=kernel, device=dev, mesh=mesh,
     )
-    # beta_R = corner^{-1} (y_row - sum_{j<R} row_j beta_j): the prefix of a
-    # grown forward-triangular system never changes.
-    s = torch.einsum("...jab,...jb->...a", row[..., :r_tiles, :, :], beta[..., :r_tiles, :])
-    corner = row[..., r_tiles, :, :]
-    rhs = (y_row - s).to(corner.dtype)[..., None]
-    beta_new = torch.linalg.solve_triangular(corner, rhs, upper=False)[..., 0]
+    beta_new = _row_beta(row, beta, y_row, r_tiles, batched)
     axis = 1 if batched else 0
     if grow:
         idx = torch.from_numpy(tiling.grow_packed_indices(xc.shape[-3])).to(dev)
@@ -120,6 +137,7 @@ def extend_state(
     n_streams: Optional[int] = None,
     update_dtype=None,
     batch_dispatch: str = "flat",
+    mesh=None,
 ):
     """Absorb new observations into a cached posterior in O(n^2 b).
 
@@ -131,8 +149,12 @@ def extend_state(
     unchanged.  A partially padded trailing tile is refilled first
     (recomputing only that row), then whole new rows are appended, each
     O(n^2 m).  beta grows incrementally; alpha is re-solved with one O(n^2)
-    backward substitution at the end.
+    backward substitution at the end.  Under a ``mesh`` the stacked state
+    holds this rank's slice of the fleet and x_new, y_new are the global
+    (B, ...) stacks, of which the rank takes its rows
+    (:mod:`repro_torch.dist.sharding`).
     """
+    coll.check_mesh(mesh, "extend_state")
     m, dev = state.m, state.device
     dtype = state.x_chunks.dtype
     batched = state.x_chunks.ndim == 4
@@ -140,6 +162,8 @@ def extend_state(
     y_new = torch.as_tensor(y_new, device=dev).to(dtype)
     if x_new.ndim == (2 if batched else 1):  # 1-D problem convenience
         x_new = x_new[..., None]
+    if batched:
+        x_new, y_new = sh.device_put_fleet(x_new, mesh), sh.device_put_fleet(y_new, mesh)
     d = state.x_chunks.shape[-1]
     if x_new.ndim != (3 if batched else 2) or x_new.shape[-1] != d or y_new.shape != x_new.shape[:-1]:
         raise ValueError(
@@ -169,7 +193,7 @@ def extend_state(
         lpacked, xc, yc, beta = _append_row(
             lpacked, xc, yc, beta, x_row, y_row, state.params, r_tiles, n + take, grow,
             n_streams=n_streams, update_dtype=update_dtype, batch_dispatch=batch_dispatch,
-            kernel=state.kernel,
+            kernel=state.kernel, mesh=mesh,
         )
         n += take
         consumed += take
@@ -191,6 +215,7 @@ def extend_state_ragged(
     n_streams: Optional[int] = None,
     update_dtype=None,
     batch_dispatch: str = "flat",
+    mesh=None,
 ):
     """Absorb per-problem arrival counts into a ragged bucket's stacked state.
 
@@ -211,7 +236,12 @@ def extend_state_ragged(
     frontier lies below R reproduces identity padding, so one append plan
     per row serves every mix of arrivals.  Raises
     :class:`CholeskyUpdateError` when the refreshed weights go non-finite.
+    Under a ``mesh`` the state is this rank's slice of the bucket and
+    x_new, y_new, counts are the bucket's global stacks; the sweep's rows
+    are the whole bucket's (one gather of the frontiers), so every problem
+    recomputes the rows it would without the mesh.
     """
+    coll.check_mesh(mesh, "extend_state_ragged")
     if state.x_chunks.ndim != 4:
         raise ValueError("extend_state_ragged needs a stacked (B, ...) state")
     if state.n_valid is None:
@@ -225,6 +255,11 @@ def extend_state_ragged(
     if x_new.ndim == 2:  # 1-D problem convenience
         x_new = x_new[..., None]
     counts = torch.as_tensor(counts, dtype=torch.int64).reshape(-1).cpu()
+    sweep = None  # (old frontiers, counts) of the whole bucket, which fix the sweep's rows
+    if mesh is not None:
+        b_global = counts.shape[0]
+        sweep = (sh.gather_fleet(state.n_valid, mesh, b_global).to(torch.int64).cpu(), counts)
+        x_new, y_new, counts = (sh.local_rows(v, mesh, b_global) for v in (x_new, y_new, counts))
     if (
         x_new.ndim != 3 or x_new.shape[0] != bsz or x_new.shape[-1] != d
         or y_new.shape != x_new.shape[:-1] or counts.shape != (bsz,)
@@ -244,7 +279,8 @@ def extend_state_ragged(
             f"problems {over} would outgrow the bucket capacity {capacity}; migrate them "
             "to a larger geometry first (GPFleet does)"
         )
-    if not bool((counts > 0).any()):
+    n_all, c_all = (n_old, counts) if sweep is None else sweep
+    if not bool((c_all > 0).any()):
         return state
 
     beta, yc = _live_chunks(state)
@@ -260,16 +296,16 @@ def extend_state_ragged(
     yc = yf.reshape(bsz, m_store, m)
 
     # 2) recompute the affected tile-rows, lowest first, for the whole bucket
-    growing = counts > 0
-    r_lo = int(n_old[growing].min()) // m
-    r_hi = int((n_new[growing] - 1).max()) // m
+    growing = c_all > 0
+    r_lo = int(n_all[growing].min()) // m
+    r_hi = int((n_all + c_all - 1)[growing].max()) // m
     nv_new = n_new.to(torch.int32)
     nv_dev = km._to_device(nv_new, dev)
     for r in range(r_lo, r_hi + 1):
         lpacked, xc, yc, beta = _append_row(
             lpacked, xc, yc, beta, xc[:, r], yc[:, r], state.params, r, nv_dev, False,
             n_streams=n_streams, update_dtype=update_dtype, batch_dispatch=batch_dispatch,
-            kernel=state.kernel,
+            kernel=state.kernel, mesh=mesh,
         )
 
     alpha = triangular.backward_substitution(lpacked, beta, n_streams=n_streams, device=dev)
@@ -286,6 +322,7 @@ def shrink_state(
     *,
     n_streams: Optional[int] = None,
     batch_dispatch: str = "flat",
+    mesh=None,
 ):
     """Evict the k oldest observations from a cached posterior in O(n^2 k).
 
@@ -294,9 +331,10 @@ def shrink_state(
     leave at least one valid observation.  Each evicted column is a positive
     rank-m update of the trailing factor; beta and alpha are re-solved with
     one O(n^2) forward and backward substitution at the end.  A fleet's
-    stacked state evicts k rows of every problem.  The input state is
-    unchanged.
+    stacked state evicts k rows of every problem (under a ``mesh``, those of
+    the rank's slice).  The input state is unchanged.
     """
+    coll.check_mesh(mesh, "shrink_state")
     m, dev = state.m, state.device
     if k == 0:
         return state
@@ -318,7 +356,7 @@ def shrink_state(
         )
         lpacked, _ = executor.run_rank_update(
             lpacked.index_select(axis, trailing), lpacked.index_select(axis, evicted),
-            sign=1.0, n_streams=n_streams, batch_dispatch=batch_dispatch, device=dev,
+            sign=1.0, n_streams=n_streams, batch_dispatch=batch_dispatch, device=dev, mesh=mesh,
         )
     xc = state.x_chunks.narrow(axis, t, m_tiles - t).clone()
     yc = yc.narrow(axis, t, m_tiles - t).clone()

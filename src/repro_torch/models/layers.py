@@ -6,8 +6,8 @@ The counterpart of ``repro/models/layers.py``.  Parameters live in
 functions take the module where the JAX functions take the parameter dict.
 Norms and softmax-adjacent math run in float32 whatever the activation
 type, as in the reference.  The sharding hint ``constrain`` has no
-counterpart: it does nothing without a mesh, and meshes are ROADMAP.md
-queue 1 step 10.  Parameters do not require gradients: the port serves, it
+counterpart: it does nothing without a mesh, and the language model's meshes
+are ROADMAP.md queue 1 step 10b.  Parameters do not require gradients: the port serves, it
 does not train yet.
 """
 

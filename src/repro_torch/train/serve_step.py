@@ -7,7 +7,7 @@ returns ``decode(params, token, pos, caches)``: one token for every
 sequence of the batch against the caches, which it updates in place (the
 port's counterpart of the reference's ``donate_argnums``).  PyTorch runs
 eagerly, so nothing is compiled; both run under ``torch.no_grad()``.
-Meshes (the reference's ``mesh=``) are ROADMAP.md queue 1 step 10.
+Meshes (the reference's ``mesh=``) are ROADMAP.md queue 1 step 10b.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from repro_torch.models import transformer as tf
 
 def _no_mesh(mesh) -> None:
     if mesh is not None:
-        raise NotImplementedError("sharded serving is not ported (ROADMAP.md queue 1, step 10)")
+        raise NotImplementedError("sharded language-model serving is not ported (ROADMAP.md queue 1, step 10b)")
 
 
 def make_prefill_step(cfg: ModelConfig, mesh=None):

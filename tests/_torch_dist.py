@@ -1,0 +1,303 @@
+"""Spawned gloo worlds for the port's multi-device tests (torch only: the workers never import JAX).
+
+``World(fn, world, *args)`` starts ``world`` processes with
+``torch.multiprocessing.start_processes``; each initializes the default
+group over gloo on a ``FileStore`` of its own (no port to pick), calls
+``fn(rank, world, *args)`` and saves what it returns, and ``join()``
+returns the list by rank, so that the caller can work while the world
+runs.  A worker that raises fails the
+join, and so the caller; a world that outlives ``timeout`` seconds from its
+start is killed.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+import time
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def _entry(rank, world, tmp, fn, args):
+    torch.set_num_threads(1)
+    store = dist.FileStore(os.path.join(tmp, "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    try:
+        torch.save(fn(rank, world, *args), os.path.join(tmp, f"out{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+class World:
+    """A spawned gloo world running ``fn(rank, world, *args)`` on every rank."""
+
+    def __init__(self, fn, world: int, *args, timeout: float = 120.0):
+        self.world, self.timeout = world, timeout
+        self._tmp = tempfile.TemporaryDirectory()
+        self._ctx = mp.start_processes(_entry, args=(world, self._tmp.name, fn, args), nprocs=world, join=False,
+                                       start_method="spawn")
+        self._deadline = time.monotonic() + timeout
+
+    def join(self):
+        """Every rank's result, by rank; kills the world and raises past the deadline."""
+        try:
+            while not self._ctx.join(timeout=1.0):
+                if time.monotonic() > self._deadline:
+                    self.kill()
+                    raise TimeoutError(f"the {self.world}-rank world did not finish in {self.timeout} s")
+            return [torch.load(os.path.join(self._tmp.name, f"out{r}.pt"), weights_only=False)
+                    for r in range(self.world)]
+        finally:
+            self._tmp.cleanup()
+
+    def kill(self):
+        for p in self._ctx.processes:
+            if p.is_alive():
+                p.kill()
+
+
+# ---------------------------------------------------------------------------
+# The sharded-fleet cases, run by every rank of a 4-rank world
+# ---------------------------------------------------------------------------
+
+# pow2 buckets at tile 16: one tile {3, 4, 5, 6} (splits over data = 2), two tiles {0, 1, 2} (replicated).
+# Problem 3 migrates (10 + 8 = 18 rows) from rank data 0's half of the first into the second's new data-1 half:
+# afterwards {4, 5, 6} replicate and {0, 1, 2, 3} split.  The batcher's observations migrate nothing.
+FLEET_SIZES = (20, 26, 25, 10, 8, 12, 14)
+FLEET_ARRIVALS = (3, 0, 4, 8, 0, 1, 2)
+FLEET_TESTS = (3, 0, 5, 2, 4, 1, 6)
+
+
+def fleet_data(seed: int = 1, d: int = 2):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    xs = [rng.standard_normal((n, d)).astype(np.float32) for n in FLEET_SIZES]
+    ys = [rng.standard_normal(n).astype(np.float32) for n in FLEET_SIZES]
+    xt = rng.standard_normal((6, d)).astype(np.float32)
+    tests = [rng.standard_normal((k, d)).astype(np.float32) for k in FLEET_TESTS]
+    xa = [rng.standard_normal((k, d)).astype(np.float32) for k in FLEET_ARRIVALS]
+    ya = [rng.standard_normal(k).astype(np.float32) for k in FLEET_ARRIVALS]
+    return xs, ys, xt, tests, xa, ya
+
+
+def fleet_lowrank_options():
+    """The low-rank fleet's options: 8 pinned inducing points."""
+    import numpy as np
+
+    u = np.random.default_rng(4).standard_normal((8, 2)).astype(np.float32)
+    return dict(method="lowrank", m_inducing=8, inducing=u)
+
+
+def batch_data(b: int, n: int = 48, d: int = 3, seed: int = 0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, n, d)).astype(np.float32)
+    y = rng.standard_normal((b, n)).astype(np.float32)
+    xt = rng.standard_normal((8, d)).astype(np.float32)
+    xa = rng.standard_normal((b, 16, d)).astype(np.float32)
+    ya = rng.standard_normal((b, 16)).astype(np.float32)
+    return x, y, xt, xa, ya
+
+
+def _np(t):
+    """Tensors (torch or JAX) to numpy arrays, through tuples and lists."""
+    import numpy as np
+
+    if isinstance(t, (tuple, list)):
+        return type(t)(_np(v) for v in t)
+    if hasattr(t, "detach"):
+        return t.detach().cpu().numpy()
+    return np.asarray(t) if hasattr(t, "__array__") else t
+
+
+def batch_case(gp_cls_kwargs, b, mesh):
+    """GPBatch: cold predict with uncertainty, nlml, a warm update and a warm predict."""
+    from repro_torch.core import GPBatch
+
+    x, y, xt, xa, ya = batch_data(b)
+    gp = GPBatch(x, y, tile_size=16, device="cpu", mesh=mesh, **gp_cls_kwargs)
+    out = {"cold": _np(gp.predict_with_uncertainty(xt)), "nlml": _np(gp.nlml())}
+    gp.update(xa, ya)
+    out["warm_after_update"] = gp._cache_warm() or gp._lowrank_warm()
+    out["after_update"] = _np(gp.predict(xt))
+    out["local_rows"] = (gp._posterior or gp._lowrank).x_chunks.shape[0] if hasattr(
+        gp._posterior or gp._lowrank, "x_chunks") else gp._lowrank.u_chunks.shape[0]
+    return out
+
+
+def fleet_case(mesh, **kw):
+    """GPFleet: predict with uncertainty, predict_each, nlml, then a migrating update and predict."""
+    from repro_torch.core import GPFleet
+
+    xs, ys, xt, tests, xa, ya = fleet_data()
+    fleet = GPFleet(xs, ys, tile_size=16, device="cpu", mesh=mesh, **kw)
+    out = {"cold": _np(fleet.predict_with_uncertainty(xt)), "each": _np(fleet.predict_each(tests)),
+           "nlml": _np(fleet.nlml())}
+    fleet.update(xa, ya)
+    out["warm_after_update"] = all(rec.state is not None for rec in fleet._buckets.values())
+    out["after_update"] = _np(fleet.predict(xt))
+    out["local_widths"] = {cap: int(rec.state.lpacked.shape[0] if hasattr(rec.state, "lpacked")
+                                    else rec.state.u_chunks.shape[0]) for cap, rec in fleet._buckets.items()}
+    return out, fleet
+
+
+def serve_case(fleet, batcher_cls=None):
+    """Two waves of ``batcher_cls`` (the port's ContinuousBatcher) over a fleet: predictions, then observations
+    and predictions."""
+    import numpy as np
+
+    if batcher_cls is None:
+        from repro_torch.serve import ContinuousBatcher as batcher_cls
+
+    rng = np.random.default_rng(5)
+    batcher = batcher_cls(fleet)
+    results = []
+    for wave in range(2):
+        handles = [batcher.submit_predict(i, rng.standard_normal((2, 2)).astype(np.float32))
+                   for i in range(0, fleet.batch_size, 2)]
+        for i in range(1, fleet.batch_size, 3):
+            batcher.submit_observe(i, rng.standard_normal((3, 2)).astype(np.float32),
+                                   rng.standard_normal(3).astype(np.float32))
+        batcher.step()
+        results.append([_np(batcher.result(h)) for h in handles])
+    return results
+
+
+def sharded_fleet_world(rank, world, with_mesh: bool):
+    """Every case of tests/test_torch_sharded_fleet.py on this rank (``with_mesh`` False: the unsharded port)."""
+    from repro_torch.core import GPBatch, executor
+    from repro_torch.launch.mesh import make_fleet_mesh, make_test_mesh
+    from repro_torch.train import make_gp_serve_step, make_gp_train_step
+
+    data4 = make_fleet_mesh() if with_mesh else None                 # ("data",) over 4 ranks
+    grid = make_test_mesh((2, 2), ("data", "model")) if with_mesh else None
+    one = make_fleet_mesh(1) if with_mesh else None
+    out = {}
+    x, y, xt, _, _ = batch_data(4)
+    GPBatch(x, y, tile_size=16, device="cpu").predict(xt)            # the unsharded plans first
+    plans_before = executor.program_plan.cache_info()
+    out["batch4"] = batch_case({}, 4, data4)
+    out["batch6"] = batch_case({}, 6, data4)
+    out["plans_same"] = executor.program_plan.cache_info().misses == plans_before.misses
+    out["batch4_lowrank"] = batch_case({"method": "lowrank", "m_inducing": 16}, 4, data4)
+    out["fleet"], fleet = fleet_case(grid)
+    out["fleet_lowrank"], _ = fleet_case(grid, **fleet_lowrank_options())
+    out["serve"] = serve_case(fleet)
+    serve, sh = make_gp_serve_step(GPBatch(x, y, tile_size=16, device="cpu"), data4, uncertainty=True)
+    out["serve_step"] = _np(serve(xt))
+    out["serve_shardings"] = None if sh is None else (str(sh["x_test"]), sh["batch_axes"])
+    train, _ = make_gp_train_step(GPBatch(x, y, tile_size=16, device="cpu"), data4, lr=0.05)
+    out["train_step"] = _np(train(steps=2))
+    plans = executor.program_plan.cache_info()
+    out["plans"] = (plans.misses, plans.currsize)
+    if with_mesh and rank == 0:                                    # a 1-rank mesh: rank 0 alone is on it
+        out["batch4_one"] = batch_case({}, 4, one)
+    if with_mesh:
+        out["checks"] = extra_fleet_checks(rank, world)
+    return out
+
+
+def extra_fleet_checks(rank, world):
+    """Mesh validation, the step factories' refusals, and a single GP under a mesh (returns what raised)."""
+    from repro_torch.core import GaussianProcess, GPFleet
+    from repro_torch.launch.mesh import make_fleet_mesh
+    from repro_torch.train import attach_mesh, make_gp_serve_step, make_gp_train_step
+
+    out = {}
+    for n in (0, world + 1):
+        try:
+            make_fleet_mesh(n)
+            out[f"fleet_mesh_{n}"] = "no error"
+        except ValueError as e:
+            out[f"fleet_mesh_{n}"] = f"ValueError: {e}"
+    mesh = make_fleet_mesh()
+    xs, ys, _, tests, _, _ = fleet_data()
+    fleet = GPFleet(xs[:2], ys[:2], tile_size=16, device="cpu")
+    serve, sh = make_gp_serve_step(fleet, mesh)
+    out["fleet_mesh_installed"] = fleet.mesh is mesh and sh == {"mesh": mesh}
+    out["fleet_serve_each"] = [o.shape[0] for o in serve(tests[:2])]
+    train, _ = make_gp_train_step(fleet, mesh)
+    try:
+        train()
+        out["fleet_train"] = "no error"
+    except NotImplementedError:
+        out["fleet_train"] = "NotImplementedError"
+    gp = GaussianProcess(xs[1], ys[1], tile_size=16, device="cpu")
+    serve1, sh1 = make_gp_serve_step(gp, mesh)
+    out["single"] = (sh1, _np(serve1(tests[0])), _np(GaussianProcess(xs[1], ys[1], tile_size=16,
+                                                                   device="cpu").predict(tests[0])))
+    try:
+        attach_mesh(fleet, object())
+        out["attach_bad"] = "no error"
+    except TypeError:
+        out["attach_bad"] = "TypeError"
+    return out
+
+
+def distributed_world(rank, world):
+    """The block-cyclic Cholesky and predict cases of tests/test_torch_distributed.py on this rank."""
+    import numpy as np
+    import torch
+    from repro_torch.core import distributed as dist_gp
+    from repro_torch.core import tiling
+    from repro_torch.core.kernels_math import SEKernelParams
+    from repro_torch.launch.mesh import make_test_mesh
+
+    rng = np.random.default_rng(2)
+    n, m = 128, 16
+    a = rng.standard_normal((n, n)).astype(np.float32)
+    k = a @ a.T + n * np.eye(n, dtype=np.float32)
+    tiles = tiling.tile_dense(torch.from_numpy(k), m)
+    out = {"K": k}
+    grids = {"2x2": (make_test_mesh((2, 2), ("data", "model")), ("data",), ("model",)),
+             "4x1": (make_test_mesh((4, 1), ("data", "model")), ("data",), ("model",)),
+             "pod2x2": (make_test_mesh((2, 1, 2), ("pod", "data", "model")), ("pod", "data"), ("model",))}
+
+    def factor(name, unroll=False, update_dtype=None):
+        mesh, rows, cols = grids[name]
+        p, q = dist_gp.grid_shape(mesh, rows, cols)
+        fn = dist_gp.distributed_cholesky_fn(mesh, m_tiles=n // m, row_axes=rows, col_axes=cols, unroll=unroll,
+                                             update_dtype=update_dtype)
+        local = fn(dist_gp.local_block(dist_gp.to_cyclic_layout(tiles, p, q), mesh, rows, cols))
+        cyc = dist_gp.collect_blocks(local, mesh, rows, cols)
+        return np.tril(tiling.untile_dense(dist_gp.from_cyclic_layout(cyc, p, q)).numpy())
+
+    for name in ("2x2", "4x1"):
+        for unroll in (False, True):
+            out[f"L_{name}_{unroll}"] = factor(name, unroll)
+    out["L_pod2x2"] = factor("pod2x2")
+    out["L_bf16"] = factor("2x2", update_dtype=torch.bfloat16)
+
+    ntr, nte = 128, 32
+    x = rng.standard_normal((ntr, 3)).astype(np.float32)
+    y = rng.standard_normal(ntr).astype(np.float32)
+    xt = rng.standard_normal((nte, 3)).astype(np.float32)
+    out["data"] = (x, y, xt)
+    params = SEKernelParams.paper_defaults()
+    args = (tiling.pad_features(torch.from_numpy(x), m), tiling.pad_vector(torch.from_numpy(y), m),
+            tiling.pad_features(torch.from_numpy(xt), m))
+    mesh = grids["2x2"][0]
+    pfn = dist_gp.distributed_gp_predict_fn(mesh, m_tiles=ntr // m, tile_size=m, n_valid=ntr, n_test_valid=nte,
+                                            params=params)
+    out["predict"] = tuple(t.numpy() for t in pfn(*args))
+    out["mean_only"] = dist_gp.distributed_gp_predict_fn(
+        mesh, m_tiles=ntr // m, tile_size=m, n_valid=ntr, n_test_valid=nte, params=params, variances=False,
+        unroll=True)(*args).numpy()
+    refused = []
+    for make in (lambda: dist_gp.distributed_cholesky_fn(mesh, m_tiles=7),
+                 lambda: dist_gp.distributed_gp_predict_fn(grids["4x1"][0], m_tiles=6, tile_size=m, n_valid=96,
+                                                           n_test_valid=nte, params=params),
+                 lambda: pfn(args[0], args[1], torch.cat([args[2], args[2][:1]]))):  # 3 test tiles, Q = 2
+        try:
+            make()
+            refused.append("no error")
+        except ValueError as e:
+            refused.append(str(e))
+    out["refused"] = refused
+    return out

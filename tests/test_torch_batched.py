@@ -280,7 +280,7 @@ def test_validation_and_shared_test_points():
         GPBatch(x[0], y, device=CPU)
     with pytest.raises(ValueError, match="per-problem"):
         GPBatch(x, y, params=SEKernelParams(torch.ones(2), 1.0, 0.1), device=CPU)
-    with pytest.raises(NotImplementedError, match="step 10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         GPBatch(x, y, mesh=object(), device=CPU)
     fleet = GPBatch(x, y, tile_size=M, device=CPU)
     shared = fleet.predict(xt[0])

@@ -235,7 +235,7 @@ def test_fleet_validation_and_unported_options():
         GPFleet(xs, ys, method="lowrank", device=CPU)
     with pytest.raises(ValueError, match="inducing must be"):
         GPFleet(xs, ys, method="lowrank", m_inducing=4, inducing=np.zeros((3, D)), device=CPU)
-    with pytest.raises(NotImplementedError, match="step 10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         GPFleet(xs, ys, mesh=object(), device=CPU)
     with pytest.raises(ValueError, match="share D"):
         GPFleet([xs[0], np.zeros((4, 3))], [ys[0], np.zeros(4)], device=CPU)

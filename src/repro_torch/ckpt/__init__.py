@@ -1,0 +1,5 @@
+"""Checkpointing substrate (the counterpart of ``repro/ckpt``)."""
+
+from repro_torch.ckpt.checkpoint import CheckpointManager
+
+__all__ = ["CheckpointManager"]

@@ -132,6 +132,20 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One language-model shape cell: a copy of the JAX package's ``ShapeConfig``."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+@dataclasses.dataclass(frozen=True)
 class GPShapeConfig:
     """Problem sizes of the paper's own (GP) cells: a copy of the JAX package's ``GPShapeConfig``."""
 

@@ -227,3 +227,67 @@ def lm_params_from_numpy(tree, cfg, device="cuda"):
         for name, p in model.named_parameters():
             p.copy_(loaded[name])
     return model
+
+
+def lm_opt_state_from_numpy(tree, params, optimizer):
+    """The port's optimizer state from the reference's, for the port's ``params`` (a ``Transformer``).
+
+    ``tree`` is the JAX package's ``Adam`` state (``m``, ``v``: parameter
+    trees; ``step``) or ``Adafactor`` state (``v``: a parameter tree of
+    ``{"vr", "vc"}`` or ``{"v"}`` leaves; ``step``) with numpy leaves.
+    Layer ``l`` takes ``groups[l % len(pattern)]`` at cycle ``l //
+    len(pattern)``, the tail after, as :func:`lm_params_from_numpy`.  Every
+    moment lands on its parameter's device, float32.
+    """
+    from repro_torch.optim import Adafactor, Adam
+    from repro_torch.tree import leaves_with_paths, path_str
+
+    cfg = params.cfg
+    named = dict(params.named_parameters())
+    plen = len(cfg.pattern)
+    n_cycled = cfg.n_layers // plen * plen
+
+    def by_name(ptree, leaf_keys=None):
+        """name -> moment (or, with ``leaf_keys``, name -> {key: moment}) from a parameter-shaped tree."""
+        out = {}
+
+        def take(val, index):
+            a = np.asarray(val)
+            return torch.from_numpy(np.array(a if index is None else a[index], dtype=np.float32))
+
+        def walk(prefix, sub, index):
+            for key, val in sub.items():
+                name = f"{prefix}{key}"
+                if isinstance(val, dict) and not (leaf_keys and set(val) <= leaf_keys):
+                    walk(f"{name}.", val, index)
+                elif isinstance(val, dict):
+                    out[name] = {k: take(v, index).to(named[name].device) for k, v in val.items()}
+                else:
+                    out[name] = take(val, index).to(named[name].device)
+
+        walk("", {k: v for k, v in ptree.items() if k not in ("groups", "tail")}, None)
+        for l in range(cfg.n_layers):
+            if l < n_cycled:
+                walk(f"layers.{l}.", ptree["groups"][l % plen], l // plen)
+            else:
+                walk(f"layers.{l}.", ptree["tail"][l - n_cycled], None)
+        if set(out) != set(named):
+            raise ValueError(f"optimizer state and parameters differ: missing {sorted(set(named) - set(out))}, "
+                             f"unexpected {sorted(set(out) - set(named))}")
+        return {n: out[n] for n in named}
+
+    step = torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32)
+    if isinstance(optimizer, Adam):
+        state = {"m": by_name(tree["m"]), "v": by_name(tree["v"]), "step": step}
+    elif isinstance(optimizer, Adafactor):
+        state = {"v": by_name(tree["v"], {"vr", "vc", "v"}), "step": step}
+    else:
+        raise TypeError(f"no state mapping for {type(optimizer).__name__}")
+    # the port's own state for these parameters fixes every moment's shape (a stacked Adafactor leaf whose
+    # cycle axis was one of its two factored dims has no per-layer slice)
+    want = dict(leaves_with_paths(optimizer.init(params)))
+    got = dict(leaves_with_paths(state))
+    if set(want) != set(got) or any(tuple(got[k].shape) != tuple(want[k].shape) for k in want):
+        raise ValueError("the optimizer state does not map onto the port's: "
+                         f"{sorted((path_str(k), tuple(v.shape)) for k, v in got.items())[:8]} ...")
+    return state

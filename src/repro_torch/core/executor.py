@@ -391,12 +391,29 @@ def matrix_product(eq: str, a: torch.Tensor, b: torch.Tensor, batched: bool) -> 
     return torch.stack([torch.einsum(eq, ai, bi) for ai, bi in zip(a, b)])
 
 
-def _trsv_batch(lii: torch.Tensor, x: torch.Tensor, transpose: bool) -> torch.Tensor:
+def tile_matvec(a: torch.Tensor, x: torch.Tensor, transpose: bool, batched: bool) -> torch.Tensor:
+    """a ((B,) G, m, m) tiles (transposed with ``transpose``) times x ((B,) G, m) chunks -> ((B,) G, m).
+
+    A fleet's (``batched``) go through ``ops.tile_gemv``, whose result for
+    one problem is the same whatever B is: cuBLAS's batched GEMV picks its
+    algorithm by the batch count, and a sharded fleet differed from the
+    unsharded one (``scripts/batch_invariance.py``).  A single GP takes one
+    einsum.
+    """
+    if not batched:
+        return torch.einsum("gba,gb->ga" if transpose else "gab,gb->ga", a, x)
+    return ops.tile_gemv((a.mT if transpose else a)[:, :, None], x[:, :, None])
+
+
+def _trsv_batch(lii: torch.Tensor, x: torch.Tensor, transpose: bool, batched: bool = False) -> torch.Tensor:
     """Batched diagonal-tile solve L x = rhs (or L^T x = rhs).
 
-    lii (..., G, m, m); x (..., G, m) vector chunks or (..., G, Q, m, mq)
-    matrix tile-rows, ``...`` the optional problem axis.
+    lii ((B,) G, m, m); x ((B,) G, m) vector chunks or ((B,) G, Q, m, mq)
+    matrix tile-rows.  A fleet's vector chunks (``batched``) go through
+    ``ops.tile_trsv``, batch-invariant as :func:`tile_matvec`.
     """
+    if batched and x.ndim == lii.ndim - 1:
+        return ops.tile_trsv(lii, x, transpose)
     if transpose:
         lii, upper = lii.transpose(-1, -2), True
     else:
@@ -659,7 +676,6 @@ def run_program(
     dtype = xc.dtype
     lead = (xc.shape[0],) if batched else ()
     take, put, add = _env_ops(dev, batched)
-    z = "z" if batched else ""  # einsum prefix of the problem axis
     n_valid, nt_valid = _frontier(n_valid, dev), _frontier(nt_valid, dev)
 
     table = ops.cov_descriptor(kernel, params, xc.shape[-1], dtype, dev)
@@ -713,22 +729,26 @@ def run_program(
             elif op == TRAIL:
                 put(packed, bt.out, trail(take(packed, bt.a), take(packed, bt.b), take(packed, bt.c)))
             elif op == sch.TRSV:
-                sol = _trsv_batch(take(packed, bt.a), take(env["y"], bt.out), False)
+                sol = _trsv_batch(take(packed, bt.a), take(env["y"], bt.out), False, batched)
                 put(env["y"], bt.out, sol)
                 # publish the solved row into the backward pass's buffer
                 put(env["alpha"], bt.out, sol)
             elif op == sch.GEMV:
-                upd = torch.einsum(f"{z}gab,{z}gb->{z}ga", take(packed, bt.a), take(env["y"], bt.b))
+                upd = tile_matvec(take(packed, bt.a), take(env["y"], bt.b), False, batched)
                 add(env["y"], bt.out, -upd)
             elif op == sch.TRSV_B:
-                sol = _trsv_batch(take(packed, bt.a), take(env["alpha"], bt.out), True)
+                sol = _trsv_batch(take(packed, bt.a), take(env["alpha"], bt.out), True, batched)
                 put(env["alpha"], bt.out, sol)
             elif op == sch.GEMV_B:
-                upd = torch.einsum(f"{z}gba,{z}gb->{z}ga", take(packed, bt.a), take(env["alpha"], bt.b))
+                upd = tile_matvec(take(packed, bt.a), take(env["alpha"], bt.b), True, batched)
                 add(env["alpha"], bt.out, -upd)
             elif op == sch.XGEMV:
                 rows = take(cross_grid(), bt.out)
-                put(env["mean"], bt.out, torch.einsum(f"{z}gqab,{z}qb->{z}ga", rows, env["alpha"]))
+                if batched:
+                    mean = ops.tile_gemv(rows, env["alpha"][:, None].expand(-1, rows.shape[1], -1, -1))
+                else:
+                    mean = torch.einsum("gqab,qb->ga", rows, env["alpha"])
+                put(env["mean"], bt.out, mean)
             elif op == sch.VINIT:
                 if batched:
                     cols = cross_grid()[:, :, _idx(bt.out, dev)]          # (B, Q, G, m, m)
@@ -737,7 +757,7 @@ def run_program(
                     cols = cross_grid()[:, _idx(bt.out, dev)]             # (Q, G, m, m)
                     put(env["v"], bt.out, cols.permute(1, 0, 3, 2))       # (G, Q, m, m)
             elif op == sch.VTRSV:
-                sol = _trsv_batch(take(packed, bt.a), take(env["v"], bt.out), False)
+                sol = _trsv_batch(take(packed, bt.a), take(env["v"], bt.out), False, batched)
                 put(env["v"], bt.out, sol)
             elif op == sch.VGEMV:
                 upd = matrix_product("gab,gqbc->gqac", take(packed, bt.a), take(env["v"], bt.b), batched)
@@ -784,12 +804,11 @@ def run_solve(
         ein = "gba,gqbc->gqac" if transpose else "gab,gqbc->gqac"
         product = functools.partial(matrix_product, ein, batched=batched)
     else:
-        z = "z" if batched else ""
-        product = functools.partial(torch.einsum, f"{z}gba,{z}gb->{z}ga" if transpose else f"{z}gab,{z}gb->{z}ga")
+        product = functools.partial(tile_matvec, transpose=transpose, batched=batched)
     for level in plan.levels:
         for bt in level:
             if bt.op == sch.TRSV:
-                put(rhs, bt.out, _trsv_batch(take(lpacked, bt.a), take(rhs, bt.out), transpose))
+                put(rhs, bt.out, _trsv_batch(take(lpacked, bt.a), take(rhs, bt.out), transpose, batched))
             else:
                 add(rhs, bt.out, -product(take(lpacked, bt.a), take(rhs, bt.b)))
     return rhs

@@ -229,7 +229,7 @@ def _masked_yty(yc: torch.Tensor, nv) -> torch.Tensor:
         mask = row < nv.reshape(nv.shape + (1, 1))
     else:
         mask = row < nv
-    return torch.sum(torch.where(mask, yc * yc, torch.zeros((), dtype=yc.dtype, device=yc.device)), dim=(-2, -1))
+    return triangular.problem_sums(torch.where(mask, yc * yc, torch.zeros((), dtype=yc.dtype, device=yc.device)))
 
 
 def _noise(kernel, params, like: torch.Tensor) -> torch.Tensor:
@@ -552,7 +552,7 @@ def nlml_from_lowrank_state(state: LowRankState, *, dtype=None) -> torch.Tensor:
     reference's formula: c^T A^-1 c = c . gamma (a state carried over from
     the JAX package holds the reference's c and gamma); in ``dtype``
     (default the state's)."""
-    return _woodbury_nlml(state, torch.sum(state.c_chunks * state.gamma, dim=(-2, -1)), dtype)
+    return _woodbury_nlml(state, triangular.problem_sums(state.c_chunks * state.gamma), dtype)
 
 
 def whitened_nlml(state: LowRankState, *, dtype=None) -> torch.Tensor:
@@ -566,7 +566,7 @@ def whitened_nlml(state: LowRankState, *, dtype=None) -> torch.Tensor:
     form does not have.
     """
     z = executor.run_solve(state.lb_packed, state.c_w, lower=True, device=state.device)
-    return _woodbury_nlml(state, torch.sum(z * z, dim=(-2, -1)), dtype)
+    return _woodbury_nlml(state, triangular.problem_sums(z * z), dtype)
 
 
 def predict_lowrank(

@@ -89,7 +89,7 @@ def nlml_from_state(state, y, *, dtype=None, n_valid=None) -> torch.Tensor:
     y = torch.as_tensor(y, device=state.device).to(dtype)
     y = y.reshape(y.shape[0], -1) if batched else y.reshape(-1)
     yc = tiling.pad_vector(y, state.m)
-    quad = torch.sum(yc * state.alpha, dim=(-2, -1))
+    quad = triangular.problem_sums(yc * state.alpha)
     nv = getattr(state, "n_valid", None) if n_valid is None else n_valid
     n = y.shape[-1] if nv is None else torch.as_tensor(nv, device=state.device).to(dtype)
     logdet = triangular.logdet_from_factor(state.lpacked, state.alpha.shape[-2], n_valid=nv)
@@ -134,7 +134,7 @@ def _nlml_forward(cfg: _Config, x, y, params):
         x, y, params, cfg.tile_size, n_streams=cfg.n_streams, update_dtype=cfg.update_dtype,
         dtype=cfg.dtype, batch_dispatch=cfg.batch_dispatch, kernel=cfg.kernel, device=cfg.device,
     )
-    quad = torch.sum(yc * env["alpha"], dim=(-2, -1))
+    quad = triangular.problem_sums(yc * env["alpha"])
     logdet = triangular.logdet_from_factor(env["packed"], env["alpha"].shape[-2])
     return 0.5 * (quad + logdet + n * LOG_2PI), (env["packed"], env["alpha"])
 

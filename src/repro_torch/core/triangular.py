@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import executor, tiling
+from repro_torch.kernels import ops
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,8 +59,14 @@ def backward_substitution_matrix(
 
 
 def tiled_matvec(a_tiles: torch.Tensor, x_chunks: torch.Tensor) -> torch.Tensor:
-    """(..., P, Q, m, mq) tile grid times (..., Q, mq) chunked vector -> (..., P, m)."""
-    return torch.einsum("...pqab,...qb->...pa", a_tiles, x_chunks)
+    """((B,) P, Q, m, mq) tile grid times ((B,) Q, mq) chunked vector -> ((B,) P, m).
+
+    B problems go through ``ops.tile_gemv`` (batch-invariant, as
+    :func:`executor.tile_matvec`).
+    """
+    if a_tiles.ndim == 5:
+        return ops.tile_gemv(a_tiles, x_chunks[:, None].expand(-1, a_tiles.shape[1], -1, -1))
+    return torch.einsum("pqab,qb->pa", a_tiles, x_chunks)
 
 
 def tiled_gram(v_tiles: torch.Tensor) -> torch.Tensor:
@@ -73,7 +80,7 @@ def tiled_gram(v_tiles: torch.Tensor) -> torch.Tensor:
 def packed_matvec(
     lpacked: torch.Tensor, chunks: torch.Tensor, *, transpose: bool = False
 ) -> torch.Tensor:
-    """y = L x (or L^T x) against the packed lower factor; chunks (..., M, m), ``...`` the optional problem axis."""
+    """y = L x (or L^T x) against the packed lower factor; chunks ((B,) M, m), B the optional problem axis."""
     m_tiles = chunks.shape[-2]
     if tiling.num_packed_tiles(m_tiles) != lpacked.shape[-3]:
         raise ValueError(
@@ -85,8 +92,27 @@ def packed_matvec(
     dense = lpacked.new_zeros(lead + (m_tiles * m_tiles, m, m))
     dense.index_copy_(-3, rows * m_tiles + cols, lpacked)
     dense = dense.reshape(lead + (m_tiles, m_tiles, m, m))
-    ein = "...jiba,...jb->...ia" if transpose else "...ijab,...jb->...ia"
-    return torch.einsum(ein, dense, chunks.to(lpacked.dtype))
+    chunks = chunks.to(lpacked.dtype)
+    if lead:  # B problems through ops.tile_gemv (batch-invariant, as executor.tile_matvec)
+        tiles = dense.permute(0, 2, 1, 4, 3) if transpose else dense
+        return ops.tile_gemv(tiles, chunks[:, None].expand(-1, m_tiles, -1, -1))
+    return torch.einsum("jiba,jb->ia" if transpose else "ijab,jb->ia", dense, chunks)
+
+
+def problem_sums(x: torch.Tensor, ndim: int = 2) -> torch.Tensor:
+    """The sum over the trailing ``ndim`` dims, one problem (leading index) at a time.
+
+    A batched reduction on the card splits its work by the number of
+    problems, so a problem's sum would depend on how many share the call
+    (a sharded fleet's NLMLs against the whole fleet's); each problem's own
+    reduction sees the same shape whatever B is.
+    """
+    if x.ndim == ndim:
+        return torch.sum(x)
+    flat = x.reshape((-1,) + x.shape[-ndim:])
+    if flat.shape[0] == 0:
+        return x.new_zeros(x.shape[:-ndim])
+    return torch.stack([torch.sum(p) for p in flat.unbind(0)]).reshape(x.shape[:-ndim])
 
 
 def logdet_from_factor(lpacked: torch.Tensor, m_tiles: int, n_valid=None) -> torch.Tensor:
@@ -109,4 +135,4 @@ def logdet_from_factor(lpacked: torch.Tensor, m_tiles: int, n_valid=None) -> tor
         if nv.ndim > 0:  # per-problem (B,)
             nv = nv[:, None, None]
         diags = torch.where(gi < nv, diags, torch.ones((), dtype=diags.dtype, device=diags.device))
-    return 2.0 * torch.sum(torch.log(diags), dim=(-2, -1))
+    return 2.0 * problem_sums(torch.log(diags))

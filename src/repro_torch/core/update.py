@@ -46,6 +46,7 @@ from repro_torch.core import predict as pred
 from repro_torch.core import tiling, triangular
 from repro_torch.dist import collectives as coll
 from repro_torch.dist import sharding as sh
+from repro_torch.kernels import ops
 
 
 class CholeskyUpdateError(RuntimeError):
@@ -81,18 +82,17 @@ def _row_beta(row, beta, y_row, r_tiles: int, batched: bool) -> torch.Tensor:
     """beta_R = corner^{-1} (y_row - sum_{j<R} row_j beta_j) for the appended row R.
 
     The prefix of a grown forward-triangular system never changes.  A
-    stacked fleet takes the tile products, then the sum over j, and solves
-    on a contiguous corner, so that each problem's result is the same
-    whatever B is (an einsum folds B into one product whose rounding changes
-    with B: a sharded fleet would differ from the unsharded one).  A single
-    GP takes one einsum.
+    stacked fleet takes the product and the corner's solve through
+    ``ops.tile_gemv`` and ``ops.tile_trsv``, so that each problem's result
+    is the same whatever B is (an einsum folds B into one product whose
+    rounding changes with B: a sharded fleet would differ from the
+    unsharded one).  A single GP takes one einsum.
     """
     corner = row[..., r_tiles, :, :]
     if batched:
-        s = (row[..., :r_tiles, :, :] @ beta[..., :r_tiles, :, None]).sum(-3)[..., 0]
-        corner = corner.contiguous()
-    else:
-        s = torch.einsum("...jab,...jb->...a", row[..., :r_tiles, :, :], beta[..., :r_tiles, :])
+        s = ops.tile_gemv(row[:, None, :r_tiles], beta[:, None, :r_tiles])
+        return ops.tile_trsv(corner[:, None], (y_row[:, None] - s).to(corner.dtype), False)[:, 0]
+    s = torch.einsum("...jab,...jb->...a", row[..., :r_tiles, :, :], beta[..., :r_tiles, :])
     rhs = (y_row - s).to(corner.dtype)[..., None]
     return torch.linalg.solve_triangular(corner, rhs, upper=False)[..., 0]
 

@@ -1,1 +1,1 @@
-"""Datasets of the port: the paper's mass-spring-damper workload (numpy only)."""
+"""Datasets of the port (numpy only): the paper's mass-spring-damper workload and synthetic LM and GP data."""

@@ -1,4 +1,22 @@
-"""Fleet sharding: data parallelism over a fleet's problem axis B (DESIGN.md §12).
+"""Sharding rules: the language model's parameters, states, inputs and caches, and fleets' problem axis.
+
+**Language model** (the counterpart of the reference's greedy FSDP+TP
+rule).  :func:`_leaf_spec` gives a leaf of a shape the reference's spec on a
+mesh of the same axis sizes: the largest dim that the ``model`` axis
+divides is split over ``model``, the largest remaining dim that ``data``
+divides over ``data``; dims that do not divide stay whole.
+:func:`batch_spec` splits a batch-leading array over the data-parallel axes
+``("pod", "data")`` that divide it.  A spec is a tuple with one entry a dim:
+None, an axis name, or a tuple of axis names (the reference's
+``PartitionSpec`` entries).  A :class:`Sharding` (mesh, spec) is the port's
+``NamedSharding``: :meth:`Sharding.block` cuts this rank's block of a full
+tensor, :meth:`Sharding.gather` puts the full tensor together from every
+rank's block (one ``gather_axes`` over the spec's axes).  The step
+factories store each parameter and optimizer moment as the rank's block and
+gather a parameter before use (``repro_torch.train``): the reference's
+"shardings change layout, never semantics", in SPMD form.
+
+**Fleets** (DESIGN.md §12): data parallelism over a fleet's problem axis B.
 
 Every stacked buffer of a fleet's programs leads with B, and the problems
 are independent, so splitting B over the mesh's data-parallel axes needs no
@@ -10,20 +28,22 @@ the global array on every rank.  When no product of the present DP axes
 divides B, every rank runs the whole of B: replication, never an error.
 Plans never see the mesh: they depend on tile counts, not on B.
 
-The rules for parameters, optimizer states, inputs and caches of the
-language-model steps are ROADMAP.md queue 1 step 10b.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.dist import collectives as coll
+from repro_torch.tree import leaves, map_tree
 
 DP_AXES: Tuple[str, ...] = ("pod", "data")  # batch axes, outermost first
+FSDP_AXIS = "data"
+TP_AXIS = "model"
 
 
 def _present(mesh: DeviceMesh, axes: Sequence[str]) -> Tuple[str, ...]:
@@ -37,6 +57,141 @@ def _dp_axes_for(mesh: DeviceMesh, batch: int) -> Tuple[str, ...]:
     while dp and batch % coll.axes_size(mesh, dp):
         dp = dp[1:]  # drop the outermost axis until the product divides
     return dp
+
+
+# ---------------------------------------------------------------------------
+# The language model's rules.
+# ---------------------------------------------------------------------------
+
+
+def batch_spec(mesh: DeviceMesh, batch: int, *rest) -> tuple:
+    """The spec of a batch-leading array: its batch over the DP axes that divide it; ``rest`` passes through."""
+    dp = _dp_axes_for(mesh, batch)
+    return (dp if dp else None, *rest)
+
+
+def _leaf_spec(shape: Sequence[int], mesh: DeviceMesh) -> tuple:
+    """The greedy FSDP+TP spec of one parameter-like leaf (the reference's rule, dim for dim)."""
+    sizes = coll.axis_sizes(mesh)
+    spec = [None] * len(shape)
+    for axis in (TP_AXIS, FSDP_AXIS):
+        if sizes.get(axis, 1) <= 1:
+            continue
+        size = sizes[axis]
+        for d in sorted(range(len(shape)), key=lambda d: -shape[d]):
+            if spec[d] is None and shape[d] % size == 0 and shape[d] >= size:
+                spec[d] = axis
+                break
+    return tuple(spec)
+
+
+def spec_axes(entry) -> Tuple[str, ...]:
+    """The axis names of one spec entry (None, a name, or a tuple of names), as a tuple."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A layout over ``mesh``: ``spec`` names, a dim at a time, the axes that split that dim."""
+
+    mesh: DeviceMesh
+    spec: tuple
+
+    def _dims(self):
+        return [(d, spec_axes(e)) for d, e in enumerate(self.spec) if spec_axes(e)]
+
+    def block_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        out = list(shape)
+        for d, axes in self._dims():
+            out[d] //= coll.axes_size(self.mesh, axes)
+        return tuple(out)
+
+    def block(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``full`` (a copy that does not hold ``full``'s storage)."""
+        if not self._dims():
+            return full
+        coord = coll.coordinates(self.mesh)
+        index = [slice(None)] * full.ndim
+        for d, axes in self._dims():
+            share = full.shape[d] // coll.axes_size(self.mesh, axes)
+            k = coll.linear_index(self.mesh, axes, coord)
+            index[d] = slice(k * share, (k + 1) * share)
+        return full[tuple(index)].clone(memory_format=torch.contiguous_format)
+
+    def gather(self, local: torch.Tensor) -> torch.Tensor:
+        """The full tensor from every rank's block: one ``gather_axes`` over the spec's axes (every rank calls it)."""
+        dims = self._dims()
+        if not dims:
+            return local
+        axes = tuple(a for _, ax in dims for a in ax)
+        sizes = [coll.axes_size(self.mesh, ax) for _, ax in dims]
+        parts = coll.gather_axes(local, self.mesh, axes).reshape(*sizes, *local.shape)
+        group_of = {d: j for j, (d, _) in enumerate(dims)}
+        order, shape = [], []
+        for i in range(local.ndim):
+            if i in group_of:
+                order.append(group_of[i])
+            order.append(len(dims) + i)
+            shape.append(local.shape[i] * (sizes[group_of[i]] if i in group_of else 1))
+        return parts.permute(order).reshape(shape)
+
+
+def _shape(leaf) -> Tuple[int, ...]:
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else ()
+
+
+def param_shardings(params, mesh: DeviceMesh):
+    """{name: Sharding} of a model's parameters (a ``Transformer``, on any device, or a name -> tensor mapping)."""
+    return map_tree(lambda p: Sharding(mesh, _leaf_spec(_shape(p), mesh)), params)
+
+
+def opt_state_shardings(opt_state, params, mesh: DeviceMesh):
+    """An optimizer state's shardings: each moment by its own shape's rule, a scalar (the step) replicated."""
+    del params  # the rule is shape-driven, as the reference's; kept for its signature
+    return map_tree(lambda l: Sharding(mesh, _leaf_spec(_shape(l), mesh)), opt_state)
+
+
+def input_shardings(cfg, shape, mesh: DeviceMesh) -> Tuple[Sharding, Sharding]:
+    """(inputs, labels) shardings of one shape cell: the batch over the DP axes."""
+    del cfg  # token inputs only: the embeddings input is ROADMAP.md queue 1 step 11f
+    sh = Sharding(mesh, batch_spec(mesh, shape.global_batch, None))
+    return sh, sh
+
+
+def cache_shardings(cfg, batch: int, mesh: DeviceMesh, caches):
+    """Decode-cache shardings: a leaf's batch dim over the DP axes, the rest whole."""
+    del cfg
+    dp = _dp_axes_for(mesh, batch)
+
+    def leaf(l):
+        spec = [None] * len(_shape(l))
+        if dp and spec and l.shape[0] == batch:
+            spec[0] = dp
+        return Sharding(mesh, tuple(spec))
+
+    return map_tree(leaf, caches)
+
+
+def distribute(tree, shardings):
+    """Each tensor leaf's block for this rank (the port's ``device_put`` of a sharded tree)."""
+    return map_tree(lambda t, s: s.block(t) if isinstance(t, torch.Tensor) else t, tree, shardings)
+
+
+def collect(tree, shardings):
+    """Each leaf's full tensor from every rank's block (every rank calls it)."""
+    return map_tree(lambda t, s: s.gather(t) if isinstance(t, torch.Tensor) else t, tree, shardings)
+
+
+def local_bytes(tree) -> int:
+    """The bytes of a tree's tensor leaves on this rank."""
+    return sum(t.numel() * t.element_size() for t in leaves(tree) if isinstance(t, torch.Tensor))
+
+
+# ---------------------------------------------------------------------------
+# Fleets.
+# ---------------------------------------------------------------------------
 
 
 def fleet_axes(mesh: DeviceMesh, batch: int) -> Tuple[str, ...]:

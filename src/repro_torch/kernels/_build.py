@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = (
     "cov_assembly", "potrf_tile", "trsm_tile", "trailing_update", "carry_update", "lrgemm_tile",
-    "flash_attention",
+    "flash_attention", "tile_gemv_trsv",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -126,6 +126,8 @@ _SIGNATURES = {
     "carry_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "lrgemm": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _P],
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _D, _D, _I, _I, _I, _P],
+    "tile_gemv": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P],
+    "tile_trsv": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
 }
 
 

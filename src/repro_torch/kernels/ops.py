@@ -12,8 +12,12 @@ executor vmaps a per-tile op; here the batch axis is written out):
   rank update;
 * ``lrgemm(kflat, v, a, b)`` — the tile matvecs ``kflat[a[g]] @ v[b[g]]``
   of the low-rank tier's LRGEMM family, read where the tiles lie;
+* ``tile_gemv(a, x)``, ``tile_trsv(l, r, transpose)`` — a fleet's tile
+  matvecs and diagonal-tile solves, batch-invariant (port-only kernels: the
+  reference leaves these steps to XLA);
 * ``flash_attention(q, k, v, ...)`` — causal GQA attention with softcap and
-  sliding window, the language model's prefill attention (not a tile op).
+  sliding window, the language model's prefill and training attention (not
+  a tile op).
 
 On a CUDA tensor an op launches its hand-written kernel or raises; on a CPU
 tensor it runs the kernel's plain version.  No ``try`` falls back from one
@@ -25,15 +29,18 @@ composite that mixes distances launches once per distance.
 
 Gradients, as the reference's ``_with_ref_vjp`` keeps them: when grad mode
 is on and an operand requires grad, ``potrf``, ``trsm``, ``trail``,
-``lrgemm`` and ``cov_tiles`` run through :class:`_RefGrad`, whose forward is
-the kernel (the plain version on the CPU) and whose backward differentiates
-the op's differentiable reference (:data:`GRAD_REFS`; for ``cov_tiles`` the
-plain tile, since the kernel reads the hyperparameters detached, from its
-descriptor table; every tensor leaf of the params tree is an operand) on
-the saved inputs.  Otherwise they
-launch exactly as without autograd.
-``carry_update`` and ``flash_attention`` have no backward in the reference:
-on the card they raise rather than return a detached result.
+``lrgemm``, ``cov_tiles``, ``tile_gemv``, ``tile_trsv`` and ``flash_attention`` run through
+:class:`_RefGrad`, whose forward is the kernel (the plain version on the
+CPU) and whose backward differentiates the op's differentiable reference
+(:data:`GRAD_REFS`; for ``cov_tiles`` the plain tile, since the kernel reads
+the hyperparameters detached, from its descriptor table; every tensor leaf
+of the params tree is an operand; for ``flash_attention`` the caller's
+``ref``, by default the plain version) on the saved inputs.  Otherwise they
+launch exactly as without autograd.  The reference gives the flash kernel
+no backward: its training attention is XLA's autodiff of the masked
+softmax, which is what the language model passes as ``ref``.
+``carry_update`` has no backward in the reference: on the card it raises
+rather than return a detached result.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from repro_torch.kernels import cov_assembly as _cov
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import lrgemm_tile as _lrgemm
 from repro_torch.kernels import potrf_tile as _potrf
+from repro_torch.kernels import tile_gemv_trsv as _gemv
 from repro_torch.kernels import trailing_update as _trail
 from repro_torch.kernels import trsm_tile as _trsm
 
@@ -216,14 +224,42 @@ def lrgemm(kflat: torch.Tensor, v: torch.Tensor, a_idx: torch.Tensor, b_idx: tor
     return out
 
 
+def tile_gemv(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(Z, G, m): ``sum_q a[z, g, q] @ x[z, g, q]`` of (Z, G, Q, m, n) tiles and (Z, G, Q, n) vectors."""
+    if not _on_cuda(a, "tile_gemv"):
+        return _gemv.tile_gemv_plain(a, x)
+    out = _run("tile_gemv", _gemv.tile_gemv_cuda, a, x, ref=_gemv.tile_gemv_plain)
+    tile_gemv.launches += 1
+    return out
+
+
+def tile_trsv(l: torch.Tensor, r: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+    """(Z, G, m): ``l^-1 r`` (or ``l^-T r``) of (Z, G, m, m) lower tiles and (Z, G, m) vectors."""
+    if not _on_cuda(l, "tile_trsv"):
+        return _gemv.tile_trsv_plain(l, r, transpose)
+    out = _run("tile_trsv", lambda l, r: _gemv.tile_trsv_cuda(l, r, transpose), l, r,
+               ref=lambda l, r: _gemv.tile_trsv_plain(l, r, transpose))
+    tile_trsv.launches += 1
+    return out
+
+
 def flash_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, softcap=None, window=None
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, softcap=None, window=None,
+    ref=None,
 ) -> torch.Tensor:
-    """(B, S, H, hd) attention of q over (B, T, KV, hd) keys and values, in q's type."""
+    """(B, S, H, hd) attention of q over (B, T, KV, hd) keys and values, in q's type.
+
+    Under grad the backward differentiates ``ref(q, k, v)`` (default: the
+    plain version with the same options) on the saved q, k, v; the forward
+    is the kernel on the card whatever ``ref`` is.
+    """
+    def kernel_of(fn):
+        return lambda q, k, v: fn(q, k, v, causal=causal, softcap=softcap, window=window)
+
+    ref = ref or kernel_of(_flash.flash_attention_plain)
     if not _on_cuda(q, "flash_attention"):
-        return _flash.flash_attention_plain(q, k, v, causal=causal, softcap=softcap, window=window)
-    _no_backward("flash_attention", q, k, v)
-    out = _flash.flash_attention_cuda(q, k, v, causal=causal, softcap=softcap, window=window)
+        return _run("flash_attention", kernel_of(_flash.flash_attention_plain), q, k, v, ref=ref)
+    out = _run("flash_attention", kernel_of(_flash.flash_attention_cuda), q, k, v, ref=ref)
     flash_attention.launches += 1
     return out
 
@@ -232,6 +268,7 @@ def flash_attention(
 KERNEL_OPS = {
     "cov_tiles": _cov.cov_tiles_cuda, "potrf": potrf, "trsm": trsm, "trail": trail,
     "carry_update": carry_update, "lrgemm": lrgemm, "flash_attention": flash_attention,
+    "tile_gemv": tile_gemv, "tile_trsv": tile_trsv,
 }
 for _op in KERNEL_OPS.values():
     _op.launches = 0

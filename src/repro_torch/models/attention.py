@@ -10,21 +10,26 @@ The counterpart of ``repro/models/attention.py`` for the serving path:
   * single-token decode against a KV cache, a ring of ``window`` slots on
     local layers.
 
-Prefill attention (:func:`attend_full`) runs the hand-written flash kernel
-(``ops.flash_attention``), which never holds the (S, T) scores, so the
-reference's q-chunked path (``attn_chunk``), which exists only to bound
-them, has no counterpart.  Decode attention (:func:`attend_decode`) keeps
-the reference's arithmetic in plain torch: scores in the activation type, a
-float32 denominator.
+Prefill and training attention (:func:`attend_full`) run the hand-written
+flash kernel (``ops.flash_attention``) forward, which never holds the
+(S, T) scores.  Its backward is autograd of the reference's own arithmetic
+(:func:`_scores_softmax_out` under the causal mask), query-chunked by
+``attn_chunk`` as the reference's ``_attend_chunked`` with each chunk
+recomputed in the backward, so that its peak is one chunk's scores
+(:func:`attention_ref`); the reference has no backward kernel.  Decode
+attention (:func:`attend_decode`) keeps the reference's arithmetic in plain
+torch: scores in the activation type, a float32 denominator.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -92,7 +97,7 @@ def _scores_softmax_out(q, k, v, mask, cfg: ModelConfig):
     scores = torch.einsum("bskgh,btkh->bkgst", qg, k) * rounded(1.0 / math.sqrt(hd), q.dtype)
     scores = softcap(scores, cfg.attn_softcap)
     scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)  # -2^30: exact in bf16
-    mx = torch.amax(scores, dim=-1, keepdim=True)
+    mx = torch.amax(scores, dim=-1, keepdim=True).detach()  # the reference's stop_gradient
     ex = torch.exp(scores - mx)
     denom = torch.sum(ex, dim=-1, keepdim=True, dtype=torch.float32)
     probs = ex * (1.0 / denom).to(ex.dtype)
@@ -108,6 +113,29 @@ def _causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: Optional[int]
     return m
 
 
+def attention_ref(q, k, v, positions: torch.Tensor, cfg: ModelConfig, window: Optional[int]) -> torch.Tensor:
+    """The reference's training attention: :func:`_scores_softmax_out` under the causal mask.
+
+    With ``attn_chunk`` (dividing S, shorter than S) the queries go in
+    chunks, each recomputed in the backward (``checkpoint``), as the
+    reference's ``_attend_chunked`` under ``jax.checkpoint``: the backward
+    holds one chunk's scores, (B, KV, H/KV, chunk, T), at a time.
+    """
+    s = q.shape[1]
+    c = cfg.attn_chunk
+    if not c or s <= c:
+        return _scores_softmax_out(q, k, v, _causal_mask(positions, positions, window), cfg)
+    if s % c:
+        raise ValueError(f"seq {s} must divide attn_chunk {c}")
+
+    def chunk(qi, pi, k, v):
+        return _scores_softmax_out(qi, k, v, _causal_mask(pi, positions, window), cfg)
+
+    outs = [checkpoint(chunk, q[:, i:i + c], positions[:, i:i + c], k, v, use_reentrant=False)
+            for i in range(0, s, c)]
+    return torch.cat(outs, dim=1)
+
+
 def attend_full(
     p: Attention,
     x: torch.Tensor,
@@ -115,21 +143,23 @@ def attend_full(
     cfg: ModelConfig,
     *,
     local: bool,
-) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Prefill attention over the full sequence, through the flash kernel.
+    mode: str = "prefill",
+) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    """Prefill or training attention over the full sequence, through the flash kernel.
 
-    ``positions`` are 0..S-1 in every row (as prefill passes them): the
-    kernel masks by index, ``col <= row`` and, on a local layer,
-    ``col > row - window``.  Returns (output, (k, v)) so prefill can seed
-    the decode cache.
+    ``positions`` are 0..S-1 in every row (as prefill and training pass
+    them): the kernel masks by index, ``col <= row`` and, on a local layer,
+    ``col > row - window``.  Under grad the backward differentiates
+    :func:`attention_ref`.  Returns (output, (k, v)) in prefill mode, so
+    that prefill can seed the decode cache, and (output, None) in train mode.
     """
     q, k, v = _project_qkv(p, x, positions, cfg)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = ops.flash_attention(
-        q, k, v, causal=True, softcap=cfg.attn_softcap, window=cfg.window if local else None
-    )
+    window = cfg.window if local else None
+    ref = functools.partial(attention_ref, positions=positions, cfg=cfg, window=window)
+    out = ops.flash_attention(q, k, v, causal=True, softcap=cfg.attn_softcap, window=window, ref=ref)
     y = torch.einsum("bshk,hkd->bsd", out, p.wo)
-    return y, (k, v)
+    return y, (None if mode == "train" else (k, v))
 
 
 # ---------------------------------------------------------------------------

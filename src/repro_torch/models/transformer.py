@@ -8,11 +8,16 @@ Python loop.  Layer ``l`` holds what the reference keeps at
 ``groups[l % len(pattern)][l // len(pattern)]`` (its stacked cycles), and
 the remainder (``tail``) comes after (``convert.lm_params_from_numpy``).
 
-Two entry modes, as the reference's:
+Three entry modes, as the reference's:
 
+  * train: the full sequence, no caches; each block runs under
+    ``torch.utils.checkpoint`` (recomputed in the backward, the port's form
+    of the reference's ``jax.checkpoint`` of a cycle), and :func:`loss_fn`
+    takes the mean next-token cross entropy, vocab-chunked;
   * prefill: the full sequence, last-position logits and the decode caches;
-    every attention layer runs the flash kernel;
   * step: one token against the caches, updated in place.
+
+Every attention layer of train and prefill runs the flash kernel forward.
 
 The decode caches follow ``attention.cache_shape``: ``min(window,
 cache_len)`` slots on a local layer, ``cache_len`` on a global one, with
@@ -32,6 +37,7 @@ from typing import List, Optional, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -190,16 +196,16 @@ def apply_block(
     pos=None,
     cache_len: Optional[int] = None,
 ):
-    """Returns (x, cache): the prefill's new cache, or the step's cache updated in place."""
+    """Returns (x, cache): the prefill's new cache, the step's cache updated in place, or None in train mode."""
     h = apply_norm(p.norm1, x, cfg.norm)
     local = kind == "local"
     if mode == "step":
         h, new_cache = attn.attend_decode(p.attn, h, pos, cache, cfg, local=local)
-    elif mode == "prefill":
-        h, kv = attn.attend_full(p.attn, h, positions, cfg, local=local)
-        new_cache = _kv_to_ring(kv, cfg, local, cache_len)
+    elif mode in ("prefill", "train"):
+        h, kv = attn.attend_full(p.attn, h, positions, cfg, local=local, mode=mode)
+        new_cache = None if mode == "train" else _kv_to_ring(kv, cfg, local, cache_len)
     else:
-        raise ValueError(f"mode {mode!r}: the port serves (prefill, step); training is not ported")
+        raise ValueError(f"mode {mode!r}: one of train, prefill, step")
     if cfg.post_norm:
         h = apply_norm(p.post_norm1, h, cfg.norm)
     x = x + h
@@ -225,13 +231,26 @@ def _embed_in(params: Transformer, cfg: ModelConfig, inputs: torch.Tensor, posit
 
 def _backbone(params: Transformer, cfg: ModelConfig, x, positions, *, mode, caches=None, pos=None,
               cache_len=None):
-    """The layers in order; prefill returns new caches, a step the given ones, updated in place."""
+    """The layers in order; prefill returns new caches, a step the given ones, updated in place, train None.
+
+    In train mode each block runs under ``checkpoint`` (non-reentrant): the
+    backward keeps its input and recomputes the rest, flash launch included.
+    """
     new_caches = []
     for l, (kind, blk) in enumerate(zip(cfg.layer_kinds(), params.layers)):
+        if mode == "train":
+            def block(x, blk=blk, kind=kind):
+                return apply_block(blk, kind, x, positions, cfg, mode="train")[0]
+
+            x = checkpoint(block, x, use_reentrant=False)
+            continue
         x, c = apply_block(blk, kind, x, positions, cfg, mode=mode,
                            cache=None if caches is None else caches[l], pos=pos, cache_len=cache_len)
         new_caches.append(c)
-    return apply_norm(params.final_norm, x, cfg.norm), new_caches if caches is None else caches
+    x = apply_norm(params.final_norm, x, cfg.norm)
+    if mode == "train":
+        return x, None
+    return x, new_caches if caches is None else caches
 
 
 def _logits(params: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -240,6 +259,34 @@ def _logits(params: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Ten
     else:
         logits = x @ params.lm_head.to(x.dtype)
     return softcap(logits, cfg.final_softcap)
+
+
+def loss_fn(params: Transformer, cfg: ModelConfig, inputs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy (float32 scalar), vocab-chunked over the sequence.
+
+    The reference's arithmetic: each chunk of ``loss_chunk`` positions
+    (when it divides S; else the whole sequence) takes its logits in the
+    activation type with the final softcap, then float32, and sums
+    ``logsumexp - gold``; the chunk is recomputed in the backward
+    (``checkpoint``), so that the peak holds one chunk's logits.  The gold
+    logit is a gather: the reference contracts a one-hot only to keep the
+    vocab dim sharded under GSPMD, and its value is the same.
+    """
+    b, s = labels.shape
+    positions = torch.arange(s, device=inputs.device)[None, :].expand(b, s)
+    x = _embed_in(params, cfg, inputs, positions)
+    x, _ = _backbone(params, cfg, x, positions, mode="train")
+    c = cfg.loss_chunk if cfg.loss_chunk and s % cfg.loss_chunk == 0 else s
+
+    def chunk_ce(xx, ll):
+        logits = _logits(params, cfg, xx).float()
+        gold = torch.gather(logits, -1, ll[..., None])[..., 0]
+        return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, c):
+        total = total + checkpoint(chunk_ce, x[:, i:i + c], labels[:, i:i + c].long(), use_reentrant=False)
+    return total / (b * s)
 
 
 def prefill_fn(params: Transformer, cfg: ModelConfig, inputs: torch.Tensor, cache_len: Optional[int] = None):
@@ -263,3 +310,16 @@ def decode_fn(params: Transformer, cfg: ModelConfig, token: torch.Tensor, pos, c
     x = _embed_in(params, cfg, token, positions)
     x, caches = _backbone(params, cfg, x, positions, mode="step", caches=caches, pos=pos)
     return _logits(params, cfg, x[:, 0]), caches
+
+
+def from_tensors(cfg: ModelConfig, tensors) -> Transformer:
+    """A :class:`Transformer` whose parameters are the given tensors (name -> tensor, every parameter), not copied."""
+    model = Transformer(cfg, device="meta")
+    names = [n for n, _ in model.named_parameters()]
+    if set(names) != set(tensors):
+        raise ValueError(f"parameter trees differ: missing {sorted(set(names) - set(tensors))}, "
+                         f"unexpected {sorted(set(tensors) - set(names))}")
+    for name in names:
+        owner, _, leaf = name.rpartition(".")
+        setattr(model.get_submodule(owner), leaf, nn.Parameter(tensors[name], requires_grad=False))
+    return model

@@ -301,3 +301,140 @@ def distributed_world(rank, world):
             refused.append(str(e))
     out["refused"] = refused
     return out
+
+
+# ---------------------------------------------------------------------------
+# The language model's sharded steps, run by every rank of a 4-rank world
+# ---------------------------------------------------------------------------
+
+LM_ARCH, LM_B, LM_S, LM_DECODE_STEPS, LM_LR = "olmo-1b", 4, 16, 4, 1e-3
+
+
+def lm_tokens(vocab: int, seed: int = 0):
+    """(inputs, labels, decode tokens): the (B, S) batch and the B x 4 tokens fed to the decode steps."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, vocab, (LM_B, LM_S)).astype(np.int64), rng.integers(0, vocab, (LM_B, LM_S)).astype(np.int64),
+            rng.integers(0, vocab, (LM_B, LM_DECODE_STEPS)).astype(np.int64))
+
+
+def _digest(named):
+    """Each tensor's sum and sum of squares, in float64: equal digests on every rank show replicated values."""
+    import torch
+
+    return torch.stack([torch.stack([t.double().sum(), t.double().square().sum()]) for t in named.values()])
+
+
+def lm_mesh_world(rank, world, ckpt_dir, tree):
+    """Every case of tests/test_torch_lm_mesh.py on this rank: the sharded train step (Adam, Adafactor) and the
+    unsharded one, the specs and the bytes a rank holds, the compressed DP step, sharded prefill and decode, and a
+    checkpoint saved from the sharded state and restored both ways.  ``tree`` is the reference's parameter tree
+    (numpy); rank 0 also returns its full results, which the caller holds against the JAX package's."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs, convert
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import Adafactor, Adam
+    from repro_torch.train import make_compressed_dp_step, make_decode_step, make_prefill_step, make_train_step
+    from repro_torch.train.train_step import clone_tree
+
+    cfg = configs.get_smoke_config(LM_ARCH)
+    mesh = make_test_mesh((2, 2), ("data", "model"))
+    pod = make_test_mesh((2, 2), ("pod", "data"))
+    shape = ShapeConfig("smoke", LM_S, LM_B, "train")
+    tok, lab, dec = (torch.from_numpy(a) for a in lm_tokens(cfg.vocab_size))
+    out = {}
+    for name, opt in (("adam", Adam(learning_rate=LM_LR)), ("adafactor", Adafactor(learning_rate=LM_LR,
+                                                                                   min_dim_size_to_factor=16))):
+        model = convert.lm_params_from_numpy(tree, cfg, "cpu")
+        plain, _ = make_train_step(cfg, opt, donate=False)
+        p1, o1, l1 = plain(model, opt.init(model), tok, lab)
+        step, shardings = make_train_step(cfg, opt, mesh, shape)
+        blocks = sh.distribute(dict(model.named_parameters()), shardings["params"])
+        state = sh.distribute(opt.init(model), shardings["opt"])
+        out[f"{name}.bytes"] = (sh.local_bytes(blocks), sh.local_bytes(state))
+        p2, o2, l2 = step(blocks, state, tok, lab)
+        full_p, full_o = sh.collect(p2, shardings["params"]), sh.collect(o2, shardings["opt"])
+        out[f"{name}.loss"] = (float(l1), float(l2))
+        out[f"{name}.params"] = max(float((full_p[n] - p).abs().max()) for n, p in p1.named_parameters())
+        out[f"{name}.state"] = max(float((a - b).abs().max()) for a, b in zip(_leaves(full_o), _leaves(o1)))
+        if rank == 0:
+            out[f"{name}.full"] = dict(params=full_p, state=full_o, loss=float(l2))
+        if name == "adam":
+            out["specs"] = {n: (tuple(dict(model.named_parameters())[n].shape), s.spec)
+                            for n, s in shardings["params"].items()}
+            out["opt_specs"] = {k: {n: s.spec for n, s in v.items()} for k, v in shardings["opt"].items()
+                                if isinstance(v, dict)}
+            out["input_spec"] = shardings["inputs"].spec
+            out["block_shapes"] = {n: tuple(b.shape) for n, b in p2.items()}
+            # a checkpoint from the sharded state: gathered by every rank, written by rank 0, restored unsharded
+            # (bitwise the gathered state) and sharded again (bitwise this rank's blocks)
+            if rank == 0:
+                CheckpointManager(ckpt_dir).save(1, {"params": full_p, "opt": full_o})
+            dist.barrier()
+            mgr = CheckpointManager(ckpt_dir)
+            template = tf.init_model(cfg, 1, device="cpu")
+            _, unsharded = mgr.restore({"params": template, "opt": opt.init(template)})
+            out["ckpt.unsharded_bitwise"] = (
+                all(torch.equal(p, full_p[n]) for n, p in template.named_parameters())
+                and all(torch.equal(a, b) for a, b in zip(_leaves(unsharded["opt"]), _leaves(full_o))))
+            _, resharded = mgr.restore({"params": clone_tree(p2), "opt": clone_tree(o2)},
+                                       shardings={"params": shardings["params"], "opt": shardings["opt"]})
+            out["ckpt.sharded_bitwise"] = (all(torch.equal(resharded["params"][n], b) for n, b in p2.items())
+                                           and all(torch.equal(a, b) for a, b in zip(_leaves(resharded["opt"]),
+                                                                                     _leaves(o2))))
+    # the compressed data-parallel step on ("pod", "data") against the plain step
+    model = convert.lm_params_from_numpy(tree, cfg, "cpu")
+    opt = Adam(learning_rate=LM_LR)
+    plain, _ = make_train_step(cfg, opt, donate=False)
+    p1, o1, l1 = plain(model, opt.init(model), tok, lab)
+    comp, init_err = make_compressed_dp_step(cfg, opt, pod, compress_axis="pod")
+    p2, o2, err, l2 = comp(model, opt.init(model), init_err(model), tok, lab)
+    named = dict(p2.named_parameters())
+    out["compressed"] = (float(l1), float(l2), max(float((a - b).abs().max()) for a, b in
+                                                   zip(p1.parameters(), p2.parameters())),
+                         max(float(e.abs().max()) for e in err.values()))
+    # Adam's first moments, linear in the averaged gradient: the int8 mean's error, against each parameter's largest
+    out["compressed.m_err"] = max(float((o2["m"][n] - m).abs().max() / m.abs().max()) for n, m in o1["m"].items())
+    out["compressed.digest"] = _digest(named)
+    if rank == 0:
+        out["compressed.full"] = dict(params={n: p.detach() for n, p in named.items()}, m=o2["m"], err=err,
+                                      loss=float(l2))
+    # prefill and decode (the given tokens) under the mesh against unsharded
+    serve_shape = ShapeConfig("smoke", LM_S + LM_DECODE_STEPS, LM_B, "decode")
+    prefill, _ = make_prefill_step(cfg)
+    decode, _ = make_decode_step(cfg, donate_cache=False)
+    prefill_sh, shp = make_prefill_step(cfg, mesh, serve_shape)
+    decode_sh, shd = make_decode_step(cfg, mesh, serve_shape)
+    blocks = sh.distribute(dict(model.named_parameters()), shp["params"])
+    logits, caches = prefill(model, tok, LM_S + LM_DECODE_STEPS)
+    logits_sh, caches_sh = prefill_sh(blocks, tok, LM_S + LM_DECODE_STEPS)
+    diffs, served = [float((logits - logits_sh).abs().max())], [logits_sh]
+    kept = [c["k"].clone() for c in caches]
+    for i in range(LM_DECODE_STEPS):
+        token = dec[:, i:i + 1]
+        new_logits, new_caches = decode(model, token, LM_S + i, caches)
+        if i == 0:
+            out["donate_cache_false_keeps"] = all(torch.equal(c["k"], k) for c, k in zip(caches, kept))
+        logits, caches = new_logits, new_caches
+        logits_sh, caches_sh = decode_sh(blocks, token, LM_S + i, caches_sh)
+        diffs.append(float((logits - logits_sh).abs().max()))
+        served.append(logits_sh)
+    out["serve.diffs"] = diffs
+    out["serve.cache_rows"] = caches_sh[0]["k"].shape[0]
+    out["serve.cache_specs"] = [c["k"].spec for c in shd["caches"]]
+    if rank == 0:
+        out["serve.logits"] = served
+    return out
+
+
+def _leaves(tree):
+    from repro_torch.tree import leaves
+
+    return [t for t in leaves(tree) if hasattr(t, "shape")]

@@ -62,7 +62,7 @@ def test_kernels_match_plain(cuda, dtype, g, m, tol):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {
         "cov_tiles": 2, "potrf": 1, "trsm": 1, "trail": 1, "carry_update": 0, "lrgemm": 0,
-        "flash_attention": 0,
+        "flash_attention": 0, "tile_gemv": 0, "tile_trsv": 0,
     }
 
 
@@ -316,9 +316,12 @@ def test_ops_without_a_backward_raise_under_grad(cuda):
         ops.carry_update(w.requires_grad_(), l, y, c)
     with torch.no_grad():
         assert ops.carry_update(w, l, y, c).grad_fn is None
+    # flash takes gradients (the language model trains through it): the kernel forward, the plain version's
+    # autograd backward
     q, k, v = (torch.randn(1, 64, 2, 32, device=cuda) for _ in range(3))
-    with pytest.raises(RuntimeError, match="flash_attention"):
-        ops.flash_attention(q, k.requires_grad_(), v)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k.requires_grad_(), v)
+    assert out.grad_fn is not None and ops.launch_counts()["flash_attention"] == 1
 
 
 def test_gp_leaves_the_callers_tf32_flags(cuda):
@@ -708,3 +711,88 @@ def test_nlml_tiled_batched_grad_on_the_card_matches_cpu(cuda):
     torch.testing.assert_close(v_card, v_cpu, rtol=1e-5, atol=0)
     for a, b in zip(g_card, g_cpu):
         assert ((a - b).abs() <= 1e-4 * b.abs().clamp(min=1.0)).all(), (a, b)
+
+
+# ---------------------------------------------------------------------------
+# Language-model training and the fleets' batch invariance
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("window", [None, 1024])
+def test_flash_backward_at_full_width_matches_plain(cuda, window):
+    """gemma2-2b's attention shapes (8 on 4 heads, hd 256, softcap 50), bf16: the kernel forward's gradients
+    are autograd of the plain version's, within the bf16 rounding of the forward they are taken through."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(1, 2048, 8, 256, device=cuda, generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn(1, 2048, 4, 256, device=cuda, generator=gen).to(torch.bfloat16) for _ in range(2))
+    cot = torch.randn(1, 2048, 8, 256, device=cuda, generator=gen).to(torch.bfloat16)
+    args = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.reset_launch_counts()
+    got = torch.autograd.grad(ops.flash_attention(*args, softcap=50.0, window=window), args, cot)
+    assert ops.launch_counts()["flash_attention"] == 1
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention.flash_attention_plain(*ref, softcap=50.0, window=window), ref, cot)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)  # the backward is the plain version's autograd on the same saved inputs
+
+
+def test_gemma2_two_layers_full_width_train_step_on_the_card_matches_cpu(cuda):
+    """One Adam step of gemma2-2b at full width cut to two layers, float32, 1 x 256 tokens: the card's loss and
+    gradients against the CPU's."""
+    from repro_torch.optim import Adam
+    from repro_torch.train import make_train_step
+    from repro_torch.train.train_step import loss_and_grads
+
+    cfg = dataclasses.replace(configs.get_config("gemma2-2b"), n_layers=2, param_dtype="float32",
+                              activation_dtype="float32")
+    model = tf.init_model(cfg, 0, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (1, 257), generator=torch.Generator().manual_seed(3))
+    inputs, labels = toks[:, :-1], toks[:, 1:]
+    loss_cpu, g_cpu = loss_and_grads(model, cfg, inputs, labels)
+    card = model.to(cuda)
+    ops.reset_launch_counts()
+    loss, grads = loss_and_grads(card, cfg, inputs.to(cuda), labels.to(cuda))
+    assert ops.launch_counts()["flash_attention"] == 4  # forward and recompute, two layers
+    assert abs(float(loss) - float(loss_cpu)) <= 1e-5 * abs(float(loss_cpu))
+    for n, g in g_cpu.items():
+        assert (grads[n].cpu() - g).abs().max() <= 1e-4 * g.abs().max() + 1e-6, n
+    opt = Adam(learning_rate=1e-3)
+    step, _ = make_train_step(cfg, opt)
+    _, state, loss2 = step(card, opt.init(card), inputs.to(cuda), labels.to(cuda))
+    assert torch.isfinite(loss2) and int(state["step"]) == 1
+
+
+@pytest.mark.parametrize("uncertainty", [False, True])
+def test_fleet_results_do_not_depend_on_the_problem_count(cuda, uncertainty):
+    """A GPBatch of B problems and one of its first B/2: the shared problems' predictions and NLMLs bitwise equal."""
+    gen = torch.Generator().manual_seed(5)
+    x, y = torch.randn(8, 700, 4, generator=gen), torch.randn(8, 700, generator=gen)
+    xt = torch.randn(8, 300, 4, generator=gen)
+
+    def run(b):
+        gp = GPBatch(x[:b], y[:b], tile_size=128, device=cuda)
+        out = gp.predict_with_uncertainty(xt[:b]) if uncertainty else (gp.predict(xt[:b]),)
+        out = (*out, gp.nlml())
+        gp.update(x[:b, :100] + 3.0, y[:b, :100])
+        return [t[:4].cpu() for t in out] + [gp.predict(xt[:b])[:4].cpu(), gp.nlml()[:4].cpu()]
+
+    ops.reset_launch_counts()
+    whole = run(8)
+    assert ops.launch_counts()["tile_gemv"] > 0 and ops.launch_counts()["tile_trsv"] > 0
+    for a, b in zip(whole, run(4)):
+        assert torch.equal(a, b)
+
+
+def test_lowrank_fleet_nlml_does_not_depend_on_the_problem_count(cuda):
+    """The low-rank tier: a GPBatch of B problems and one of its first B/2 give the shared problems bitwise equal
+    predictions and NLMLs."""
+    gen = torch.Generator().manual_seed(6)
+    x, y = torch.randn(8, 700, 4, generator=gen), torch.randn(8, 700, generator=gen)
+    xt = torch.randn(8, 300, 4, generator=gen)
+
+    def run(b):
+        gp = GPBatch(x[:b], y[:b], tile_size=128, method="lowrank", m_inducing=256, device=cuda)
+        return [t[:4].cpu() for t in (*gp.predict_with_uncertainty(xt[:b]), gp.nlml())]
+
+    for a, b in zip(run(8), run(4)):
+        assert torch.equal(a, b)

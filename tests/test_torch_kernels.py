@@ -250,9 +250,11 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing(rng):
     ops.lrgemm(k, k[0], torch.zeros(3, dtype=torch.int64), torch.arange(3))
     qkv = T(rng.standard_normal((1, 4, 2, 16)).astype(np.float32))
     ops.flash_attention(qkv, qkv, qkv, softcap=5.0, window=2)
+    ops.tile_gemv(k[:, None, None], k[:, None, None, 0])
+    ops.tile_trsv(k[:, None], k[:, None, 0], True)
     assert ops.launch_counts() == {
         "cov_tiles": 0, "potrf": 0, "trsm": 0, "trail": 0, "carry_update": 0, "lrgemm": 0,
-        "flash_attention": 0,
+        "flash_attention": 0, "tile_gemv": 0, "tile_trsv": 0,
     }
 
 

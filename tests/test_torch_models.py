@@ -86,10 +86,14 @@ def test_unported_architectures_raise(arch):
 
 
 def test_sharded_serving_raises():
+    """A mesh that is not a named DeviceMesh is refused (``collectives.check_mesh``); meshes run in
+    tests/test_torch_lm_mesh.py."""
     cfg = configs.get_smoke_config("olmo-1b")
     for make in (serve_step.make_prefill_step, serve_step.make_decode_step):
-        with pytest.raises(NotImplementedError, match="step 10"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             make(cfg, mesh=object())
+        fn, shardings = make(cfg)
+        assert callable(fn) and shardings is None
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -257,7 +261,7 @@ def test_prefill_and_decode_match_jax(models, arch):
     b, s = 2, 32
     toks = rng.integers(0, cfg.vocab_size, (b, s + 2)).astype(np.int32)
     lj, cj = jtf.prefill_fn(params, jcfg, jnp.asarray(toks[:, :s]))
-    prefill, decode = serve_step.make_prefill_step(cfg), serve_step.make_decode_step(cfg)
+    (prefill, _), (decode, _) = serve_step.make_prefill_step(cfg), serve_step.make_decode_step(cfg)
     lt, ct = prefill(model, T(toks[:, :s]).long())
     assert lt.shape == (b, cfg.vocab_size) and len(ct) == cfg.n_layers
     np.testing.assert_allclose(lt.numpy(), _np(lj), atol=ATOL)

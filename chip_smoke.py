@@ -160,7 +160,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
             window at S = 8192, a ragged S and float32; times it beside
             ``scaled_dot_product_attention``; fails on a spill in any
             instantiation, on a bf16 one without HGMMA, or on ptxas
-            serializing its wgmma;
+            serializing its wgmma; kernel.flash.recurrentgemma: the launch of
+            recurrentgemma-2b's local layers (B = 4, S = T = 2048, 10 query
+            heads on one KV head, hd 256, window 2048, no softcap, bf16)
+            against its plain version, timed beside its bound and SDPA
+            under the same windowed causal mask;
 13. lm      gemma2-2b at full width (26 layers, d_model 2304, bf16, random
             weights from the seed) serves two batches, 4 prompts of 2048
             tokens and 1 of 8192, each a prefill (``cache_len`` = S + 16)
@@ -192,6 +196,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
             decode steps under the mesh, a checkpoint of the sharded state
             restored on one device bitwise; collectives, seconds and peak
             memory by rank; lm.train.total against its 90 s budget.
+16. lm.recurrent  the recurrent layer kinds at full width and depth, bf16,
+            seeded weights: recurrentgemma-2b (26 layers: 18 rglru, 8 local)
+            and mamba2-1.3b (48 mamba2 layers).  lm.recurrent.serve: each
+            serves LM_BATCHES as lm does, every launch counted (flash 8
+            times a recurrentgemma prefill, never in a step; none for
+            mamba2), prefill seconds, decode ms a step, peak memory;
+            lm.recurrent.decode_vs_full_forward: LM_RULE at tokens S and
+            S + 15; profile.lm.recurrent: one 4 x 2048 prefill of each under
+            torch.profiler (top kernels, idle share) and the linear scan
+            alone at its shapes; lm.recurrent.train: two Adam steps of each
+            on token_batches(V, 2, 2048), losses near ln V, step 0 within 2e-2
+            of a float32 forward, 16 flash launches a recurrentgemma step;
+            lm.recurrent.grad: float32 gradients, card against CPU, at
+            depth 3 (recurrentgemma, one pattern cycle) and 2 (mamba2), full
+            width, 1 x 512 tokens; lm.recurrent.total against its 90 s
+            budget (the profiles not counted).
 
 Every phase prints one JSON line.  The kernels' summary, the nvidia-smi line
 and, last, ``{"ok": true, "device": {...}}`` follow.  Any failed check exits
@@ -258,6 +278,18 @@ FLASH_CASES = {
     "ragged_b2_s1000": (2, 1000, torch.bfloat16, False, 1.0, 2e-2),
     "float32_b1_s1024_qx20": (1, 1024, torch.float32, False, 20.0, 5e-5),
 }
+
+# the recurrent layer kinds (lm.recurrent.*): recurrentgemma-2b (rglru and local attention) and mamba2-1.3b at full
+# width and depth, bf16, seeded weights, served as LM_ARCH is (LM_BATCHES, LM_STEPS) and trained for
+# LM_REC_TRAIN_STEPS Adam steps on token_batches(V, LM_TRAIN_B, LM_TRAIN_S); the gradient check cuts their depth
+# to one pattern cycle of recurrentgemma (rglru, rglru, local) and two mamba2 layers
+LM_REC_ARCHS = ("recurrentgemma-2b", "mamba2-1.3b")
+LM_REC_CUT = {"recurrentgemma-2b": 3, "mamba2-1.3b": 2}
+LM_REC_TRAIN_STEPS = 2
+LM_REC_LOSS_RTOL = 0.1        # a step's loss within 10% of ln V: random weights predict a near-uniform next token
+LM_REC_BUDGET_S = 90.0        # the recurrent phases' share of the script's wall time
+# kernel.flash at recurrentgemma-2b's local layers: (arch, B, S = T)
+LM_REC_FLASH = ("recurrentgemma-2b", 4, 2048)
 
 # the flash kernels' names in a profile (the bf16 kernel of the served path, and float32)
 FLASH_KERNEL_NAMES = ("flash_wgmma_kernel", "flash_f32_kernel")
@@ -1820,8 +1852,54 @@ def flash_phase(dev):
          **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     del served, q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
+    row[f"{LM_REC_FLASH[0]}_b{LM_REC_FLASH[1]}_s{LM_REC_FLASH[2]}"] = flash_recurrent_case(dev)
     flash_build_quality()
     return row
+
+
+def flash_recurrent_case(dev):
+    """The flash kernel at recurrentgemma-2b's local layers (10 query heads on one KV head, hd 256, window 2048,
+    no softcap, bf16) against its plain version, timed beside its bound and SDPA under the same windowed mask."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa, ops
+
+    arch, b, s = LM_REC_FLASH
+    cfg = configs.get_config(arch)
+    h, kv, hd, win = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, cfg.window
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q = torch.randn(b, s, h, hd, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(b, s, kv, hd, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    out = ops.flash_attention(q, k, v, window=win)
+    ref = fa.flash_attention_plain(q, k, v, window=win).float()
+    err = max_err(out, ref)
+    scaled = float(((out.float() - ref).abs() / ref.abs().clamp_min(1.0)).max())
+    check(scaled <= 2e-2, f"flash_attention {arch}: kernel disagrees with its plain version: {scaled} > 2e-2 "
+          f"(scaled), {err} (absolute)")
+    del ref
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    idx = torch.arange(s, device=dev)
+    mask = (idx[None, :] <= idx[:, None]) & (idx[None, :] > idx[:, None] - win)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    nb = (2 * b * s * h * hd + 2 * b * s * kv * hd) * 2
+    no = 4 * hd * attention_pairs(s, s, win) * b * h
+    bnd = bound_ms(nb, no, PEAK_BF16_FLOPS)
+    res = dict(shape={"B": b, "S": s, "T": s, "H": h, "KV": kv, "hd": hd, "window": win, "softcap": None,
+                      "dtype": "bfloat16"},
+               max_abs_err=err, max_scaled_err=scaled, tol=2e-2,
+               ms=cuda_ms(lambda: ops.flash_attention(q, k, v, window=win), 10),
+               plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, window=win), 3),
+               bound_ms=bnd[0], bound_by=bnd[1], library_ms=cuda_ms(sdpa, 10),
+               sdpa_vs_kernel_max_abs_err=max_err(sdpa().transpose(1, 2), out))
+    res["achieved_tflops"] = no / res["ms"] / 1e9
+    emit("kernel.flash.recurrentgemma", arch=arch, **res,
+         library_call="torch.nn.functional.scaled_dot_product_attention(attn_mask=the windowed causal mask, "
+         "enable_gqa=True) on (B, H, S, hd) copies")
+    del q, k, v, qt, kt, vt, out
+    torch.cuda.empty_cache()
+    return res
 
 
 def flash_build_quality() -> None:
@@ -1885,6 +1963,48 @@ LM_RULE = ("float32: |decode - full forward| <= 1e-3 (float32 sums in another or
            "the bf16 decode no worse than twice the bf16 full forward's own rounding")
 
 
+def decode_vs_full_forward(phase, model, cfg, prompts, runs):
+    """Each served batch's decoded logits at its first and last step against a full forward over the same tokens:
+    bf16, then with the weights cast to float32 and the same tokens fed (``LM_RULE``)."""
+    from repro_torch.train import serve_step
+
+    prefill = serve_step.make_prefill_step(cfg)[0]
+    n_attn = sum(kind in ("local", "global") for kind in cfg.layer_kinds())
+    checked = (0, LM_STEPS - 1)
+    full16 = {}
+    for bs, r in runs.items():
+        seq = torch.cat([prompts[bs], r["fed"]], 1)
+        full16[bs] = {i: prefill(model, seq[:, :bs[1] + i + 1])[0] for i in checked}
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", activation_dtype="float32")
+    model32 = copy.deepcopy(model).float()
+    model32.cfg = cfg32
+    (prefill32, _), (decode32, _) = serve_step.make_prefill_step(cfg32), serve_step.make_decode_step(cfg32)
+    for bs, r in runs.items():
+        seq = torch.cat([prompts[bs], r["fed"]], 1)
+        r32 = serve(prefill32, decode32, model32, prompts[bs], LM_STEPS, feed=r["fed"])
+        check(r32["counts"][0]["flash_attention"] == n_attn, f"{cfg.name}: float32 prefill {bs}: {r32['counts'][0]}")
+        res = {}
+        for i in checked:
+            full32 = prefill32(model32, seq[:, :bs[1] + i + 1])[0]
+            res[f"token_{bs[1] + i}"] = {
+                "gap_f32": max_err(r32["step_logits"][i], full32),
+                "gap_bf16": max_err(r["step_logits"][i], full16[bs][i]),
+                "decode_bf16_vs_full_f32": max_err(r["step_logits"][i], full32),
+                "full_bf16_vs_full_f32": max_err(full16[bs][i], full32),
+                "max_abs_logit_f32": float(full32.abs().max()),
+            }
+        emit(phase, arch=cfg.name, batch=list(bs), positions=[bs[1] + i for i in checked], errors=res,
+             tol_f32=LM_TOL32, rule=LM_RULE)
+        for pos, e in res.items():
+            check(e["gap_f32"] <= LM_TOL32,
+                  f"{cfg.name} {bs} {pos}: float32 decode off the full forward by {e['gap_f32']}")
+            bound16 = 2 * e["full_bf16_vs_full_f32"] + LM_TOL32
+            check(e["decode_bf16_vs_full_f32"] <= bound16, f"{cfg.name} {bs} {pos}: bf16 decode off the float32 "
+                  f"full forward by {e['decode_bf16_vs_full_f32']} > {bound16}")
+    del model32, full16
+    torch.cuda.empty_cache()
+
+
 def phase_lm(dev):
     """gemma2-2b at full width serves two batches; launches, finiteness and decode against the full forward."""
     from repro_torch import configs
@@ -1930,39 +2050,7 @@ def phase_lm(dev):
         check(finite and shapes == {(bs[0], cfg.vocab_size)}, f"serve {bs}: non-finite or misshapen logits {shapes}")
     check(total["flash_attention"] > 0, f"the flash kernel never launched on the serving path: {total}")
 
-    # decode against the full forward over the same tokens: bf16, then the weights cast to float32
-    checked = (0, LM_STEPS - 1)
-    full16 = {}
-    for bs, r in runs.items():
-        seq = torch.cat([prompts[bs], r["fed"]], 1)
-        full16[bs] = {i: prefill(model, seq[:, :bs[1] + i + 1])[0] for i in checked}
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32", activation_dtype="float32")
-    model32 = copy.deepcopy(model).float()
-    model32.cfg = cfg32
-    (prefill32, _), (decode32, _) = serve_step.make_prefill_step(cfg32), serve_step.make_decode_step(cfg32)
-    for bs, r in runs.items():
-        seq = torch.cat([prompts[bs], r["fed"]], 1)
-        r32 = serve(prefill32, decode32, model32, prompts[bs], LM_STEPS, feed=r["fed"])
-        check(r32["counts"][0]["flash_attention"] == cfg.n_layers, f"float32 prefill {bs}: {r32['counts'][0]}")
-        res = {}
-        for i in checked:
-            full32 = prefill32(model32, seq[:, :bs[1] + i + 1])[0]
-            res[f"token_{bs[1] + i}"] = {
-                "gap_f32": max_err(r32["step_logits"][i], full32),
-                "gap_bf16": max_err(r["step_logits"][i], full16[bs][i]),
-                "decode_bf16_vs_full_f32": max_err(r["step_logits"][i], full32),
-                "full_bf16_vs_full_f32": max_err(full16[bs][i], full32),
-                "max_abs_logit_f32": float(full32.abs().max()),
-            }
-        emit("lm.decode_vs_full_forward", batch=list(bs), positions=[bs[1] + i for i in checked], errors=res,
-             tol_f32=LM_TOL32, rule=LM_RULE)
-        for pos, e in res.items():
-            check(e["gap_f32"] <= LM_TOL32, f"{bs} {pos}: float32 decode off the full forward by {e['gap_f32']}")
-            bound16 = 2 * e["full_bf16_vs_full_f32"] + LM_TOL32
-            check(e["decode_bf16_vs_full_f32"] <= bound16,
-                  f"{bs} {pos}: bf16 decode off the float32 full forward by {e['decode_bf16_vs_full_f32']} > {bound16}")
-    del model32, full16
-    torch.cuda.empty_cache()
+    decode_vs_full_forward("lm.decode_vs_full_forward", model, cfg, prompts, runs)
     return model, cfg, prompts, total
 
 
@@ -4393,6 +4481,227 @@ def tile_vector_phase(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The recurrent layer kinds: recurrentgemma-2b and mamba2-1.3b at full width
+# ---------------------------------------------------------------------------
+
+
+def attention_layers(cfg) -> int:
+    return sum(kind in ("local", "global") for kind in cfg.layer_kinds())
+
+
+def rec_model(arch, dev, **kw):
+    """(config, model): ``arch`` at full width (``kw`` replaces fields), weights drawn on the card from SEED."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(configs.get_config(arch), **kw)
+    return cfg, tf.init_model(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+
+
+def phase_lm_recurrent_serve(arch, dev):
+    """lm.recurrent.serve: ``arch`` at full width serves LM_BATCHES, every launch counted (flash once a local
+    layer a prefill, never in a step); lm.recurrent.decode_vs_full_forward: LM_RULE.  Returns (launches, model,
+    config, prompts)."""
+    from repro_torch.train import serve_step
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    (cfg, model), t_init = wall_s(lambda: rec_model(arch, dev))
+    n_attn = attention_layers(cfg)
+    emit("lm.recurrent.model", arch=arch, config=f"{cfg.source}; full width and depth, not cut",
+         n_layers=cfg.n_layers, kinds={k: cfg.layer_kinds().count(k) for k in sorted(set(cfg.layer_kinds()))},
+         d_model=cfg.d_model, vocab=cfg.vocab_size, params=sum(p.numel() for p in model.parameters()),
+         dtype=cfg.param_dtype, seed=SEED, init_seconds=t_init,
+         weights_gib=(torch.cuda.memory_allocated() - base) / 2**30)
+    (prefill, _), (decode, _) = serve_step.make_prefill_step(cfg), serve_step.make_decode_step(cfg)
+    rng = np.random.default_rng(SEED)
+    prompts = {bs: torch.from_numpy(rng.integers(0, cfg.vocab_size, bs)).to(dev) for bs in LM_BATCHES}
+    total, runs = dict(NO_LAUNCHES), {}
+    for bs in LM_BATCHES:
+        torch.cuda.reset_peak_memory_stats()
+        r = serve(prefill, decode, model, prompts[bs], LM_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for c in r["counts"]:
+            total = {k: total[k] + c[k] for k in total}
+        runs[bs] = r
+        outs = [r["logits"], *r["step_logits"]]
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in outs)
+        shapes = {tuple(t.shape) for t in outs}
+        _, again = wall_s(lambda: prefill(model, prompts[bs], cache_len=bs[1] + LM_STEPS))
+        steps = sorted(r["step_s"])
+        emit("lm.recurrent.serve", arch=arch, batch=list(bs), steps=LM_STEPS,
+             flash_launches_prefill=r["counts"][0]["flash_attention"],
+             flash_launches_per_step=[c["flash_attention"] for c in r["counts"][1:]],
+             launches_prefill=r["counts"][0], finite=finite, shapes=sorted(shapes),
+             tokens_first_request=r["fed"][0].tolist(), prefill_seconds=r["prefill_s"],
+             prefill_seconds_second_call=again, prefill_tokens_per_s=bs[0] * bs[1] / again,
+             decode_ms_per_step_median=1e3 * steps[len(steps) // 2], step_seconds=r["step_s"], peak_memory_gib=peak,
+             note="host clock around calls ending in torch.cuda.synchronize(); peak memory includes the bf16 "
+             "weights; the second prefill is timed after the first warmed cuBLAS")
+        check(r["counts"][0] == {**NO_LAUNCHES, "flash_attention": n_attn},
+              f"{arch} prefill {bs}: launches {r['counts'][0]}, not flash once on each of {n_attn} local layers")
+        check(all(c == NO_LAUNCHES for c in r["counts"][1:]), f"{arch} decode {bs}: a step launched a kernel: "
+              f"{[c for c in r['counts'][1:] if c != NO_LAUNCHES][:1]}")
+        check(finite and shapes == {(bs[0], cfg.vocab_size)}, f"{arch} serve {bs}: non-finite or misshapen logits")
+    decode_vs_full_forward("lm.recurrent.decode_vs_full_forward", model, cfg, prompts, runs)
+    emit("lm.recurrent.serve.total", arch=arch, seconds=time.perf_counter() - t0)
+    return total, model, cfg, prompts
+
+
+def profile_lm_recurrent(model, cfg, prompts, dev):
+    """profile.lm.recurrent: one prefill of the first batch under torch.profiler (top kernels, flash and matmul
+    shares, idle share), and the scans alone at that prefill's shapes by CUDA events, summed over the layers."""
+    from repro_torch.models import mamba2 as m2
+    from repro_torch.models.layers import linear_scan
+    from repro_torch.train import serve_step
+
+    prefill = serve_step.make_prefill_step(cfg)[0]
+    b, s = LM_BATCHES[0]
+    prompt = prompts[(b, s)]
+    rows, busy, wall = profile_call("profile.lm.recurrent", f"prefill {b} x {s}, {cfg.name} bf16",
+                                    lambda: prefill(model, prompt, cache_len=s + 1))
+    flash = sum(ms for name, _, ms in rows if any(k in name for k in FLASH_KERNEL_NAMES))
+    mm = sum(ms for name, _, ms in rows if any(w in name.lower() for w in ("gemm", "nvjet", "xmma", "cutlass")))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    if "rglru" in cfg.layer_kinds():  # (B, S, w) decays and inputs, float32
+        shape, lead, n = (b, s, cfg.rnn_width_), (b, s, cfg.rnn_width_), cfg.layer_kinds().count("rglru")
+    else:  # (B, NC, H) chunk decays over (B, NC, H, N, P) chunk states
+        _, h, pd, nst = m2._dims(cfg)
+        lead, n = (b, s // cfg.ssm_chunk, h), cfg.n_layers
+        shape = lead + (nst, pd)
+    a = torch.rand(lead, generator=gen, device=dev)
+    x = torch.randn(shape, generator=gen, device=dev)
+    scan_ms = cuda_ms(lambda: linear_scan(a, x), 5)
+    emit("profile.lm.recurrent.shares", arch=cfg.name, flash_ms=flash, matmul_ms=mm, other_ms=busy - flash - mm,
+         busy_ms=busy, scan_ms_per_layer=scan_ms, scan_shape=list(shape), scan_layers=n,
+         scan_ms_summed=scan_ms * n, scan_share_of_busy=scan_ms * n / busy if busy else "not measured",
+         note="the scan by CUDA events outside the profiler, at the prefill's shapes, times its layers")
+    del a, x
+    if rows and "local" in cfg.layer_kinds():
+        check(flash > 0, f"profile.lm.recurrent: {cfg.name}'s prefill profiled 0 ms of flash")
+
+
+def phase_lm_recurrent_train(arch, dev):
+    """lm.recurrent.train: LM_REC_TRAIN_STEPS Adam steps of ``arch`` at full width, bf16, through make_train_step;
+    step 0's loss against a float32 forward on the same weights.  Returns the launches summed over the steps."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import Adam, cosine_warmup
+    from repro_torch.train import make_train_step
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg, model = rec_model(arch, dev)
+    batches = lm_batch(cfg, LM_TRAIN_B, LM_TRAIN_S, SEED, dev, LM_REC_TRAIN_STEPS)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", activation_dtype="float32")
+    model32 = copy.deepcopy(model).float()
+    with torch.no_grad():
+        loss32 = float(tf.loss_fn(model32, cfg32, *batches[0]))
+    del model32
+    torch.cuda.empty_cache()
+    opt = Adam(learning_rate=cosine_warmup(3e-4, 1, 100))
+    state = opt.init(model)
+    step, _ = make_train_step(cfg, opt)
+    # the weight matrices of the first and last layers: a bf16 vector at 1.0 (Mamba-2's norm_scale) has an ulp of
+    # 2^-7, which a first step's ~lr does not reach
+    watch = {n: p.detach().clone() for n, p in model.named_parameters()
+             if n == "embed" or (p.ndim >= 2 and n.startswith(("layers.0.", f"layers.{cfg.n_layers - 1}.")))}
+    losses, seconds, counts = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for inputs, labels in batches:
+        ops.reset_launch_counts()
+        (model, state, loss), t = wall_s(lambda: step(model, state, inputs, labels))
+        counts.append(ops.launch_counts())
+        losses.append(float(loss))
+        seconds.append(t)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = {n: max_err(p, dict(model.named_parameters())[n]) for n, p in watch.items()}
+    n_attn, ln_v = attention_layers(cfg), math.log(cfg.vocab_size)
+    rel0 = abs(losses[0] - loss32) / abs(loss32)
+    tokens = LM_TRAIN_B * LM_TRAIN_S
+    emit("lm.recurrent.train", arch=arch, config=f"{cfg.source}; full width and depth, not cut",
+         dtype=cfg.param_dtype, batch=[LM_TRAIN_B, LM_TRAIN_S], data=f"token_batches(V, {LM_TRAIN_B}, "
+         f"{LM_TRAIN_S}, seed={SEED})", optimizer="Adam(cosine_warmup(3e-4, 1, 100)), clip 1.0", losses=losses,
+         ln_vocab=ln_v, loss_rtol_to_ln_vocab=LM_REC_LOSS_RTOL, loss0_f32=loss32, loss0_rel_to_f32=rel0,
+         tol=LM_TRAIN_F32_RTOL, step_seconds=seconds, tokens_per_s=[tokens / t for t in seconds],
+         peak_memory_gib=peak, flash_launches_per_step=[c["flash_attention"] for c in counts],
+         flash_expected=2 * n_attn, launches_per_step=counts[-1], params_moved=moved,
+         params=sum(p.numel() for p in model.parameters()), seconds=time.perf_counter() - t0,
+         note="a step: forward (each block under checkpoint), backward (each block recomputed: a local layer's "
+         "second flash launch; the scans and the attention backward by autograd of plain torch), Adam")
+    check(all(math.isfinite(x) and abs(x - ln_v) <= LM_REC_LOSS_RTOL * ln_v for x in losses),
+          f"lm.recurrent.train {arch}: losses {losses} not finite or not near ln V = {ln_v}")
+    check(rel0 <= LM_TRAIN_F32_RTOL, f"lm.recurrent.train {arch}: step 0's loss {losses[0]} is {rel0} off the "
+          f"float32 {loss32}")
+    check(all(c == {**NO_LAUNCHES, "flash_attention": 2 * n_attn} for c in counts),
+          f"lm.recurrent.train {arch}: launches a step {counts}, not flash twice on each of {n_attn} local layers")
+    check(all(v > 0 for v in moved.values()), f"lm.recurrent.train {arch}: parameters did not move: {moved}")
+    del model, state, batches
+    torch.cuda.empty_cache()
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def phase_lm_recurrent_grad(arch, dev):
+    """lm.recurrent.grad: ``arch`` at full width, depth cut to LM_REC_CUT[arch], float32, 1 x LM_GRAD_S tokens:
+    the card's gradients against the CPU's, each parameter, under LM_GRAD_RULE's float32 part."""
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    cfg, model = rec_model(arch, dev, n_layers=LM_REC_CUT[arch], param_dtype="float32", activation_dtype="float32")
+    batch = lm_batch(cfg, 1, LM_GRAD_S, SEED + 1, "cpu")[0]
+    t_cpu = time.perf_counter()
+    loss_cpu, g_cpu = lm_grads(copy.deepcopy(model).cpu(), cfg, batch)
+    t_cpu = time.perf_counter() - t_cpu
+    ops.reset_launch_counts()
+    loss32, g32 = lm_grads(model, cfg, tuple(t.to(dev) for t in batch))
+    launches = ops.launch_counts()
+    rows, bad = {}, []
+    for n, gc in g_cpu.items():
+        tol = 1e-4 * float(gc.abs().max()) + 1e-6
+        rows[n] = dict(f32_abs_err=max_err(g32[n].cpu(), gc), f32_tol=tol)
+        if rows[n]["f32_abs_err"] > tol:
+            bad.append(n)
+    n_attn = attention_layers(cfg)
+    emit("lm.recurrent.grad", arch=arch, config=f"{cfg.source}; full width, depth cut to {cfg.n_layers} layers "
+         f"({', '.join(cfg.layer_kinds())})", reduced=[f"n_layers -> {cfg.n_layers}"], tokens=[1, LM_GRAD_S],
+         loss={"cpu_f32": loss_cpu, "card_f32": loss32}, launches=launches,
+         worst=max(r["f32_abs_err"] for r in rows.values()), by_param=rows,
+         rule="LM_GRAD_RULE's float32 part: " + LM_GRAD_RULE.split(";")[0], cpu_seconds=t_cpu,
+         seconds=time.perf_counter() - t0)
+    check(launches == {**NO_LAUNCHES, "flash_attention": 2 * n_attn},
+          f"lm.recurrent.grad {arch}: launches {launches}, not flash twice on each of {n_attn} local layers")
+    check(not bad, f"lm.recurrent.grad {arch}: gradients outside the rule: {[(n, rows[n]) for n in bad]}")
+    del model, g32
+    torch.cuda.empty_cache()
+
+
+def phase_lm_recurrent(dev):
+    """The recurrent group: each of LM_REC_ARCHS served (and profiled), trained and its gradients checked;
+    lm.recurrent.total against LM_REC_BUDGET_S (the profiles not counted).  Returns the launches by path."""
+    seconds, serve_launches, train_launches = 0.0, dict(NO_LAUNCHES), dict(NO_LAUNCHES)
+    for arch in LM_REC_ARCHS:
+        t = time.perf_counter()
+        launches, model, cfg, prompts = phase_lm_recurrent_serve(arch, dev)
+        seconds += time.perf_counter() - t
+        serve_launches = {k: serve_launches[k] + launches[k] for k in serve_launches}
+        profile_lm_recurrent(model, cfg, prompts, dev)
+        del model, prompts
+    t = time.perf_counter()
+    for arch in LM_REC_ARCHS:
+        launches = phase_lm_recurrent_train(arch, dev)
+        train_launches = {k: train_launches[k] + launches[k] for k in train_launches}
+    for arch in LM_REC_ARCHS:
+        phase_lm_recurrent_grad(arch, dev)
+    seconds += time.perf_counter() - t
+    emit("lm.recurrent.total", seconds=seconds, budget_s=LM_REC_BUDGET_S,
+         note="lm.recurrent.serve (with decode_vs_full_forward), .train and .grad of both models by the script's "
+         "clock; profile.lm.recurrent not counted")
+    check(seconds <= LM_REC_BUDGET_S, f"the recurrent phases took {seconds} s of {LM_REC_BUDGET_S}")
+    return {"lm.recurrent": serve_launches, "lm.recurrent.train": train_launches}
+
+
 RANK_JOBS = {"dist": dist_job, "fleet_sharded": fleet_sharded_job, "lm_mesh": lm_mesh_job}
 
 
@@ -4520,6 +4829,9 @@ def main() -> None:
          "lm.train.grad and lm.trainer (profile.lm.train, between them, is not counted)")
     check(lm_seconds <= LM_NEW_BUDGET_S, f"the language-model training phases took {lm_seconds} s of {LM_NEW_BUDGET_S}")
 
+    # the recurrent layer kinds at full width: recurrentgemma-2b (rglru and flash on its local layers), mamba2-1.3b
+    launches_rec = phase_lm_recurrent(dev)
+
     # launches: each kernel's count on the path it came with (main, update, lowrank, lm)
     path_of = {name: "main" for name in MAIN_KERNELS}
     path_of["carry_update"] = "update"
@@ -4527,7 +4839,7 @@ def main() -> None:
     path_of["flash_attention"] = "lm"
     path_of.update({name: "fleet" for name in VECTOR_KERNELS})
     by_path = {"main": launches, "update": launches_update, "lowrank": launches_lowrank, "lm": launches_lm,
-               "lm.train": launches_lm_train,
+               "lm.train": launches_lm_train, **launches_rec,
                "zoo": launches_zoo, "train": launches_train, "train_lowrank": launches_train_lowrank,
                "fleet": launches_fleet, "fleet_ragged": launches_ragged,
                "fleet_ragged_lowrank": launches_ragged_lowrank,

@@ -1,4 +1,4 @@
-"""Architecture registry of the port: the dense configurations its blocks run.
+"""Architecture registry of the port: the configurations its blocks run.
 
 ``get_config(arch)`` and ``get_smoke_config(arch)`` return the full and the
 reduced configuration, copies of the JAX package's ``CONFIG`` and ``SMOKE``.
@@ -18,12 +18,12 @@ _MODULES: Dict[str, str] = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "qwen1.5-0.5b": "repro_torch.configs.qwen15_0_5b",
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
 }
 
 # the JAX package's other architectures, with what they wait for
 NOT_PORTED: Dict[str, str] = {
-    "recurrentgemma-2b": "the rglru layer kind (ROADMAP.md queue 1, step 11c)",
-    "mamba2-1.3b": "the mamba2 layer kind (ROADMAP.md queue 1, step 11d)",
     "qwen3-moe-235b-a22b": "the MoE feed-forward (ROADMAP.md queue 1, step 11e)",
     "arctic-480b": "the MoE feed-forward (ROADMAP.md queue 1, step 11e)",
     "llava-next-34b": "the embeddings input (ROADMAP.md queue 1, step 11f)",

@@ -6,9 +6,11 @@ The counterpart of ``repro/models/layers.py``.  Parameters live in
 functions take the module where the JAX functions take the parameter dict.
 Norms and softmax-adjacent math run in float32 whatever the activation
 type, as in the reference.  The sharding hint ``constrain`` has no
-counterpart: it does nothing without a mesh, and the language model's meshes
-are ROADMAP.md queue 1 step 10b.  Parameters do not require gradients: the port serves, it
-does not train yet.
+counterpart: it does nothing without a mesh, and the port's meshes lay out
+whole leaves (``dist.sharding``).  Parameters are made with
+``requires_grad=False``; training turns it on for the step
+(``train.train_step.loss_and_grads``).  :func:`linear_scan` is the
+recurrent kinds' ``associative_scan``.
 """
 
 from __future__ import annotations
@@ -179,6 +181,33 @@ def sinusoidal_pos_emb(positions: torch.Tensor, d: int) -> torch.Tensor:
     )
     ang = positions[..., None].float() * freq
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Linear recurrences (RG-LRU, Mamba-2's inter-chunk states).
+# ---------------------------------------------------------------------------
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t along dim 1 from h = 0: every h_t, in ⌈log2 S⌉ elementwise passes.
+
+    The counterpart of ``jax.lax.associative_scan`` over ``(a, b) -> (a_l a_r,
+    a_r b_l + b_r)`` (Hillis-Steele doubling: pass k combines each step with
+    the one 2^k before it), returning the ``b`` half.  ``a`` is ``b``'s
+    leading dims (Mamba-2 scans (B, NC, H, N, P) chunk states with a (B, NC,
+    H) decay): it broadcasts over ``b``'s trailing ones.  It differs from
+    JAX's scan only in the order of the products.
+    """
+    if a.ndim < 2 or b.shape[:a.ndim] != a.shape:
+        raise ValueError(f"linear_scan: a {tuple(a.shape)} must be the leading dims of b {tuple(b.shape)}")
+    n, tail = b.shape[1], (None,) * (b.ndim - a.ndim)
+    d = 1
+    while d < n:
+        b = torch.cat([b[:, :d], a[:, d:][(...,) + tail] * b[:, :-d] + b[:, d:]], 1)
+        if 2 * d < n:
+            a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], 1)
+        d *= 2
+    return b
 
 
 def rounded(value: float, dtype: torch.dtype) -> float:

@@ -1,12 +1,13 @@
-"""Decoder backbone of the dense attention family: prefill and decode.
+"""Decoder backbone: train, prefill and decode.
 
-The counterpart of ``repro/models/transformer.py`` for serving.  A model is
-the config's ``pattern`` of block kinds cycled over ``n_layers``; the port
-runs the "global" and "local" attention kinds and stacks them in a
-:class:`Transformer` module, one :class:`Block` per layer, walked by a
-Python loop.  Layer ``l`` holds what the reference keeps at
-``groups[l % len(pattern)][l // len(pattern)]`` (its stacked cycles), and
-the remainder (``tail``) comes after (``convert.lm_params_from_numpy``).
+The counterpart of ``repro/models/transformer.py``.  A model is the
+config's ``pattern`` of block kinds cycled over ``n_layers``: "global" and
+"local" attention, "rglru" (``models/rglru.py``, recurrentgemma) and
+"mamba2" (``models/mamba2.py``); a :class:`Transformer` module stacks one
+:class:`Block` per layer, walked by a Python loop.  Layer ``l`` holds what
+the reference keeps at ``groups[l % len(pattern)][l // len(pattern)]`` (its
+stacked cycles), and the remainder (``tail``) comes after
+(``convert.lm_params_from_numpy``).
 
 Three entry modes, as the reference's:
 
@@ -17,17 +18,20 @@ Three entry modes, as the reference's:
   * prefill: the full sequence, last-position logits and the decode caches;
   * step: one token against the caches, updated in place.
 
-Every attention layer of train and prefill runs the flash kernel forward.
+Every attention layer of train and prefill runs the flash kernel forward;
+the recurrent kinds run plain torch (the reference has no kernel there).
 
-The decode caches follow ``attention.cache_shape``: ``min(window,
+A layer's decode cache is ``{"k", "v"}`` on an attention layer and the
+recurrent state ``{"h", "conv"}`` on an rglru or mamba2 one.  The attention
+caches follow ``attention.cache_shape``: ``min(window,
 cache_len)`` slots on a local layer, ``cache_len`` on a global one, with
 ``cache_len`` = S + 1 by default.  (The reference's prefill sizes a local
 ring ``min(window, S)`` and a global one S + 1 whatever the caller needs,
 so its first decoded token overwrites position 0 when S < window, and its
 second one on a global layer; ROADMAP.md §3.)
 
-The rglru and mamba2 kinds, the MoE feed-forward and the embeddings input
-raise ``NotImplementedError`` naming their ROADMAP.md step.
+The MoE feed-forward and the embeddings input raise
+``NotImplementedError`` naming their ROADMAP.md step.
 """
 
 from __future__ import annotations
@@ -42,6 +46,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2 as m2
+from repro_torch.models import rglru as rg
 from repro_torch.models.layers import (
     MLP,
     Norm,
@@ -56,12 +62,6 @@ from repro_torch.models.layers import (
     softcap,
 )
 
-_NOT_PORTED = {
-    "rglru": "ROADMAP.md queue 1, step 11c",
-    "mamba2": "ROADMAP.md queue 1, step 11d",
-}
-
-
 def _dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}[name]
 
@@ -69,9 +69,7 @@ def _dtype(name: str) -> torch.dtype:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port cannot run yet."""
     for kind in set(cfg.layer_kinds()):
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(f"{cfg.name}: the {kind} layer kind is not ported ({_NOT_PORTED[kind]})")
-        if kind not in ("global", "local"):
+        if kind not in ("global", "local", "rglru", "mamba2"):
             raise ValueError(kind)
     if cfg.n_experts:
         raise NotImplementedError(f"{cfg.name}: the MoE feed-forward is not ported (ROADMAP.md queue 1, step 11e)")
@@ -87,20 +85,30 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Block(nn.Module):
-    """norm1 -> attention -> (post_norm1) -> residual; norm2 -> MLP -> (post_norm2) -> residual."""
+    """norm1 -> mixer -> (post_norm1) -> residual; norm2 -> MLP -> (post_norm2) -> residual.
+
+    The mixer is ``attn`` (global, local), ``rec`` (rglru) or ``ssm``
+    (mamba2); a mamba2 block has no feed-forward, as the reference's.
+    """
 
     def __init__(self, kind: str, cfg: ModelConfig, dtype=torch.float32, device=None):
         super().__init__()
         self.kind = kind
         d = cfg.d_model
+        self.has_ffn = kind != "mamba2" and cfg.d_ff > 0
         self.norm1 = Norm(cfg.norm, d, dtype, device)
-        self.attn = attn.Attention(cfg, dtype, device)
-        if cfg.d_ff > 0:
+        if kind == "rglru":
+            self.rec = rg.RGLRU(cfg, dtype, device)
+        elif kind == "mamba2":
+            self.ssm = m2.Mamba2(cfg, dtype, device)
+        else:
+            self.attn = attn.Attention(cfg, dtype, device)
+        if self.has_ffn:
             self.norm2 = Norm(cfg.norm, d, dtype, device)
             self.mlp = MLP(cfg.mlp, d, cfg.d_ff, dtype, device)
         if cfg.post_norm:
             self.post_norm1 = Norm(cfg.norm, d, dtype, device)
-            if cfg.d_ff > 0:
+            if self.has_ffn:
                 self.post_norm2 = Norm(cfg.norm, d, dtype, device)
 
 
@@ -124,7 +132,12 @@ class Transformer(nn.Module):
 
 
 def _init_block_(blk: Block, generator: torch.Generator) -> Block:
-    attn.init_attention_(blk.attn, generator)
+    if blk.kind == "rglru":
+        rg.init_rglru_(blk.rec, generator)
+    elif blk.kind == "mamba2":
+        m2.init_mamba2_(blk.ssm, generator)
+    else:
+        attn.init_attention_(blk.attn, generator)
     if hasattr(blk, "mlp"):
         init_mlp_(blk.mlp, generator)
     return blk
@@ -149,11 +162,20 @@ def init_model(cfg: ModelConfig, generator: Union[torch.Generator, int] = 0, dev
     return model
 
 
+def _block_cache_template(kind: str, cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> dict:
+    if kind == "rglru":
+        return rg.init_rglru_state(cfg, batch, dtype, device)
+    if kind == "mamba2":
+        return m2.init_mamba2_state(cfg, batch, dtype, device)
+    return attn.init_cache(cfg, batch, max_len, kind == "local", dtype, device)
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> List[dict]:
-    """Empty decode caches, one ``{"k", "v"}`` per layer, in the activation type."""
+    """Empty decode caches, one a layer (``{"k", "v"}`` or ``{"h", "conv"}``); the recurrent ``h`` float32, the
+    rest in the activation type."""
     dev = resolve_device(device)
     dtype = _dtype(cfg.activation_dtype)
-    return [attn.init_cache(cfg, batch, max_len, kind == "local", dtype, dev) for kind in cfg.layer_kinds()]
+    return [_block_cache_template(kind, cfg, batch, max_len, dtype, dev) for kind in cfg.layer_kinds()]
 
 
 # ---------------------------------------------------------------------------
@@ -197,19 +219,26 @@ def apply_block(
     cache_len: Optional[int] = None,
 ):
     """Returns (x, cache): the prefill's new cache, the step's cache updated in place, or None in train mode."""
-    h = apply_norm(p.norm1, x, cfg.norm)
-    local = kind == "local"
-    if mode == "step":
-        h, new_cache = attn.attend_decode(p.attn, h, pos, cache, cfg, local=local)
-    elif mode in ("prefill", "train"):
-        h, kv = attn.attend_full(p.attn, h, positions, cfg, local=local, mode=mode)
-        new_cache = None if mode == "train" else _kv_to_ring(kv, cfg, local, cache_len)
-    else:
+    if mode not in ("train", "prefill", "step"):
         raise ValueError(f"mode {mode!r}: one of train, prefill, step")
+    h = apply_norm(p.norm1, x, cfg.norm)
+    if kind in ("rglru", "mamba2"):
+        mod, seq, step = ((p.rec, rg.apply_rglru_seq, rg.apply_rglru_step) if kind == "rglru"
+                          else (p.ssm, m2.apply_mamba2_seq, m2.apply_mamba2_step))
+        if mode == "step":
+            h, new_cache = step(mod, h, cache, cfg)
+        else:
+            h, state = seq(mod, h, cfg)
+            new_cache = state if mode == "prefill" else None
+    elif mode == "step":
+        h, new_cache = attn.attend_decode(p.attn, h, pos, cache, cfg, local=kind == "local")
+    else:
+        h, kv = attn.attend_full(p.attn, h, positions, cfg, local=kind == "local", mode=mode)
+        new_cache = None if mode == "train" else _kv_to_ring(kv, cfg, kind == "local", cache_len)
     if cfg.post_norm:
         h = apply_norm(p.post_norm1, h, cfg.norm)
     x = x + h
-    if cfg.d_ff > 0:
+    if p.has_ffn:
         h = apply_mlp(p.mlp, apply_norm(p.norm2, x, cfg.norm), cfg.mlp)
         if cfg.post_norm:
             h = apply_norm(p.post_norm2, h, cfg.norm)

@@ -308,6 +308,7 @@ def distributed_world(rank, world):
 # ---------------------------------------------------------------------------
 
 LM_ARCH, LM_B, LM_S, LM_DECODE_STEPS, LM_LR = "olmo-1b", 4, 16, 4, 1e-3
+LM_RECURRENT_ARCH = "recurrentgemma-2b"  # served on the mesh beside LM_ARCH
 
 
 def lm_tokens(vocab: int, seed: int = 0):
@@ -329,8 +330,9 @@ def _digest(named):
 def lm_mesh_world(rank, world, ckpt_dir, tree):
     """Every case of tests/test_torch_lm_mesh.py on this rank: the sharded train step (Adam, Adafactor) and the
     unsharded one, the specs and the bytes a rank holds, the compressed DP step, sharded prefill and decode, and a
-    checkpoint saved from the sharded state and restored both ways.  ``tree`` is the reference's parameter tree
-    (numpy); rank 0 also returns its full results, which the caller holds against the JAX package's."""
+    checkpoint saved from the sharded state and restored both ways; then LM_RECURRENT_ARCH's smoke model (the port's
+    own init) served under the mesh.  ``tree`` is the reference's parameter tree (numpy); rank 0 also returns its full
+    results, which the caller holds against the JAX package's."""
     import torch
     import torch.distributed as dist
 
@@ -341,7 +343,7 @@ def lm_mesh_world(rank, world, ckpt_dir, tree):
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import transformer as tf
     from repro_torch.optim import Adafactor, Adam
-    from repro_torch.train import make_compressed_dp_step, make_decode_step, make_prefill_step, make_train_step
+    from repro_torch.train import make_compressed_dp_step, make_train_step
     from repro_torch.train.train_step import clone_tree
 
     cfg = configs.get_smoke_config(LM_ARCH)
@@ -407,6 +409,31 @@ def lm_mesh_world(rank, world, ckpt_dir, tree):
         out["compressed.full"] = dict(params={n: p.detach() for n, p in named.items()}, m=o2["m"], err=err,
                                       loss=float(l2))
     # prefill and decode (the given tokens) under the mesh against unsharded
+    diffs, served, caches_sh, shd, out["donate_cache_false_keeps"] = _serve_on_mesh(cfg, model, mesh, tok, dec)
+    out["serve.diffs"] = diffs
+    out["serve.cache_rows"] = caches_sh[0]["k"].shape[0]
+    out["serve.cache_specs"] = [c["k"].spec for c in shd["caches"]]
+    if rank == 0:
+        out["serve.logits"] = served
+    # the recurrent states ({"h", "conv"} on rglru layers) beside a local ring: recurrentgemma's smoke model
+    rcfg = configs.get_smoke_config(LM_RECURRENT_ARCH)
+    diffs, _, caches_sh, shd, _ = _serve_on_mesh(rcfg, tf.init_model(rcfg, 0, device="cpu"), mesh, tok, dec)
+    out["recurrent.diffs"] = diffs
+    out["recurrent.cache_rows"] = [{k: t.shape[0] for k, t in c.items()} for c in caches_sh]
+    out["recurrent.cache_specs"] = [{k: s.spec for k, s in c.items()} for c in shd["caches"]]
+    return out
+
+
+def _serve_on_mesh(cfg, model, mesh, tok, dec):
+    """Prefill and LM_DECODE_STEPS decode steps (the tokens ``dec``) under ``mesh`` and unsharded: (the largest
+    logit difference of each call, the sharded logits, the sharded caches, the decode step's shardings, whether
+    the unsharded ``donate_cache=False`` step left its first caches as they were)."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import sharding as sh
+    from repro_torch.train import make_decode_step, make_prefill_step
+
     serve_shape = ShapeConfig("smoke", LM_S + LM_DECODE_STEPS, LM_B, "decode")
     prefill, _ = make_prefill_step(cfg)
     decode, _ = make_decode_step(cfg, donate_cache=False)
@@ -416,22 +443,18 @@ def lm_mesh_world(rank, world, ckpt_dir, tree):
     logits, caches = prefill(model, tok, LM_S + LM_DECODE_STEPS)
     logits_sh, caches_sh = prefill_sh(blocks, tok, LM_S + LM_DECODE_STEPS)
     diffs, served = [float((logits - logits_sh).abs().max())], [logits_sh]
-    kept = [c["k"].clone() for c in caches]
+    kept = [{k: t.clone() for k, t in c.items()} for c in caches]
+    keeps = False
     for i in range(LM_DECODE_STEPS):
         token = dec[:, i:i + 1]
         new_logits, new_caches = decode(model, token, LM_S + i, caches)
         if i == 0:
-            out["donate_cache_false_keeps"] = all(torch.equal(c["k"], k) for c, k in zip(caches, kept))
+            keeps = all(torch.equal(c[k], k0[k]) for c, k0 in zip(caches, kept) for k in c)
         logits, caches = new_logits, new_caches
         logits_sh, caches_sh = decode_sh(blocks, token, LM_S + i, caches_sh)
         diffs.append(float((logits - logits_sh).abs().max()))
         served.append(logits_sh)
-    out["serve.diffs"] = diffs
-    out["serve.cache_rows"] = caches_sh[0]["k"].shape[0]
-    out["serve.cache_specs"] = [c["k"].spec for c in shd["caches"]]
-    if rank == 0:
-        out["serve.logits"] = served
-    return out
+    return diffs, served, caches_sh, shd, keeps
 
 
 def _leaves(tree):

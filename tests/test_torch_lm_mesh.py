@@ -10,7 +10,8 @@ sizes; the bytes each rank holds; the compressed data-parallel step on a
 ``("pod", "data")`` mesh against the plain step (the reference's rule: loss
 within 1e-2, parameters within 5e-2; every rank's parameters the same);
 prefill and four decode steps under the mesh against unsharded ones within
-1e-5; and a checkpoint saved from the sharded state restored unsharded and
+1e-5, for olmo and for recurrentgemma's smoke model (its rglru states and
+local rings); and a checkpoint saved from the sharded state restored unsharded and
 sharded, bitwise.
 
 While the world runs, the JAX package takes the same steps on the same
@@ -251,6 +252,16 @@ def test_sharded_serving_equals_unsharded(ranks):
         assert len(r["serve.diffs"]) == 5 and max(r["serve.diffs"]) <= 1e-5
         assert r["serve.cache_rows"] == 2 and r["donate_cache_false_keeps"]
         assert all(spec[0] == ("data",) for spec in r["serve.cache_specs"])
+
+
+def test_sharded_recurrent_serving_equals_unsharded(ranks):
+    """recurrentgemma's smoke model: the rglru states {"h", "conv"} and the local rings take the batch's rows."""
+    for r in ranks:
+        assert len(r["recurrent.diffs"]) == 5 and max(r["recurrent.diffs"]) <= 1e-5
+        assert all(rows == {k: 2 for k in rows} for rows in r["recurrent.cache_rows"])
+        specs = r["recurrent.cache_specs"]
+        assert {frozenset(s) for s in specs} == {frozenset({"h", "conv"}), frozenset({"k", "v"})}
+        assert all(spec[0] == ("data",) for s in specs for spec in s.values())
 
 
 def test_sharded_serving_matches_jax(results):

@@ -4,7 +4,9 @@
 Adam and with Adafactor, the synthetic data, and the flash op's gradient
 route, on the four dense smoke configurations in float32 on the CPU (the
 flash op runs its plain version forward, the reference's masked softmax
-backward).  Parameters come over by ``convert.lm_params_from_numpy``;
+backward).  The recurrentgemma and mamba2 smoke configurations take the
+loss, gradient and finiteness cases.  Parameters come over by
+``convert.lm_params_from_numpy``;
 inputs are drawn with numpy.  Tolerances: the loss within 1e-5 relative;
 a gradient within 1e-4 max|g| + 1e-6 of ``jax.grad`` (measured gaps
 ~2e-6 max|g|); parameters after a step within 1e-5 wherever the reference's
@@ -48,7 +50,10 @@ from repro_torch.train import make_train_step
 from repro_torch.train.train_step import loss_and_grads
 
 DENSE = ("gemma2-2b", "olmo-1b", "qwen1.5-0.5b", "chatglm3-6b")
+PORTED = DENSE + ("recurrentgemma-2b", "mamba2-1.3b")
 B, S = 2, 32
+# the JAX package's loss and gradients, compiled: eager, the recurrent kinds' scans compile op by op
+_jax_value_and_grad = jax.jit(jax.value_and_grad(jtf.loss_fn), static_argnums=1)
 
 
 def _cfgs(arch, chunk=0):
@@ -79,16 +84,17 @@ def _hold_step(got, want, grad, before, bound):
 @pytest.fixture(scope="module")
 def models():
     """arch -> (JAX params), built once."""
-    return {arch: jtf.init_model(jax.random.PRNGKey(0), jconfigs.get_smoke_config(arch)) for arch in DENSE}
+    init = jax.jit(jtf.init_model, static_argnums=1)
+    return {arch: init(jax.random.PRNGKey(0), jconfigs.get_smoke_config(arch)) for arch in PORTED}
 
 
 @pytest.mark.parametrize("chunk", [0, 8], ids=["whole", "chunked"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_loss_and_gradients_match_jax(models, arch, chunk):
     jcfg, cfg = _cfgs(arch, chunk)
     params = models[arch]
     tok, lab = _batch(cfg)
-    jl, jg = jax.value_and_grad(jtf.loss_fn)(params, jcfg, jnp.asarray(tok), jnp.asarray(lab))
+    jl, jg = _jax_value_and_grad(params, jcfg, jnp.asarray(tok), jnp.asarray(lab))
     model = convert.lm_params_from_numpy(jax.tree.map(np.asarray, params), cfg, "cpu")
     loss, grads = loss_and_grads(model, cfg, torch.from_numpy(tok), torch.from_numpy(lab))
     assert abs(float(loss) - float(jl)) <= 1e-5 * abs(float(jl))
@@ -100,7 +106,7 @@ def test_loss_and_gradients_match_jax(models, arch, chunk):
     assert all(not p.requires_grad for p in model.parameters())  # the flags are given back
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_train_step_finite(arch):
     """The reference's smoke property: a finite loss and a finite, nonzero gradient norm."""
     cfg = configs.get_smoke_config(arch)

@@ -36,6 +36,9 @@ from repro_torch.train import serve_step
 
 ATOL = 1e-4
 DENSE = ("gemma2-2b", "olmo-1b", "qwen1.5-0.5b", "chatglm3-6b")
+PORTED = DENSE + ("recurrentgemma-2b", "mamba2-1.3b")  # the recurrent kinds: tests/test_torch_recurrent.py
+# leaves that ``ModelConfig.param_count`` leaves out: norms, the RG-LRU's conv bias, Mamba-2's conv and per-head vectors
+UNCOUNTED = ("norm", "rec.conv_b", "ssm.conv_w", "ssm.conv_b", "ssm.a_log", "ssm.d_skip", "ssm.dt_bias")
 
 
 def T(a):
@@ -67,14 +70,13 @@ def models():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_configs_are_the_references(arch):
     assert dataclasses.asdict(configs.get_config(arch)) == dataclasses.asdict(jconfigs.get_config(arch))
     assert dataclasses.asdict(configs.get_smoke_config(arch)) == dataclasses.asdict(jconfigs.get_smoke_config(arch))
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-1.3b", "qwen3-moe-235b-a22b", "arctic-480b",
-                                  "llava-next-34b", "musicgen-large"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "arctic-480b", "llava-next-34b", "musicgen-large"])
 def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, step 11"):
         configs.get_config(arch)
@@ -96,17 +98,20 @@ def test_sharded_serving_raises():
         assert callable(fn) and shardings is None
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_param_counts(arch):
-    """Weights (norms aside, as ``param_count`` counts) at full width, and the smoke model's init."""
+    """Weights (``UNCOUNTED`` aside, as ``param_count`` counts) at full width, and the smoke model's init."""
     def count(model):
-        return sum(p.numel() for n, p in model.named_parameters() if "norm" not in n)
+        return sum(p.numel() for n, p in model.named_parameters() if not any(u in n for u in UNCOUNTED))
+
+    def counted(cfg):  # ``param_count`` also leaves out an rglru block's feed-forward, which both models hold
+        return cfg.param_count() + sum(cfg._ffn_params(cfg.d_ff) for kind in cfg.layer_kinds() if kind == "rglru")
 
     full = configs.get_config(arch)
-    assert count(ttf.Transformer(full, device="meta")) == full.param_count()
+    assert count(ttf.Transformer(full, device="meta")) == counted(full)
     smoke = configs.get_smoke_config(arch)
     model = ttf.init_model(smoke, 0, device="cpu")
-    assert count(model) == smoke.param_count()
+    assert count(model) == counted(smoke)
     assert all(p.dtype == torch.float32 and not p.requires_grad for p in model.parameters())
     # truncated normals at the reference's scales: |w| <= 2 / sqrt(d) on the embedding
     emb = model.embed

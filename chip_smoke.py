@@ -164,7 +164,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
             recurrentgemma-2b's local layers (B = 4, S = T = 2048, 10 query
             heads on one KV head, hd 256, window 2048, no softcap, bf16)
             against its plain version, timed beside its bound and SDPA
-            under the same windowed causal mask;
+            under the same windowed causal mask; kernel.flash.lm_shapes (17);
 13. lm      gemma2-2b at full width (26 layers, d_model 2304, bf16, random
             weights from the seed) serves two batches, 4 prompts of 2048
             tokens and 1 of 8192, each a prefill (``cache_len`` = S + 16)
@@ -212,6 +212,24 @@ Run from the root of a checkout:  python3 chip_smoke.py
             depth 3 (recurrentgemma, one pattern cycle) and 2 (mamba2), full
             width, 1 x 512 tokens; lm.recurrent.total against its 90 s
             budget (the profiles not counted).
+17. lm.moe, lm.embed  the MoE feed-forward and the embeddings input at full
+            width, bf16, seeded weights (kernel.flash.lm_shapes, in phase 12:
+            the flash kernel at each new model's 4 x 2048 prefill, 64 on 4
+            heads of 128, 56 on 8 and 32 on 32 of 64, beside SDPA).
+            lm.moe.serve: qwen3-moe-235b-a22b (depth 94 -> 8) and
+            arctic-480b (depth 35 -> 2) serve LM_BATCHES, flash once an
+            attention layer a prefill, with each layer's dropped choices and
+            busiest expert; lm.embed.serve: llava-next-34b and musicgen-large
+            whole, prompts of seeded normal (B, S, d) embeddings, the decoded
+            tokens through embed; *.decode_vs_full_forward: the bf16 decode at
+            the served depth beside its drops, and LM_RULE on a float32 model
+            at depth 1 (the MoE models, capacity factor 8), 4 (llava) or whole
+            (musicgen); profile.lm.moe: one qwen3-moe prefill under
+            torch.profiler and the MoE's parts by CUDA events;
+            lm.moe.train (qwen3-moe, depth 1) and lm.embed.train (musicgen):
+            two Adam steps each; lm.moe.grad (one qwen3-moe block, 0 routing
+            flips) and lm.embed.grad (musicgen, depth 2): float32 gradients,
+            card against CPU; lm.arch.total against its 120 s budget.
 
 Every phase prints one JSON line.  The kernels' summary, the nvidia-smi line
 and, last, ``{"ok": true, "device": {...}}`` follow.  Any failed check exits
@@ -1853,6 +1871,7 @@ def flash_phase(dev):
     del served, q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     row[f"{LM_REC_FLASH[0]}_b{LM_REC_FLASH[1]}_s{LM_REC_FLASH[2]}"] = flash_recurrent_case(dev)
+    row["lm_shapes"] = flash_lm_shapes(dev)
     flash_build_quality()
     return row
 
@@ -1937,7 +1956,7 @@ def serve(prefill, decode, model, prompts, steps, feed=None):
     """
     from repro_torch.kernels import ops
 
-    b, s = prompts.shape
+    b, s = prompts.shape[:2]
     ops.reset_launch_counts()
     (logits, caches), t_prefill = wall_s(lambda: prefill(model, prompts, cache_len=s + steps))
     counts = [ops.launch_counts()]
@@ -1963,44 +1982,100 @@ LM_RULE = ("float32: |decode - full forward| <= 1e-3 (float32 sums in another or
            "the bf16 decode no worse than twice the bf16 full forward's own rounding")
 
 
-def decode_vs_full_forward(phase, model, cfg, prompts, runs):
-    """Each served batch's decoded logits at its first and last step against a full forward over the same tokens:
-    bf16, then with the weights cast to float32 and the same tokens fed (``LM_RULE``)."""
+def extended(model, cfg, prompt, fed):
+    """The prompt followed by the fed tokens: token ids, or, for the embeddings input, the prompt's embeddings
+    followed by ``embed[fed]`` in the activation type."""
+    from repro_torch.models import transformer as tf
+
+    if not prompt.is_floating_point():
+        return torch.cat([prompt, fed], 1)
+    dt = tf._dtype(cfg.activation_dtype)
+    return torch.cat([prompt.to(dt), model.embed[fed].to(dt)], 1)
+
+
+LM_CHECKED = (0, LM_STEPS - 1)  # the decode steps held to a full forward: the first and the last
+
+
+def full_forwards(model, cfg, prompts, runs, routes=None):
+    """{batch: {step: the full forward's last logits over the prompt and the tokens fed up to that step}}.  With
+    ``routes`` (a dict), ``routes[batch][step]`` gets the MoE routing records of that forward."""
+    from repro_torch.models import moe
     from repro_torch.train import serve_step
 
     prefill = serve_step.make_prefill_step(cfg)[0]
-    n_attn = sum(kind in ("local", "global") for kind in cfg.layer_kinds())
-    checked = (0, LM_STEPS - 1)
-    full16 = {}
+    out = {}
     for bs, r in runs.items():
-        seq = torch.cat([prompts[bs], r["fed"]], 1)
-        full16[bs] = {i: prefill(model, seq[:, :bs[1] + i + 1])[0] for i in checked}
+        seq = extended(model, cfg, prompts[bs], r["fed"])
+        out[bs] = {}
+        for i in LM_CHECKED:
+            with moe.recording() as rec:
+                out[bs][i] = prefill(model, seq[:, :bs[1] + i + 1])[0]
+            if routes is not None:
+                routes.setdefault(bs, {})[i] = rec
+        del seq
+    return out
+
+
+def hold_decode_to_f32(phase, model32, cfg32, prompts, runs, full16, note=None, routes16=None):
+    """``LM_RULE``: each served batch's bf16 decode (``runs``, ``full16``: its full forwards) against the float32
+    model ``model32``, which serves the same tokens.  With ``routes16`` (the MoE routing of the bf16 full forwards;
+    ``runs`` carry their decode steps') a row is held only where every run compared routes its token alike in every
+    layer (the same experts, every choice kept); the others are reported with their drops and flips."""
+    from repro_torch.models import moe
+    from repro_torch.train import serve_step
+
+    n_attn = attention_layers(cfg32)
+    (prefill32, _), (decode32, _) = serve_step.make_prefill_step(cfg32), serve_step.make_decode_step(cfg32)
+    held = 0
+    for bs, r in runs.items():
+        seq = extended(model32, cfg32, prompts[bs], r["fed"])
+        with moe.recording() as rec32:
+            r32 = serve(prefill32, decode32, model32, prompts[bs], LM_STEPS, feed=r["fed"])
+        check(r32["counts"][0]["flash_attention"] == n_attn, f"{cfg32.name}: float32 prefill {bs}: {r32['counts'][0]}")
+        res = {}
+        for i in LM_CHECKED:
+            with moe.recording() as full_rec:
+                full32 = prefill32(model32, seq[:, :bs[1] + i + 1])[0]
+            e = res[f"token_{bs[1] + i}"] = {}
+            rows = torch.ones(bs[0], dtype=torch.bool, device=full32.device)
+            if routes16 is not None:
+                layers = cfg32.n_layers
+                e["routing"] = compare_routes({"decode_bf16": step_routes(r["routes"], i, layers),
+                                               "full_bf16": last_routes(routes16[bs][i], bs[0]),
+                                               "decode_f32": step_routes(rec32, i, layers),
+                                               "full_f32": last_routes(full_rec, bs[0])})
+                rows = torch.tensor(e["routing"]["alike_rows"], device=full32.device)
+            e["rows_held"] = int(rows.sum())
+            if e["rows_held"]:
+                dec16, f16, dec32, f32 = (t[rows] for t in (r["step_logits"][i], full16[bs][i], r32["step_logits"][i],
+                                                            full32))
+                e.update(gap_f32=max_err(dec32, f32), gap_bf16=max_err(dec16, f16),
+                         decode_bf16_vs_full_f32=max_err(dec16, f32), full_bf16_vs_full_f32=max_err(f16, f32),
+                         max_abs_logit_f32=float(f32.abs().max()))
+        emit(phase, arch=cfg32.name, batch=list(bs), positions=[bs[1] + i for i in LM_CHECKED], errors=res,
+             tol_f32=LM_TOL32, rule=LM_RULE, note=note)
+        for pos, e in res.items():
+            if not e["rows_held"]:
+                continue
+            held += e["rows_held"]
+            check(e["gap_f32"] <= LM_TOL32,
+                  f"{cfg32.name} {bs} {pos}: float32 decode off the full forward by {e['gap_f32']}")
+            bound16 = 2 * e["full_bf16_vs_full_f32"] + LM_TOL32
+            check(e["decode_bf16_vs_full_f32"] <= bound16, f"{cfg32.name} {bs} {pos}: bf16 decode off the float32 "
+                  f"full forward by {e['decode_bf16_vs_full_f32']} > {bound16}")
+        del seq
+    check(held > 0, f"{phase} {cfg32.name}: no row was held to {LM_RULE}")
+    return held
+
+
+def decode_vs_full_forward(phase, model, cfg, prompts, runs):
+    """Each served batch's decoded logits at its first and last step against a full forward over the same tokens:
+    bf16, then with the weights cast to float32 and the same tokens fed (``LM_RULE``)."""
+    full16 = full_forwards(model, cfg, prompts, runs)
     cfg32 = dataclasses.replace(cfg, param_dtype="float32", activation_dtype="float32")
     model32 = copy.deepcopy(model).float()
     model32.cfg = cfg32
-    (prefill32, _), (decode32, _) = serve_step.make_prefill_step(cfg32), serve_step.make_decode_step(cfg32)
-    for bs, r in runs.items():
-        seq = torch.cat([prompts[bs], r["fed"]], 1)
-        r32 = serve(prefill32, decode32, model32, prompts[bs], LM_STEPS, feed=r["fed"])
-        check(r32["counts"][0]["flash_attention"] == n_attn, f"{cfg.name}: float32 prefill {bs}: {r32['counts'][0]}")
-        res = {}
-        for i in checked:
-            full32 = prefill32(model32, seq[:, :bs[1] + i + 1])[0]
-            res[f"token_{bs[1] + i}"] = {
-                "gap_f32": max_err(r32["step_logits"][i], full32),
-                "gap_bf16": max_err(r["step_logits"][i], full16[bs][i]),
-                "decode_bf16_vs_full_f32": max_err(r["step_logits"][i], full32),
-                "full_bf16_vs_full_f32": max_err(full16[bs][i], full32),
-                "max_abs_logit_f32": float(full32.abs().max()),
-            }
-        emit(phase, arch=cfg.name, batch=list(bs), positions=[bs[1] + i for i in checked], errors=res,
-             tol_f32=LM_TOL32, rule=LM_RULE)
-        for pos, e in res.items():
-            check(e["gap_f32"] <= LM_TOL32,
-                  f"{cfg.name} {bs} {pos}: float32 decode off the full forward by {e['gap_f32']}")
-            bound16 = 2 * e["full_bf16_vs_full_f32"] + LM_TOL32
-            check(e["decode_bf16_vs_full_f32"] <= bound16, f"{cfg.name} {bs} {pos}: bf16 decode off the float32 "
-                  f"full forward by {e['decode_bf16_vs_full_f32']} > {bound16}")
+    hold_decode_to_f32(phase, model32, cfg32, prompts, runs, full16)
     del model32, full16
     torch.cuda.empty_cache()
 
@@ -4490,7 +4565,7 @@ def attention_layers(cfg) -> int:
     return sum(kind in ("local", "global") for kind in cfg.layer_kinds())
 
 
-def rec_model(arch, dev, **kw):
+def lm_model(arch, dev, **kw):
     """(config, model): ``arch`` at full width (``kw`` replaces fields), weights drawn on the card from SEED."""
     from repro_torch import configs
     from repro_torch.models import transformer as tf
@@ -4508,7 +4583,7 @@ def phase_lm_recurrent_serve(arch, dev):
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
-    (cfg, model), t_init = wall_s(lambda: rec_model(arch, dev))
+    (cfg, model), t_init = wall_s(lambda: lm_model(arch, dev))
     n_attn = attention_layers(cfg)
     emit("lm.recurrent.model", arch=arch, config=f"{cfg.source}; full width and depth, not cut",
          n_layers=cfg.n_layers, kinds={k: cfg.layer_kinds().count(k) for k in sorted(set(cfg.layer_kinds()))},
@@ -4583,9 +4658,21 @@ def profile_lm_recurrent(model, cfg, prompts, dev):
         check(flash > 0, f"profile.lm.recurrent: {cfg.name}'s prefill profiled 0 ms of flash")
 
 
-def phase_lm_recurrent_train(arch, dev):
-    """lm.recurrent.train: LM_REC_TRAIN_STEPS Adam steps of ``arch`` at full width, bf16, through make_train_step;
-    step 0's loss against a float32 forward on the same weights.  Returns the launches summed over the steps."""
+def lm_train_batches(cfg, b, s, seed, dev, n=1):
+    """``n`` batches of ``token_batches(V, b, s, seed)``; for the embeddings input the inputs are seeded normal
+    (b, s, d) float32 embeddings (as the reference's tests draw them) and the labels stay the tokens'."""
+    batches = lm_batch(cfg, b, s, seed, dev, n)
+    if cfg.input_mode != "embeddings":
+        return batches
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [(torch.randn(b, s, cfg.d_model, generator=gen, device=dev), labels) for _, labels in batches]
+
+
+def phase_lm_cell_train(phase, arch, dev, cut=None):
+    """``phase``: LM_REC_TRAIN_STEPS Adam steps of ``arch`` at full width (depth cut to ``cut``), bf16, through
+    make_train_step; step 0's loss against a float32 forward on the same weights.  Returns the launches summed over
+    the steps."""
+    from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as tf
     from repro_torch.optim import Adam, cosine_warmup
@@ -4593,8 +4680,8 @@ def phase_lm_recurrent_train(arch, dev):
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    cfg, model = rec_model(arch, dev)
-    batches = lm_batch(cfg, LM_TRAIN_B, LM_TRAIN_S, SEED, dev, LM_REC_TRAIN_STEPS)
+    cfg, model = lm_model(arch, dev, **({} if cut is None else {"n_layers": cut}))
+    batches = lm_train_batches(cfg, LM_TRAIN_B, LM_TRAIN_S, SEED, dev, LM_REC_TRAIN_STEPS)
     cfg32 = dataclasses.replace(cfg, param_dtype="float32", activation_dtype="float32")
     model32 = copy.deepcopy(model).float()
     with torch.no_grad():
@@ -4605,9 +4692,10 @@ def phase_lm_recurrent_train(arch, dev):
     state = opt.init(model)
     step, _ = make_train_step(cfg, opt)
     # the weight matrices of the first and last layers: a bf16 vector at 1.0 (Mamba-2's norm_scale) has an ulp of
-    # 2^-7, which a first step's ~lr does not reach
+    # 2^-7, which a first step's ~lr does not reach; the embedding table of the embeddings input takes no gradient
     watch = {n: p.detach().clone() for n, p in model.named_parameters()
-             if n == "embed" or (p.ndim >= 2 and n.startswith(("layers.0.", f"layers.{cfg.n_layers - 1}.")))}
+             if (n == "embed" and cfg.input_mode == "tokens")
+             or (p.ndim >= 2 and n.startswith(("layers.0.", f"layers.{cfg.n_layers - 1}.")))}
     losses, seconds, counts = [], [], []
     torch.cuda.reset_peak_memory_stats()
     for inputs, labels in batches:
@@ -4621,36 +4709,39 @@ def phase_lm_recurrent_train(arch, dev):
     n_attn, ln_v = attention_layers(cfg), math.log(cfg.vocab_size)
     rel0 = abs(losses[0] - loss32) / abs(loss32)
     tokens = LM_TRAIN_B * LM_TRAIN_S
-    emit("lm.recurrent.train", arch=arch, config=f"{cfg.source}; full width and depth, not cut",
+    depth = "full width and depth, not cut" if cut is None else f"full width, depth cut to {cut}"
+    emit(phase, arch=arch, config=f"{cfg.source}; {depth}",
+         reduced=[] if cut is None else [f"n_layers {configs.get_config(arch).n_layers} -> {cut}"],
          dtype=cfg.param_dtype, batch=[LM_TRAIN_B, LM_TRAIN_S], data=f"token_batches(V, {LM_TRAIN_B}, "
-         f"{LM_TRAIN_S}, seed={SEED})", optimizer="Adam(cosine_warmup(3e-4, 1, 100)), clip 1.0", losses=losses,
+         f"{LM_TRAIN_S}, seed={SEED})" + (" labels; inputs seeded normal (B, S, d) embeddings"
+                                           if cfg.input_mode == "embeddings" else ""),
+         optimizer="Adam(cosine_warmup(3e-4, 1, 100)), clip 1.0", losses=losses,
          ln_vocab=ln_v, loss_rtol_to_ln_vocab=LM_REC_LOSS_RTOL, loss0_f32=loss32, loss0_rel_to_f32=rel0,
          tol=LM_TRAIN_F32_RTOL, step_seconds=seconds, tokens_per_s=[tokens / t for t in seconds],
          peak_memory_gib=peak, flash_launches_per_step=[c["flash_attention"] for c in counts],
          flash_expected=2 * n_attn, launches_per_step=counts[-1], params_moved=moved,
          params=sum(p.numel() for p in model.parameters()), seconds=time.perf_counter() - t0,
-         note="a step: forward (each block under checkpoint), backward (each block recomputed: a local layer's "
-         "second flash launch; the scans and the attention backward by autograd of plain torch), Adam")
+         note="a step: forward (each block under checkpoint), backward (each block recomputed: an attention layer's "
+         "second flash launch; the attention backward, the scans and the MoE by autograd of plain torch), Adam")
     check(all(math.isfinite(x) and abs(x - ln_v) <= LM_REC_LOSS_RTOL * ln_v for x in losses),
-          f"lm.recurrent.train {arch}: losses {losses} not finite or not near ln V = {ln_v}")
-    check(rel0 <= LM_TRAIN_F32_RTOL, f"lm.recurrent.train {arch}: step 0's loss {losses[0]} is {rel0} off the "
-          f"float32 {loss32}")
+          f"{phase} {arch}: losses {losses} not finite or not near ln V = {ln_v}")
+    check(rel0 <= LM_TRAIN_F32_RTOL, f"{phase} {arch}: step 0's loss {losses[0]} is {rel0} off the float32 {loss32}")
     check(all(c == {**NO_LAUNCHES, "flash_attention": 2 * n_attn} for c in counts),
-          f"lm.recurrent.train {arch}: launches a step {counts}, not flash twice on each of {n_attn} local layers")
-    check(all(v > 0 for v in moved.values()), f"lm.recurrent.train {arch}: parameters did not move: {moved}")
+          f"{phase} {arch}: launches a step {counts}, not flash twice on each of {n_attn} attention layers")
+    check(all(v > 0 for v in moved.values()), f"{phase} {arch}: parameters did not move: {moved}")
     del model, state, batches
     torch.cuda.empty_cache()
     return {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
-def phase_lm_recurrent_grad(arch, dev):
-    """lm.recurrent.grad: ``arch`` at full width, depth cut to LM_REC_CUT[arch], float32, 1 x LM_GRAD_S tokens:
+def phase_lm_cell_grad(phase, arch, cut, dev):
+    """``phase``: ``arch`` at full width, depth cut to ``cut``, float32, 1 x LM_GRAD_S tokens (or embeddings):
     the card's gradients against the CPU's, each parameter, under LM_GRAD_RULE's float32 part."""
     from repro_torch.kernels import ops
 
     t0 = time.perf_counter()
-    cfg, model = rec_model(arch, dev, n_layers=LM_REC_CUT[arch], param_dtype="float32", activation_dtype="float32")
-    batch = lm_batch(cfg, 1, LM_GRAD_S, SEED + 1, "cpu")[0]
+    cfg, model = lm_model(arch, dev, n_layers=cut, param_dtype="float32", activation_dtype="float32")
+    batch = lm_train_batches(cfg, 1, LM_GRAD_S, SEED + 1, "cpu")[0]
     t_cpu = time.perf_counter()
     loss_cpu, g_cpu = lm_grads(copy.deepcopy(model).cpu(), cfg, batch)
     t_cpu = time.perf_counter() - t_cpu
@@ -4664,15 +4755,15 @@ def phase_lm_recurrent_grad(arch, dev):
         if rows[n]["f32_abs_err"] > tol:
             bad.append(n)
     n_attn = attention_layers(cfg)
-    emit("lm.recurrent.grad", arch=arch, config=f"{cfg.source}; full width, depth cut to {cfg.n_layers} layers "
+    emit(phase, arch=arch, config=f"{cfg.source}; full width, depth cut to {cfg.n_layers} layers "
          f"({', '.join(cfg.layer_kinds())})", reduced=[f"n_layers -> {cfg.n_layers}"], tokens=[1, LM_GRAD_S],
-         loss={"cpu_f32": loss_cpu, "card_f32": loss32}, launches=launches,
+         inputs=cfg.input_mode, loss={"cpu_f32": loss_cpu, "card_f32": loss32}, launches=launches,
          worst=max(r["f32_abs_err"] for r in rows.values()), by_param=rows,
          rule="LM_GRAD_RULE's float32 part: " + LM_GRAD_RULE.split(";")[0], cpu_seconds=t_cpu,
          seconds=time.perf_counter() - t0)
     check(launches == {**NO_LAUNCHES, "flash_attention": 2 * n_attn},
-          f"lm.recurrent.grad {arch}: launches {launches}, not flash twice on each of {n_attn} local layers")
-    check(not bad, f"lm.recurrent.grad {arch}: gradients outside the rule: {[(n, rows[n]) for n in bad]}")
+          f"{phase} {arch}: launches {launches}, not flash twice on each of {n_attn} attention layers")
+    check(not bad, f"{phase} {arch}: gradients outside the rule: {[(n, rows[n]) for n in bad]}")
     del model, g32
     torch.cuda.empty_cache()
 
@@ -4690,16 +4781,460 @@ def phase_lm_recurrent(dev):
         del model, prompts
     t = time.perf_counter()
     for arch in LM_REC_ARCHS:
-        launches = phase_lm_recurrent_train(arch, dev)
+        launches = phase_lm_cell_train("lm.recurrent.train", arch, dev)
         train_launches = {k: train_launches[k] + launches[k] for k in train_launches}
     for arch in LM_REC_ARCHS:
-        phase_lm_recurrent_grad(arch, dev)
+        phase_lm_cell_grad("lm.recurrent.grad", arch, LM_REC_CUT[arch], dev)
     seconds += time.perf_counter() - t
     emit("lm.recurrent.total", seconds=seconds, budget_s=LM_REC_BUDGET_S,
          note="lm.recurrent.serve (with decode_vs_full_forward), .train and .grad of both models by the script's "
          "clock; profile.lm.recurrent not counted")
     check(seconds <= LM_REC_BUDGET_S, f"the recurrent phases took {seconds} s of {LM_REC_BUDGET_S}")
     return {"lm.recurrent": serve_launches, "lm.recurrent.train": train_launches}
+
+
+# ---------------------------------------------------------------------------
+# The rest of the language-model scaffold: the MoE feed-forward and the embeddings input
+# ---------------------------------------------------------------------------
+
+# arch -> (the served cell's depth, None: not cut; the depth LM_RULE's float32 side runs at, None: the served model)
+LM_ARCH_CELLS = {
+    "qwen3-moe-235b-a22b": (8, 1),
+    "arctic-480b": (2, 1),
+    "llava-next-34b": (None, 4),
+    "musicgen-large": (None, None),
+}
+LM_ARCH_TRAIN = {"qwen3-moe-235b-a22b": 1, "musicgen-large": None}  # arch -> depth it trains at (None: not cut)
+# LM_RULE's MoE cells (depth 1) route at capacity factor 8, 8x the mean load: at the served 1.25 the seeded random
+# router's skew (layer 0's busiest expert takes 2.9-4.7x the mean on qwen3-moe) drops a choice of the compared token
+# in every full forward, and a dropped choice makes the full forward another function than the decode, whose B
+# tokens a step never drop
+LM_ARCH_RULE_CF = 8.0
+LM_ARCH_GRAD_CUT = 2            # musicgen's depth in lm.embed.grad; lm.moe.grad takes one qwen3-moe block
+LM_ARCH_BUDGET_S = 120.0        # the new phases' share of the script's wall time (the profile not counted)
+LM_ARCH_FLASH = (4, 2048)       # kernel.flash.lm_shapes: B, S = T of each new model's prefill
+LM_ARCH_NOT_TRAINED = (
+    "arctic-480b and llava-next-34b do not train on the card: arctic's one layer with its bf16 gradients and Adam's "
+    "float32 moments is 13.6e9 x 12 B = 163 GB, llava's whole model 413 GB, past the card's 80 GB; their training "
+    "is held on the CPU at smoke size (tests/test_torch_lm_train.py)")
+
+
+def arch_group(cfg) -> str:
+    return "lm.moe" if cfg.n_experts else "lm.embed"
+
+
+def arch_prompts(cfg, dev):
+    """LM_BATCHES prompts: token ids, or for the embeddings input seeded normal (B, S, d) float32 embeddings."""
+    if cfg.input_mode == "embeddings":
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return {bs: torch.randn(*bs, cfg.d_model, generator=gen, device=dev) for bs in LM_BATCHES}
+    rng = np.random.default_rng(SEED)
+    return {bs: torch.from_numpy(rng.integers(0, cfg.vocab_size, bs)).to(dev) for bs in LM_BATCHES}
+
+
+def route_stats(records, n_experts):
+    """Of one call's MoE routing records (one a layer): dropped choices and the largest expert load over the mean,
+    a layer each."""
+    dropped, load = [], []
+    for r in records:
+        counts = torch.bincount(r["expert"].reshape(-1), minlength=n_experts).float()
+        dropped.append(int((~r["kept"]).sum()))
+        load.append(float(counts.max() / counts.mean()))
+    return {"dropped_by_layer": dropped, "max_load_over_mean_by_layer": load}
+
+
+def step_routes(records, i, layers):
+    """The records of decode step ``i`` of a served batch recorded whole (the prefill's ``layers`` calls first)."""
+    return records[layers * (1 + i):layers * (2 + i)]
+
+
+def last_routes(records, b):
+    """The last position's routing of each record of a full forward over ``b`` rows."""
+    return [{k: r[k].reshape(b, -1, r[k].shape[-1])[:, -1] for k in ("expert", "kept")} for r in records]
+
+
+def compare_routes(runs):
+    """Whether every run routes each row's compared token alike in every MoE layer, the same experts and every
+    choice kept: ``runs`` {name: [a layer's {"expert": (B, k), "kept": (B, k)}]}; the flips are against the first."""
+    names = list(runs)
+    base = [r["expert"].sort(-1).values for r in runs[names[0]]]
+    flipped = {n: [(r["expert"].sort(-1).values != e).any(-1) for r, e in zip(runs[n], base)] for n in names[1:]}
+    dropped = {n: [(~r["kept"]).sum(-1) for r in runs[n]] for n in names}
+    bad = torch.zeros_like(base[0][:, 0], dtype=torch.bool)
+    for layers in (*flipped.values(), *dropped.values()):
+        for t in layers:
+            bad |= t > 0
+    return {"alike_rows": (~bad).tolist(),
+            f"rows_flipped_against_{names[0]}_by_layer": {n: [int(t.sum()) for t in v] for n, v in flipped.items()},
+            "dropped_by_layer": {n: [int(t.sum()) for t in v] for n, v in dropped.items()}}
+
+
+def flash_lm_shapes(dev):
+    """kernel.flash.lm_shapes: the flash kernel at the prefill shape (LM_ARCH_FLASH, causal, bf16, no softcap) of each
+    head layout of the new models (qwen3-moe: 64 query heads on 4 KV heads of 128; arctic and llava: 56 on 8, an
+    odd group of 7; musicgen: 32 on 32 of 64) against its plain version, beside its bound and SDPA."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa, ops
+
+    b, s = LM_ARCH_FLASH
+    shapes = {}
+    for arch in LM_ARCH_CELLS:
+        cfg = configs.get_config(arch)
+        shapes.setdefault((cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, cfg.attn_softcap), []).append(arch)
+    res = {}
+    for (h, kv, hd, cap), archs in shapes.items():
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        q = torch.randn(b, s, h, hd, generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn(b, s, kv, hd, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+        ops.reset_launch_counts()
+        out = ops.flash_attention(q, k, v, softcap=cap)
+        check(ops.launch_counts()["flash_attention"] == 1, f"flash_attention {archs}: the kernel did not launch")
+        ref = fa.flash_attention_plain(q, k, v, softcap=cap).float()
+        err = max_err(out, ref)
+        scaled = float(((out.float() - ref).abs() / ref.abs().clamp_min(1.0)).max())
+        check(scaled <= 2e-2, f"flash_attention {archs}: kernel disagrees with its plain version: {scaled} > 2e-2 "
+              f"(scaled), {err} (absolute)")
+        del ref
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        nb = (2 * b * s * h * hd + 2 * b * s * kv * hd) * 2
+        no = 4 * hd * attention_pairs(s, s, None) * b * h
+        bnd = bound_ms(nb, no, PEAK_BF16_FLOPS)
+        r = dict(archs=archs, shape={"B": b, "S": s, "T": s, "H": h, "KV": kv, "group": h // kv, "hd": hd,
+                                     "softcap": cap, "dtype": "bfloat16"},
+                 max_abs_err=err, max_scaled_err=scaled, tol=2e-2,
+                 ms=cuda_ms(lambda: ops.flash_attention(q, k, v, softcap=cap), 10),
+                 plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, softcap=cap), 3),
+                 bound_ms=bnd[0], bound_by=bnd[1], library_ms=cuda_ms(sdpa, 10),
+                 sdpa_vs_kernel_max_abs_err=max_err(sdpa().transpose(1, 2), out))
+        r["achieved_tflops"] = no / r["ms"] / 1e9
+        res["/".join(archs)] = r
+        del q, k, v, qt, kt, vt, out
+        torch.cuda.empty_cache()
+    emit("kernel.flash.lm_shapes", shapes=res, tol_rule="max |kernel - plain| / max(1, |plain|) <= 2e-2 (bf16, as "
+         "kernel.flash)", library_call="torch.nn.functional.scaled_dot_product_attention(is_causal=True, "
+         "enable_gqa=True) on (B, H, S, hd) copies")
+    return res
+
+
+def serve_cell(arch, cut, dev):
+    """lm.moe.serve / lm.embed.serve: ``arch`` at full width (depth cut to ``cut``) serves LM_BATCHES, every launch
+    counted (flash once an attention layer a prefill, never in a step), with the MoE's drops and expert loads.
+    Returns (launches, model, config, prompts, runs)."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.train import serve_step
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    (cfg, model), t_init = wall_s(lambda: lm_model(arch, dev, **({} if cut is None else {"n_layers": cut})))
+    group = arch_group(cfg)
+    n_layers = configs.get_config(arch).n_layers
+    emit(f"{group}.model", arch=arch, config=f"{cfg.source}; full width" + (
+        ", depth cut" if cut else " and depth, not cut"), reduced=[f"n_layers {n_layers} -> {cut}"] if cut else [],
+         n_layers=cfg.n_layers, d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_],
+         d_ff=cfg.d_ff, experts=[cfg.n_experts, cfg.experts_per_token, cfg.moe_d_ff] if cfg.n_experts else None,
+         dense_residual=cfg.dense_residual, capacity_factor=cfg.capacity_factor if cfg.n_experts else None,
+         router_group_size=cfg.router_group_size if cfg.n_experts else None, inputs=cfg.input_mode,
+         vocab=cfg.vocab_size, params=sum(p.numel() for p in model.parameters()),
+         param_count_config=cfg.param_count(), dtype=cfg.param_dtype, seed=SEED, init_seconds=t_init,
+         weights_gib=(torch.cuda.memory_allocated() - base) / 2**30)
+    (prefill, _), (decode, _) = serve_step.make_prefill_step(cfg), serve_step.make_decode_step(cfg)
+    prompts = arch_prompts(cfg, dev)
+    n_attn = attention_layers(cfg)
+    total, runs = dict(NO_LAUNCHES), {}
+    for bs in LM_BATCHES:
+        torch.cuda.reset_peak_memory_stats()
+        with moe.recording() as rec:
+            r = serve(prefill, decode, model, prompts[bs], LM_STEPS)
+        r["routes"] = rec
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for c in r["counts"]:
+            total = {k: total[k] + c[k] for k in total}
+        runs[bs] = r
+        outs = [r["logits"], *r["step_logits"]]
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in outs)
+        shapes = {tuple(t.shape) for t in outs}
+        _, again = wall_s(lambda: prefill(model, prompts[bs], cache_len=bs[1] + LM_STEPS))
+        steps = sorted(r["step_s"])
+        routing = {}
+        if cfg.n_experts:
+            per_step = [route_stats(step_routes(rec, i, cfg.n_layers), cfg.n_experts) for i in range(LM_STEPS)]
+            g = moe.group_size(bs[0] * bs[1], cfg)
+            routing = dict(prefill_routing=route_stats(rec[:cfg.n_layers], cfg.n_experts),
+                           decode_dropped=sum(sum(st["dropped_by_layer"]) for st in per_step),
+                           decode_max_load_over_mean=max(max(st["max_load_over_mean_by_layer"]) for st in per_step),
+                           groups_prefill=[bs[0] * bs[1] // g, g], capacity_prefill=moe.capacity(g, cfg),
+                           capacity_decode=moe.capacity(bs[0], cfg))
+        emit(f"{group}.serve", arch=arch, batch=list(bs), steps=LM_STEPS,
+             prompt="token ids" if cfg.input_mode == "tokens" else "seeded normal (B, S, d) embeddings; the decoded "
+             "tokens go in through embed",
+             flash_launches_prefill=r["counts"][0]["flash_attention"],
+             flash_launches_per_step=[c["flash_attention"] for c in r["counts"][1:]],
+             launches_prefill=r["counts"][0], finite=finite, shapes=sorted(shapes),
+             tokens_first_request=r["fed"][0].tolist(), prefill_seconds=r["prefill_s"],
+             prefill_seconds_second_call=again, prefill_tokens_per_s=bs[0] * bs[1] / again,
+             decode_ms_per_step_median=1e3 * steps[len(steps) // 2], step_seconds=r["step_s"], peak_memory_gib=peak,
+             **routing, note="host clock around calls ending in torch.cuda.synchronize(); peak memory includes the "
+             "bf16 weights; the second prefill is timed after the first warmed cuBLAS")
+        check(r["counts"][0] == {**NO_LAUNCHES, "flash_attention": n_attn},
+              f"{arch} prefill {bs}: launches {r['counts'][0]}, not flash once on each of {n_attn} attention layers")
+        check(all(c == NO_LAUNCHES for c in r["counts"][1:]), f"{arch} decode {bs}: a step launched a kernel: "
+              f"{[c for c in r['counts'][1:] if c != NO_LAUNCHES][:1]}")
+        check(finite and shapes == {(bs[0], cfg.vocab_size)}, f"{arch} serve {bs}: non-finite or misshapen logits")
+        if cfg.n_experts:
+            check(routing["decode_dropped"] == 0, f"{arch} decode {bs}: a step dropped {routing['decode_dropped']} "
+                  f"choices, where B tokens at capacity {routing['capacity_decode']} fit")
+    return total, model, cfg, prompts, runs
+
+
+def served_decode_gaps(model, cfg, prompts, runs, cut32):
+    """{lm.moe, lm.embed}.decode_vs_full_forward.served: the bf16 decode at the served depth against its bf16 full
+    forwards, reported with the full forwards' MoE drops, a layer each; LM_RULE is held at depth ``cut32``, where the
+    float32 model fits (decode_rule_at_cut)."""
+    from repro_torch.models import moe
+
+    routes = {}
+    full16 = full_forwards(model, cfg, prompts, runs, routes)
+    for bs, r in runs.items():
+        res = {}
+        for i in LM_CHECKED:
+            e = res[f"token_{bs[1] + i}"] = dict(gap_bf16=max_err(r["step_logits"][i], full16[bs][i]),
+                                                 max_abs_logit=float(full16[bs][i].abs().max()))
+            if cfg.n_experts:
+                n_tok = bs[0] * (bs[1] + i + 1)
+                g = moe.group_size(n_tok, cfg)
+                e.update(full_forward_groups=[n_tok // g, g], full_forward_capacity=moe.capacity(g, cfg),
+                         full_forward_routing=route_stats(routes[bs][i], cfg.n_experts),
+                         routing=compare_routes({"decode_bf16": step_routes(r["routes"], i, cfg.n_layers),
+                                                 "full_bf16": last_routes(routes[bs][i], bs[0])}))
+        note = (f"bf16 alone at the served depth (reported, not held): a full forward over S + i + 1 tokens routes "
+                f"them in other groups than the prefill of S (one group of all of them where "
+                f"{cfg.router_group_size} does not divide the count), so its drops fall elsewhere and change the "
+                f"hidden states that later layers attend to" if cfg.n_experts else
+                "bf16 alone at the served depth (reported, not held): the float32 model of the whole depth would not "
+                "fit the card")
+        emit(f"{arch_group(cfg)}.decode_vs_full_forward.served", arch=cfg.name, depth=cfg.n_layers, batch=list(bs),
+             errors=res, note=f"{note}; LM_RULE is held at depth {cut32}")
+    del full16
+
+
+def decode_rule_at_cut(arch, cut, dev):
+    """lm.moe / lm.embed.decode_vs_full_forward: LM_RULE on ``arch`` at full width, depth cut to ``cut``.
+
+    The bf16 model serves LM_BATCHES and takes its full forwards, and is
+    freed; then a float32 model of the same draws, rounded through bf16
+    wherever the bf16 model holds bf16 (its MoE routers are float32 in
+    both), serves the same tokens.  A float32 copy beside the bf16 model
+    would not fit: arctic's one layer is 56 GB in float32.
+    """
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.train import serve_step
+
+    torch.cuda.empty_cache()
+    kw = {"n_layers": cut}
+    if configs.get_config(arch).n_experts:
+        kw["capacity_factor"] = LM_ARCH_RULE_CF
+    cfg, model = lm_model(arch, dev, **kw)
+    prompts = arch_prompts(cfg, dev)
+    (prefill, _), (decode, _) = serve_step.make_prefill_step(cfg), serve_step.make_decode_step(cfg)
+    runs = {}
+    for bs in LM_BATCHES:
+        with moe.recording() as rec:
+            runs[bs] = serve(prefill, decode, model, prompts[bs], LM_STEPS)
+        runs[bs]["routes"] = rec
+    routes = {}
+    full16 = full_forwards(model, cfg, prompts, runs, routes)
+    dtypes = {n: p.dtype for n, p in model.named_parameters()}
+    probe = {n: p.detach()[:2].float().clone() for n, p in model.named_parameters() if p.ndim >= 2}
+    del model
+    torch.cuda.empty_cache()
+    cfg32, model32 = lm_model(arch, dev, param_dtype="float32", activation_dtype="float32", **kw)
+    with torch.no_grad():
+        for n, p in model32.named_parameters():
+            if dtypes[n] != torch.float32:
+                for part in p.view(-1).split(1 << 26):  # in slices: arctic's expert leaf is 17.9 GB in float32
+                    part.copy_(part.to(dtypes[n]).float())
+    same = all(torch.equal(dict(model32.named_parameters())[n][:2], t) for n, t in probe.items())
+    check(same, f"{arch}: the float32 model's draws are not the bf16 model's")
+    hold_decode_to_f32(f"{arch_group(cfg)}.decode_vs_full_forward", model32, cfg32, prompts, runs, full16,
+                       note=f"full width, depth cut to {cut} so that the float32 model fits beside nothing else; "
+                       "the float32 weights are the bf16 model's draws (checked on each matrix's first rows)"
+                       + (f"; capacity factor {LM_ARCH_RULE_CF} (the served cell: {configs.get_config(arch).capacity_factor}) "
+                          "so that the compared tokens' choices are not dropped; a row is held where every run routes "
+                          "its token alike (the same experts in every layer, every choice kept)"
+                          if cfg.n_experts else ""),
+                       routes16=routes if cfg.n_experts else None)
+    del model32, full16
+    torch.cuda.empty_cache()
+
+
+def profile_lm_moe(model, cfg, prompts, dev):
+    """profile.lm.moe: one 4 x 2048 prefill under torch.profiler (top kernels, idle share), and the MoE's parts by
+    CUDA events at a layer's prefill shapes (layer 0's weights, seeded normal input), times the layers."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import _gelu_tanh
+    from repro_torch.train import serve_step
+
+    prefill = serve_step.make_prefill_step(cfg)[0]
+    b, s = LM_BATCHES[0]
+    rows, busy, wall = profile_call("profile.lm.moe", f"prefill {b} x {s}, {cfg.name} bf16 at depth {cfg.n_layers}",
+                                    lambda: prefill(model, prompts[(b, s)], cache_len=s + 1))
+    p = model.layers[0].moe
+    e, k, g, d = cfg.n_experts, cfg.experts_per_token, moe.group_size(b * s, cfg), cfg.d_model
+    cap, n_g = moe.capacity(g, cfg), b * s // g
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(n_g, g, d, generator=gen, device=dev).to(torch.bfloat16)
+    gate, idx, _, keep, dest = moe.route(p, x, cfg)
+    grp = torch.arange(n_g, device=dev)[:, None]
+
+    def router():
+        torch.topk(torch.softmax(x.float() @ p.router, -1), k, dim=-1)
+
+    def table():
+        t = torch.full((n_g, e * cap + 1), g, dtype=torch.long, device=dev)
+        ids = torch.arange(g, device=dev)[None, :, None].expand(dest.shape)
+        return t.scatter_(1, dest.reshape(n_g, -1), ids.reshape(n_g, -1))[:, :e * cap]
+
+    tab = table()
+    x_pad = torch.cat([x, x.new_zeros((n_g, 1, d))], 1)
+
+    def dispatch():
+        return x_pad[grp, tab].reshape(n_g, e, cap, d).transpose(0, 1).reshape(e, n_g * cap, d)
+
+    xin = dispatch()
+    act = torch.nn.functional.silu if cfg.mlp == "swiglu" else _gelu_tanh
+
+    def experts():
+        return torch.bmm(act(torch.bmm(xin, p.w_gate)) * torch.bmm(xin, p.w_up), p.w_down)
+
+    out = experts().reshape(e, n_g, cap, d).transpose(0, 1).reshape(n_g, e * cap, d)
+    out = torch.cat([out, out.new_zeros((n_g, 1, d))], 1)
+
+    def combine():
+        return torch.einsum("gtkd,gtk->gtd", out[grp[..., None], dest], (gate * keep).to(x.dtype))
+
+    parts = {"router_topk_ms": cuda_ms(router, 5)}
+    parts["tables_ms"] = cuda_ms(lambda: moe.route(p, x, cfg), 5) - parts["router_topk_ms"] + cuda_ms(table, 5)
+    parts["dispatch_gather_ms"] = cuda_ms(dispatch, 5)
+    parts["expert_gemms_ms"] = cuda_ms(experts, 5)
+    parts["combine_ms"] = cuda_ms(combine, 5)
+    whole = cuda_ms(lambda: moe.route_groups(p, x, cfg), 5)
+    flops = 2 * 3 * e * n_g * cap * d * cfg.moe_d_ff
+    useful = 2 * 3 * b * s * k * d * cfg.moe_d_ff
+    emit("profile.lm.moe.parts", arch=cfg.name, groups=[n_g, g], capacity=cap, parts=parts, route_groups_ms=whole,
+         parts_sum_ms=sum(parts.values()), layers=cfg.n_layers, moe_ms_summed=whole * cfg.n_layers,
+         moe_share_of_busy=whole * cfg.n_layers / busy if busy else "not measured",
+         expert_gemm_tflops=flops / parts["expert_gemms_ms"] / 1e9,
+         expert_rows_computed_over_routed=flops / useful,
+         note="CUDA events outside the profiler at a layer's prefill shapes (seeded normal input, layer 0's weights), "
+         "times the layers; tables = positions and slots (route minus the router) plus the token table's scatter; "
+         "the expert GEMMs run E x capacity rows, of which k x tokens at most hold a token")
+    del x, xin, out
+    torch.cuda.empty_cache()
+
+
+def phase_lm_moe_grad(dev):
+    """lm.moe.grad: one qwen3-moe block at full width (64 query heads, the float32 router and 128 experts), float32,
+    in train mode on 1 x LM_GRAD_S seeded normal inputs: d(sum(out * c)) on the card against the CPU, each parameter
+    and the input, under LM_GRAD_RULE's float32 part, with the routing of each (token, choice) compared."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get_config("qwen3-moe-235b-a22b"), n_layers=1, param_dtype="float32",
+                              activation_dtype="float32")
+    blk = tf._init_block_(tf.Block("global", cfg, torch.float32, dev), torch.Generator(device=dev).manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED + 2)
+    x, cot = (torch.randn(1, LM_GRAD_S, cfg.d_model, generator=gen) for _ in range(2))
+    pos = torch.arange(LM_GRAD_S)[None]
+
+    def grads(block, on):
+        named = dict(block.named_parameters())
+        for t in named.values():
+            t.requires_grad_(True)
+        xx = x.to(on).requires_grad_(True)
+        with moe.recording() as rec:
+            out = tf.apply_block(block, "global", xx, pos.to(on), cfg, mode="train")[0]
+        g = torch.autograd.grad(torch.sum(out * cot.to(on)), [*named.values(), xx])
+        return dict(zip([*named, "x"], g)), rec[0]
+
+    t_cpu = time.perf_counter()
+    g_cpu, r_cpu = grads(copy.deepcopy(blk).cpu(), "cpu")
+    t_cpu = time.perf_counter() - t_cpu
+    ops.reset_launch_counts()
+    g_card, r_card = grads(blk, dev)
+    launches = ops.launch_counts()
+    flips = int((r_card["expert"].cpu() != r_cpu["expert"]).sum())
+    kept_flips = int((r_card["kept"].cpu() != r_cpu["kept"]).sum())
+    rows, bad = {}, []
+    for n, gc in g_cpu.items():
+        tol = 1e-4 * float(gc.abs().max()) + 1e-6
+        rows[n] = dict(f32_abs_err=max_err(g_card[n].cpu(), gc), f32_tol=tol)
+        if rows[n]["f32_abs_err"] > tol:
+            bad.append(n)
+    emit("lm.moe.grad", arch=cfg.name, config=f"{cfg.source}; one global-attention block at full width (QK-norm, the "
+         f"MoE: {cfg.n_experts} experts, top {cfg.experts_per_token}, ff {cfg.moe_d_ff})",
+         reduced=["one block, no embedding or head"], tokens=[1, LM_GRAD_S], capacity=moe.capacity(LM_GRAD_S, cfg),
+         routing_flips=flips, keep_flips=kept_flips, dropped_card=int((~r_card["kept"]).sum()),
+         dropped_cpu=int((~r_cpu["kept"]).sum()), launches=launches,
+         worst=max(r["f32_abs_err"] for r in rows.values()), by_param=rows,
+         rule="LM_GRAD_RULE's float32 part: " + LM_GRAD_RULE.split(";")[0] + "; 0 routing flips",
+         cpu_seconds=t_cpu, seconds=time.perf_counter() - t0,
+         note="loss sum(block(x) * c), c seeded normal; the router's product in IEEE float32 on the card "
+         "(core.gp.ieee_float32_matmul); the dispatch gather's backward is a scatter-add (atomics on the card)")
+    check(launches == {**NO_LAUNCHES, "flash_attention": 1}, f"lm.moe.grad: launches {launches}, not one flash")
+    check(flips == 0 and kept_flips == 0, f"lm.moe.grad: {flips} routing and {kept_flips} keep flips, card against CPU")
+    check(not bad, f"lm.moe.grad: gradients outside the rule: {[(n, rows[n]) for n in bad]}")
+    del blk, g_card
+    torch.cuda.empty_cache()
+
+
+def phase_lm_arch(dev):
+    """The MoE and embeddings-input group: each of LM_ARCH_CELLS served (and decode held to LM_RULE), qwen3-moe
+    profiled, LM_ARCH_TRAIN trained, the gradients checked; lm.arch.total against LM_ARCH_BUDGET_S (the profile not
+    counted).  Returns the launches by path."""
+    from repro_torch import configs
+
+    t_all = time.perf_counter()
+    seconds, launches = 0.0, {}
+    for arch, (cut, cut32) in LM_ARCH_CELLS.items():
+        t = time.perf_counter()
+        total, model, cfg, prompts, runs = serve_cell(arch, cut, dev)
+        group = arch_group(cfg)
+        launches[group] = {k: launches.get(group, NO_LAUNCHES)[k] + total[k] for k in NO_LAUNCHES}
+        if cut32 is None:
+            decode_vs_full_forward(f"{group}.decode_vs_full_forward", model, cfg, prompts, runs)
+        else:
+            served_decode_gaps(model, cfg, prompts, runs, cut32)
+        seconds += time.perf_counter() - t
+        if arch == "qwen3-moe-235b-a22b":
+            profile_lm_moe(model, cfg, prompts, dev)
+        del model, prompts, runs
+        torch.cuda.empty_cache()
+        if cut32 is not None:
+            t = time.perf_counter()
+            decode_rule_at_cut(arch, cut32, dev)
+            seconds += time.perf_counter() - t
+    t = time.perf_counter()
+    for arch, cut in LM_ARCH_TRAIN.items():
+        group = arch_group(configs.get_config(arch))
+        launches[f"{group}.train"] = phase_lm_cell_train(f"{group}.train", arch, dev, cut)
+    emit("lm.arch.not_trained", reason=LM_ARCH_NOT_TRAINED)
+    phase_lm_moe_grad(dev)
+    phase_lm_cell_grad("lm.embed.grad", "musicgen-large", LM_ARCH_GRAD_CUT, dev)
+    seconds += time.perf_counter() - t
+    emit("lm.arch.total", seconds=seconds, budget_s=LM_ARCH_BUDGET_S, wall_seconds=time.perf_counter() - t_all,
+         note="lm.moe.* and lm.embed.* (serve, decode_vs_full_forward, train, grad) by the script's clock; "
+         "profile.lm.moe not counted")
+    check(seconds <= LM_ARCH_BUDGET_S, f"the MoE and embeddings phases took {seconds} s of {LM_ARCH_BUDGET_S}")
+    return launches
 
 
 RANK_JOBS = {"dist": dist_job, "fleet_sharded": fleet_sharded_job, "lm_mesh": lm_mesh_job}
@@ -4831,6 +5366,8 @@ def main() -> None:
 
     # the recurrent layer kinds at full width: recurrentgemma-2b (rglru and flash on its local layers), mamba2-1.3b
     launches_rec = phase_lm_recurrent(dev)
+    # the MoE feed-forward (qwen3-moe, arctic) and the embeddings input (llava, musicgen) at full width
+    launches_arch = phase_lm_arch(dev)
 
     # launches: each kernel's count on the path it came with (main, update, lowrank, lm)
     path_of = {name: "main" for name in MAIN_KERNELS}
@@ -4839,7 +5376,7 @@ def main() -> None:
     path_of["flash_attention"] = "lm"
     path_of.update({name: "fleet" for name in VECTOR_KERNELS})
     by_path = {"main": launches, "update": launches_update, "lowrank": launches_lowrank, "lm": launches_lm,
-               "lm.train": launches_lm_train, **launches_rec,
+               "lm.train": launches_lm_train, **launches_rec, **launches_arch,
                "zoo": launches_zoo, "train": launches_train, "train_lowrank": launches_train_lowrank,
                "fleet": launches_fleet, "fleet_ragged": launches_ragged,
                "fleet_ragged_lowrank": launches_ragged_lowrank,

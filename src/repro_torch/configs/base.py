@@ -1,8 +1,8 @@
 """Model configuration schema: a copy of the JAX package's ``ModelConfig``.
 
 One ``ModelConfig`` describes any architecture of the zoo (dense, MoE,
-hybrid-recurrent, SSM, modality stub); the port runs the dense attention
-kinds so far (:mod:`repro_torch.models.transformer`).  The fields, their
+hybrid-recurrent, SSM, modality stub), and the port runs each of them
+(:mod:`repro_torch.models.transformer`).  The fields, their
 defaults and ``param_count`` are those of ``repro/configs/base.py``, so a
 configuration means the same thing in both packages.
 """

@@ -154,10 +154,11 @@ def opt_state_shardings(opt_state, params, mesh: DeviceMesh):
 
 
 def input_shardings(cfg, shape, mesh: DeviceMesh) -> Tuple[Sharding, Sharding]:
-    """(inputs, labels) shardings of one shape cell: the batch over the DP axes."""
-    del cfg  # token inputs only: the embeddings input is ROADMAP.md queue 1 step 11f
-    sh = Sharding(mesh, batch_spec(mesh, shape.global_batch, None))
-    return sh, sh
+    """(inputs, labels) shardings of one shape cell: the batch over the DP axes; (B, S, d) embeddings inputs for
+    ``cfg.input_mode == "embeddings"``, (B, S) ids otherwise."""
+    b = shape.global_batch
+    rest = (None, None) if cfg.input_mode == "embeddings" else (None,)
+    return Sharding(mesh, batch_spec(mesh, b, *rest)), Sharding(mesh, batch_spec(mesh, b, None))
 
 
 def cache_shardings(cfg, batch: int, mesh: DeviceMesh, caches):

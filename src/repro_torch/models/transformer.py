@@ -19,7 +19,16 @@ Three entry modes, as the reference's:
   * step: one token against the caches, updated in place.
 
 Every attention layer of train and prefill runs the flash kernel forward;
-the recurrent kinds run plain torch (the reference has no kernel there).
+the recurrent kinds and the mixture-of-experts feed-forward
+(``models/moe.py``, in place of the MLP of an attention block when
+``cfg.n_experts`` is set) run plain torch (the reference has no kernel
+there).
+
+The inputs are (B, S) token ids, or, for the embeddings input of the
+modality stubs (llava, musicgen: ``cfg.input_mode == "embeddings"``),
+(B, S, d) float embeddings, cast to the activation type; both then take
+``embed_scale`` and the sinusoids.  Decode takes token ids through
+``embed`` in either mode, as the reference's ``decode_fn``.
 
 A layer's decode cache is ``{"k", "v"}`` on an attention layer and the
 recurrent state ``{"h", "conv"}`` on an rglru or mamba2 one.  The attention
@@ -29,9 +38,6 @@ cache_len)`` slots on a local layer, ``cache_len`` on a global one, with
 ring ``min(window, S)`` and a global one S + 1 whatever the caller needs,
 so its first decoded token overwrites position 0 when S < window, and its
 second one on a global layer; ROADMAP.md §3.)
-
-The MoE feed-forward and the embeddings input raise
-``NotImplementedError`` naming their ROADMAP.md step.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rg
 from repro_torch.models.layers import (
     MLP,
@@ -67,16 +74,10 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot run yet."""
+    """Raise ``ValueError`` for a layer kind the reference does not have."""
     for kind in set(cfg.layer_kinds()):
         if kind not in ("global", "local", "rglru", "mamba2"):
             raise ValueError(kind)
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: the MoE feed-forward is not ported (ROADMAP.md queue 1, step 11e)")
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.input_mode} input is not ported (ROADMAP.md queue 1, step 11f)"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -85,10 +86,12 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Block(nn.Module):
-    """norm1 -> mixer -> (post_norm1) -> residual; norm2 -> MLP -> (post_norm2) -> residual.
+    """norm1 -> mixer -> (post_norm1) -> residual; norm2 -> feed-forward -> (post_norm2) -> residual.
 
     The mixer is ``attn`` (global, local), ``rec`` (rglru) or ``ssm``
-    (mamba2); a mamba2 block has no feed-forward, as the reference's.
+    (mamba2); a mamba2 block has no feed-forward, as the reference's.  The
+    feed-forward is ``mlp``, or ``moe`` on an attention block when
+    ``cfg.n_experts`` is set.
     """
 
     def __init__(self, kind: str, cfg: ModelConfig, dtype=torch.float32, device=None):
@@ -105,7 +108,10 @@ class Block(nn.Module):
             self.attn = attn.Attention(cfg, dtype, device)
         if self.has_ffn:
             self.norm2 = Norm(cfg.norm, d, dtype, device)
-            self.mlp = MLP(cfg.mlp, d, cfg.d_ff, dtype, device)
+            if cfg.n_experts and kind in ("global", "local"):
+                self.moe = moe_mod.MoE(cfg, dtype, device)
+            else:
+                self.mlp = MLP(cfg.mlp, d, cfg.d_ff, dtype, device)
         if cfg.post_norm:
             self.post_norm1 = Norm(cfg.norm, d, dtype, device)
             if self.has_ffn:
@@ -140,6 +146,8 @@ def _init_block_(blk: Block, generator: torch.Generator) -> Block:
         attn.init_attention_(blk.attn, generator)
     if hasattr(blk, "mlp"):
         init_mlp_(blk.mlp, generator)
+    if hasattr(blk, "moe"):
+        moe_mod.init_moe_(blk.moe, generator)
     return blk
 
 
@@ -239,7 +247,8 @@ def apply_block(
         h = apply_norm(p.post_norm1, h, cfg.norm)
     x = x + h
     if p.has_ffn:
-        h = apply_mlp(p.mlp, apply_norm(p.norm2, x, cfg.norm), cfg.mlp)
+        h = apply_norm(p.norm2, x, cfg.norm)
+        h = moe_mod.apply_moe(p.moe, h, cfg) if hasattr(p, "moe") else apply_mlp(p.mlp, h, cfg.mlp)
         if cfg.post_norm:
             h = apply_norm(p.post_norm2, h, cfg.norm)
         x = x + h
@@ -249,8 +258,9 @@ def apply_block(
 def _embed_in(params: Transformer, cfg: ModelConfig, inputs: torch.Tensor, positions):
     dtype = _dtype(cfg.activation_dtype)
     if inputs.is_floating_point():
-        raise NotImplementedError("the embeddings input is not ported (ROADMAP.md queue 1, step 11f)")
-    x = params.embed[inputs].to(dtype)
+        x = inputs.to(dtype)  # the modality stubs' (B, S, d) embeddings
+    else:
+        x = params.embed[inputs].to(dtype)
     if cfg.embed_scale:
         x = x * rounded(math.sqrt(cfg.d_model), dtype)
     if cfg.pos_emb == "sinusoidal":
@@ -299,7 +309,8 @@ def loss_fn(params: Transformer, cfg: ModelConfig, inputs: torch.Tensor, labels:
     ``logsumexp - gold``; the chunk is recomputed in the backward
     (``checkpoint``), so that the peak holds one chunk's logits.  The gold
     logit is a gather: the reference contracts a one-hot only to keep the
-    vocab dim sharded under GSPMD, and its value is the same.
+    vocab dim sharded under GSPMD, and its value is the same.  ``inputs``
+    are (B, S) token ids or (B, S, d) embeddings, ``labels`` (B, S) ids.
     """
     b, s = labels.shape
     positions = torch.arange(s, device=inputs.device)[None, :].expand(b, s)
@@ -321,7 +332,7 @@ def loss_fn(params: Transformer, cfg: ModelConfig, inputs: torch.Tensor, labels:
 def prefill_fn(params: Transformer, cfg: ModelConfig, inputs: torch.Tensor, cache_len: Optional[int] = None):
     """Full-sequence forward: (last-position logits (B, V), decode caches).
 
-    ``inputs`` (B, S) token ids.  The caches serve positions up to
+    ``inputs`` (B, S) token ids or (B, S, d) embeddings.  The caches serve positions up to
     ``cache_len`` - 1 (default S, one decoded token).
     """
     b, s = inputs.shape[0], inputs.shape[1]

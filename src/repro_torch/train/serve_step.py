@@ -10,13 +10,16 @@ batch against the caches, which it updates in place (the port's
 counterpart of ``donate_argnums``; ``donate_cache=False`` works on a copy
 and leaves them as they were).  Both run under ``torch.no_grad()``.
 
-Under a ``mesh`` (SPMD: every rank calls with the same global tokens)
+Under a ``mesh`` (SPMD: every rank calls with the same global inputs)
 ``params`` holds this rank's blocks (``shardings["params"]``, the rules of
-``dist.sharding``), gathered before use; the tokens are cut to the rank's
-rows of the batch (``batch_spec``), the caches hold the rank's rows
-(``cache_shardings``), and the logits are gathered at the output, so that
-every rank returns the global (B, V) logits.  ``shape`` (the global batch;
-the decode caches' length) is required there.
+``dist.sharding``), gathered before use; the inputs ((B, S) tokens or
+(B, S, d) embeddings, ``input_shardings``) and the decoded tokens are cut
+to the rank's rows of the batch (``batch_spec``), the caches hold the
+rank's rows (``cache_shardings``), and the logits are gathered at the
+output, so that every rank returns the global (B, V) logits.  A
+mixture-of-experts layer routes the rank's rows as parts of the global
+batch's groups (``moe.routing_over``).  ``shape`` (the global batch; the
+decode caches' length) is required there.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.dist import collectives as coll
 from repro_torch.dist import sharding as shard_rules
+from repro_torch.models import moe
 from repro_torch.models import transformer as tf
 from repro_torch.tree import map_tree
 
@@ -50,14 +54,16 @@ def make_prefill_step(cfg: ModelConfig, mesh=None, shape: Optional[ShapeConfig] 
         return prefill, None
 
     p_sh, rows = _layout(cfg, mesh, shape, "make_prefill_step")
+    in_sh = shard_rules.input_shardings(cfg, shape, mesh)[0]
 
     @torch.no_grad()
     def prefill_sharded(params, inputs, cache_len=None):
         model = tf.from_tensors(cfg, shard_rules.collect(params, p_sh))
-        logits, caches = tf.prefill_fn(model, cfg, rows.block(inputs), cache_len)
+        with moe.routing_over(mesh, shard_rules.spec_axes(rows.spec[0])):
+            logits, caches = tf.prefill_fn(model, cfg, in_sh.block(inputs), cache_len)
         return rows.gather(logits), caches
 
-    return prefill_sharded, {"params": p_sh, "inputs": rows}
+    return prefill_sharded, {"params": p_sh, "inputs": in_sh}
 
 
 def make_decode_step(cfg: ModelConfig, mesh=None, shape: Optional[ShapeConfig] = None, donate_cache: bool = True):
@@ -80,7 +86,8 @@ def make_decode_step(cfg: ModelConfig, mesh=None, shape: Optional[ShapeConfig] =
     @torch.no_grad()
     def decode_sharded(params, token, pos, caches):
         model = tf.from_tensors(cfg, shard_rules.collect(params, p_sh))
-        logits, caches = tf.decode_fn(model, cfg, rows.block(token), pos, own(caches))
+        with moe.routing_over(mesh, shard_rules.spec_axes(rows.spec[0])):
+            logits, caches = tf.decode_fn(model, cfg, rows.block(token), pos, own(caches))
         return rows.gather(logits), caches
 
     return decode_sharded, {"params": p_sh, "token": rows, "caches": c_sh}

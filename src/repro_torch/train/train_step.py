@@ -14,10 +14,11 @@ leaf by ``dist.sharding``'s rules (``shardings["params"]``,
 ``shardings["opt"]``; ``sharding.distribute`` cuts them).  A step gathers
 every parameter before use (``Sharding.gather``, one ``gather_axes`` a
 leaf), runs the forward and backward on the rank's rows of the batch
-(``batch_spec``), averages the gradients and the loss over the DP axes
-(``psum``), and updates its own blocks: an element-wise optimizer (Adam)
-updates the blocks in place, clipped by the global norm of the full
-gradients; Adafactor, whose factored moments and RMS clip read a whole
+(``batch_spec``; a mixture-of-experts layer routes them as parts of the
+global batch's groups, ``moe.routing_over``), averages the gradients and
+the loss over the DP axes (``psum``), and updates its own blocks: an
+element-wise optimizer (Adam) updates the blocks in place, clipped by the
+global norm of the full gradients; Adafactor, whose factored moments and RMS clip read a whole
 leaf, gathers its moments, updates the full leaves and returns new
 blocks.  The result equals the unsharded step's up to float32 rounding.
 Ranks that share their DP coordinates but differ along ``model`` compute the
@@ -29,7 +30,9 @@ rank holds the full parameters and gradients.
 parameters are replicated; each rank takes the gradients of its rows, a
 mean over the DP axes other than ``compress_axis`` (``psum``) and an int8
 mean with error feedback over ``compress_axis``
-(``optim.compression.compressed_psum``), then the same update.
+(``optim.compression.compressed_psum``), then the same update.  A
+mixture-of-experts layer there routes each rank's rows alone, as the
+reference's ``shard_map`` body does.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.dist import collectives as coll
 from repro_torch.dist import sharding as shard_rules
+from repro_torch.models import moe
 from repro_torch.models import transformer as tf
 from repro_torch.optim.adam import Adam, global_norm
 from repro_torch.optim.compression import compressed_psum
@@ -56,18 +60,22 @@ def clone_tree(tree):
 
 
 def loss_and_grads(model: tf.Transformer, cfg: ModelConfig, inputs, labels):
-    """(loss, {name: gradient}) of ``transformer.loss_fn``; the parameters' ``requires_grad`` are left as given."""
+    """(loss, {name: gradient}) of ``transformer.loss_fn``; the parameters' ``requires_grad`` are left as given.
+
+    A parameter the loss does not use gets zeros, as ``jax.grad`` gives: the
+    embedding table of a model fed (B, S, d) embeddings with an untied head.
+    """
     named = dict(model.named_parameters())
     flags = {n: p.requires_grad for n, p in named.items()}
     try:
         for p in named.values():
             p.requires_grad_(True)
         loss = tf.loss_fn(model, cfg, inputs, labels)
-        grads = torch.autograd.grad(loss, list(named.values()))
+        grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
     finally:
         for n, p in named.items():
             p.requires_grad_(flags[n])
-    return loss.detach(), dict(zip(named, grads))
+    return loss.detach(), {n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(named.items(), grads)}
 
 
 def _rows(x: torch.Tensor, mesh, axes) -> torch.Tensor:
@@ -124,7 +132,8 @@ def make_train_step(
         if not donate:
             params, opt_state = clone_tree(params), clone_tree(opt_state)
         full = tf.from_tensors(cfg, shard_rules.collect(params, p_sh))
-        loss, grads = loss_and_grads(full, cfg, in_sh.block(inputs), lab_sh.block(labels))
+        with moe.routing_over(mesh, dp):  # the backward's recomputed forward routes the same way
+            loss, grads = loss_and_grads(full, cfg, in_sh.block(inputs), lab_sh.block(labels))
         grads = {n: _mean_over(g, mesh, dp) for n, g in grads.items()}
         loss = _mean_over(loss, mesh, dp)
         if elementwise:

@@ -309,6 +309,9 @@ def distributed_world(rank, world):
 
 LM_ARCH, LM_B, LM_S, LM_DECODE_STEPS, LM_LR = "olmo-1b", 4, 16, 4, 1e-3
 LM_RECURRENT_ARCH = "recurrentgemma-2b"  # served on the mesh beside LM_ARCH
+# qwen3-moe's smoke model served on the mesh at capacity factor 0.5 (drops): its routing group of 64 tokens (and a
+# decode step's of LM_B) holds both data ranks' rows; llava's smoke model takes a sharded step on (B, S, d) inputs
+LM_MOE_ARCH, LM_MOE_CF, LM_EMBED_ARCH = "qwen3-moe-235b-a22b", 0.5, "llava-next-34b"
 
 
 def lm_tokens(vocab: int, seed: int = 0):
@@ -330,8 +333,9 @@ def _digest(named):
 def lm_mesh_world(rank, world, ckpt_dir, tree):
     """Every case of tests/test_torch_lm_mesh.py on this rank: the sharded train step (Adam, Adafactor) and the
     unsharded one, the specs and the bytes a rank holds, the compressed DP step, sharded prefill and decode, and a
-    checkpoint saved from the sharded state and restored both ways; then LM_RECURRENT_ARCH's smoke model (the port's
-    own init) served under the mesh.  ``tree`` is the reference's parameter tree (numpy); rank 0 also returns its full
+    checkpoint saved from the sharded state and restored both ways; then LM_RECURRENT_ARCH's and LM_MOE_ARCH's smoke
+    models (the port's own init) served under the mesh, and a sharded Adam step of LM_EMBED_ARCH's on (B, S, d)
+    embeddings.  ``tree`` is the reference's parameter tree (numpy); rank 0 also returns its full
     results, which the caller holds against the JAX package's."""
     import torch
     import torch.distributed as dist
@@ -339,6 +343,7 @@ def lm_mesh_world(rank, world, ckpt_dir, tree):
     from repro_torch import configs, convert
     from repro_torch.ckpt import CheckpointManager
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import collectives as coll
     from repro_torch.dist import sharding as sh
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import transformer as tf
@@ -421,6 +426,37 @@ def lm_mesh_world(rank, world, ckpt_dir, tree):
     out["recurrent.diffs"] = diffs
     out["recurrent.cache_rows"] = [{k: t.shape[0] for k, t in c.items()} for c in caches_sh]
     out["recurrent.cache_specs"] = [{k: s.spec for k, s in c.items()} for c in shd["caches"]]
+    # the MoE: routing groups that straddle the data ranks, with drops
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.models import moe
+
+    mcfg = dataclasses.replace(configs.get_smoke_config(LM_MOE_ARCH), capacity_factor=LM_MOE_CF)
+    mtok, _, mdec = (torch.from_numpy(a) for a in lm_tokens(mcfg.vocab_size, seed=1))
+    mmodel = tf.init_model(mcfg, 0, device="cpu")
+    with moe.recording() as rec:
+        tf.prefill_fn(mmodel, mcfg, mtok)
+    out["moe.dropped"] = [int((~r["kept"]).sum()) for r in rec]
+    calls = coll.STATS["calls"]
+    out["moe.diffs"], _, _, _, _ = _serve_on_mesh(mcfg, mmodel, mesh, mtok, mdec)
+    out["moe.collective_calls"] = coll.STATS["calls"] - calls
+    out["moe.group_and_rows"] = (min(mcfg.router_group_size, LM_B * LM_S), LM_B // 2 * LM_S)
+    # the embeddings input: a sharded Adam step on (B, S, d) inputs against the unsharded one
+    ecfg = configs.get_smoke_config(LM_EMBED_ARCH)
+    emb = torch.from_numpy(np.random.default_rng(2).standard_normal((LM_B, LM_S, ecfg.d_model)).astype(np.float32))
+    opt = Adam(learning_rate=LM_LR)
+    emodel = tf.init_model(ecfg, 0, device="cpu")
+    p1, o1, l1 = make_train_step(ecfg, opt, donate=False)[0](emodel, opt.init(emodel), emb, lab)
+    step, shardings = make_train_step(ecfg, opt, mesh, shape)
+    p2, o2, l2 = step(sh.distribute(dict(emodel.named_parameters()), shardings["params"]),
+                      sh.distribute(opt.init(emodel), shardings["opt"]), emb, lab)
+    full_p, full_o = sh.collect(p2, shardings["params"]), sh.collect(o2, shardings["opt"])
+    out["embed.loss"] = (float(l1), float(l2))
+    out["embed.params"] = max(float((full_p[n] - p).abs().max()) for n, p in p1.named_parameters())
+    out["embed.state"] = max(float((a - b).abs().max()) for a, b in zip(_leaves(full_o), _leaves(o1)))
+    out["embed.input_spec"] = shardings["inputs"].spec
     return out
 
 

@@ -10,9 +10,12 @@ sizes; the bytes each rank holds; the compressed data-parallel step on a
 ``("pod", "data")`` mesh against the plain step (the reference's rule: loss
 within 1e-2, parameters within 5e-2; every rank's parameters the same);
 prefill and four decode steps under the mesh against unsharded ones within
-1e-5, for olmo and for recurrentgemma's smoke model (its rglru states and
-local rings); and a checkpoint saved from the sharded state restored unsharded and
-sharded, bitwise.
+1e-5, for olmo, for recurrentgemma's smoke model (its rglru states and
+local rings) and for qwen3-moe's at capacity factor 0.5 (drops), whose
+routing groups hold both data ranks' rows; a sharded step of llava's smoke
+model on (B, S, d) embeddings against the unsharded one within 1e-5; and a
+checkpoint saved from the sharded state restored unsharded and sharded,
+bitwise.
 
 While the world runs, the JAX package takes the same steps on the same
 weights and tokens: the unsharded Adam and Adafactor steps and the forward
@@ -262,6 +265,26 @@ def test_sharded_recurrent_serving_equals_unsharded(ranks):
         specs = r["recurrent.cache_specs"]
         assert {frozenset(s) for s in specs} == {frozenset({"h", "conv"}), frozenset({"k", "v"})}
         assert all(spec[0] == ("data",) for s in specs for spec in s.values())
+
+
+def test_sharded_moe_serving_equals_unsharded(ranks):
+    """qwen3-moe's smoke model: a group of 64 prefill tokens (and of a decode step's 4) holds both data ranks' 32
+    (2) rows, and drops happen; each rank all-gathers its routing counts once a MoE layer and call."""
+    for r in ranks:
+        assert len(r["moe.diffs"]) == 5 and max(r["moe.diffs"]) <= 1e-5
+        assert sum(r["moe.dropped"]) > 0
+        group, rows = r["moe.group_and_rows"]
+        assert group > rows and group % rows == 0
+        assert r["moe.collective_calls"] >= 2 * 5  # the routing exchange of both layers in each of the 5 calls
+
+
+def test_sharded_embeddings_step_equals_unsharded(ranks):
+    """llava's smoke model, one Adam step on (B, S, d) embeddings: the inputs' spec cuts the batch alone."""
+    for r in ranks:
+        l1, l2 = r["embed.loss"]
+        assert abs(l1 - l2) <= 1e-5 * abs(l1)
+        assert r["embed.params"] <= 1e-5 and r["embed.state"] <= 1e-5
+        assert r["embed.input_spec"] == (("data",), None, None)
 
 
 def test_sharded_serving_matches_jax(results):

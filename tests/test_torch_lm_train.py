@@ -4,8 +4,10 @@
 Adam and with Adafactor, the synthetic data, and the flash op's gradient
 route, on the four dense smoke configurations in float32 on the CPU (the
 flash op runs its plain version forward, the reference's masked softmax
-backward).  The recurrentgemma and mamba2 smoke configurations take the
-loss, gradient and finiteness cases.  Parameters come over by
+backward).  The recurrentgemma, mamba2, two mixture-of-experts (qwen3-moe,
+arctic) and two embeddings-input (llava, musicgen: (B, S, d) float inputs,
+token labels) smoke configurations take the loss, gradient and finiteness
+cases; qwen3-moe's also takes an Adafactor step (3-D expert leaves).  Parameters come over by
 ``convert.lm_params_from_numpy``;
 inputs are drawn with numpy.  Tolerances: the loss within 1e-5 relative;
 a gradient within 1e-4 max|g| + 1e-6 of ``jax.grad`` (measured gaps
@@ -50,7 +52,8 @@ from repro_torch.train import make_train_step
 from repro_torch.train.train_step import loss_and_grads
 
 DENSE = ("gemma2-2b", "olmo-1b", "qwen1.5-0.5b", "chatglm3-6b")
-PORTED = DENSE + ("recurrentgemma-2b", "mamba2-1.3b")
+PORTED = DENSE + ("recurrentgemma-2b", "mamba2-1.3b", "qwen3-moe-235b-a22b", "arctic-480b", "llava-next-34b",
+                  "musicgen-large")
 B, S = 2, 32
 # the JAX package's loss and gradients, compiled: eager, the recurrent kinds' scans compile op by op
 _jax_value_and_grad = jax.jit(jax.value_and_grad(jtf.loss_fn), static_argnums=1)
@@ -63,9 +66,13 @@ def _cfgs(arch, chunk=0):
 
 
 def _batch(cfg, seed=0):
+    """(inputs, labels): (B, S) tokens, or (B, S, d) embeddings for the embeddings input; (B, S) token labels."""
     rng = np.random.default_rng(seed)
-    return (rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
-            rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32))
+    if cfg.input_mode == "embeddings":
+        inputs = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    else:
+        inputs = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    return inputs, rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
 
 
 def _port_tree(tree, cfg):
@@ -140,12 +147,12 @@ def test_adam_step_matches_jax(models, arch):
         assert (m - want_m[name]).abs().max() <= 1e-5 * want_m[name].abs().max() + 1e-9, name
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "qwen3-moe-235b-a22b"])
 def test_adafactor_step_matches_jax(models, arch):
     jcfg, cfg = _cfgs(arch)
     params = models[arch]
     tok, lab = _batch(cfg, seed=3)
-    _, jg = jax.value_and_grad(jtf.loss_fn)(params, jcfg, jnp.asarray(tok), jnp.asarray(lab))
+    _, jg = _jax_value_and_grad(params, jcfg, jnp.asarray(tok), jnp.asarray(lab))
     # the reference optimizer on the port's per-layer tree (see the module docstring)
     jflat = {n: jnp.asarray(t.numpy()) for n, t in _port_tree(params, cfg).items()}
     jgrads = {n: jnp.asarray(t.numpy()) for n, t in _port_tree(jg, cfg).items()}

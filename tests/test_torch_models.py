@@ -1,9 +1,10 @@
 """The port's language-model serving path against the JAX package's.
 
-Layers, attention, and ``prefill_fn`` / ``decode_fn`` of the four dense smoke
-configurations, in float32 on the CPU (the flash op runs its plain
-version), with the parameters carried over by ``convert.lm_params_from_numpy``
-and the inputs drawn with numpy.  Tolerance: atol 1e-4 on activations and
+Layers, attention, and ``prefill_fn`` / ``decode_fn`` of the four dense and
+the two mixture-of-experts smoke configurations, and of the two with the
+embeddings input (a (B, S, d) prompt, then tokens), in float32 on the CPU
+(the flash op runs its plain version), with the parameters carried over by
+``convert.lm_params_from_numpy`` and the inputs drawn with numpy.  Tolerance: atol 1e-4 on activations and
 logits of magnitude ~1-5, for float32 sums taken in another order (the
 measured gaps are ~2e-6).
 
@@ -36,7 +37,9 @@ from repro_torch.train import serve_step
 
 ATOL = 1e-4
 DENSE = ("gemma2-2b", "olmo-1b", "qwen1.5-0.5b", "chatglm3-6b")
-PORTED = DENSE + ("recurrentgemma-2b", "mamba2-1.3b")  # the recurrent kinds: tests/test_torch_recurrent.py
+MOE = ("qwen3-moe-235b-a22b", "arctic-480b")  # the MoE layer alone: tests/test_torch_moe.py
+EMBED = ("llava-next-34b", "musicgen-large")
+PORTED = DENSE + ("recurrentgemma-2b", "mamba2-1.3b") + MOE + EMBED  # the recurrent kinds: tests/test_torch_recurrent.py
 # leaves that ``ModelConfig.param_count`` leaves out: norms, the RG-LRU's conv bias, Mamba-2's conv and per-head vectors
 UNCOUNTED = ("norm", "rec.conv_b", "ssm.conv_w", "ssm.conv_b", "ssm.a_log", "ssm.d_skip", "ssm.dt_bias")
 
@@ -57,7 +60,7 @@ def _port_cfg(jcfg) -> ModelConfig:
 def models():
     """arch -> (JAX config, JAX params, port config, port model), built once."""
     out = {}
-    for arch in DENSE:
+    for arch in DENSE + MOE + EMBED:
         jcfg = jconfigs.get_smoke_config(arch)
         params = jtf.init_model(jax.random.PRNGKey(0), jcfg)
         cfg = configs.get_smoke_config(arch)
@@ -76,15 +79,14 @@ def test_configs_are_the_references(arch):
     assert dataclasses.asdict(configs.get_smoke_config(arch)) == dataclasses.asdict(jconfigs.get_smoke_config(arch))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "arctic-480b", "llava-next-34b", "musicgen-large"])
-def test_unported_architectures_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, step 11"):
-        configs.get_config(arch)
-    # the JAX configurations themselves hit the same wall in the model
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, step 11"):
-        ttf.Transformer(_port_cfg(jconfigs.get_smoke_config(arch)), device="meta")
-    with pytest.raises(KeyError):
-        configs.get_config("no-such-model")
+def test_arch_ids_are_the_references():
+    assert configs.ARCH_IDS == jconfigs.ARCH_IDS and set(PORTED) == set(configs.ARCH_IDS)
+
+
+def test_unknown_architecture_raises():
+    for get in (configs.get_config, configs.get_smoke_config):
+        with pytest.raises(KeyError, match="unknown architecture"):
+            get("no-such-model")
 
 
 def test_sharded_serving_raises():
@@ -258,7 +260,7 @@ def _jax_layer_cache(caches, cfg, l):
     return {k: np.asarray(v) for k, v in caches["tail"][l - n_cycled].items()}
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_prefill_and_decode_match_jax(models, arch):
     """S = 32 >= the smoke window (16): both packages' caches have the same slots."""
     jcfg, params, cfg, model = models[arch]
@@ -297,6 +299,42 @@ def test_bfloat16_tree_converts_bit_for_bit(models):
     assert bool(torch.isfinite(logits.float()).all())
     with pytest.raises(ValueError, match="missing"):
         convert.lm_params_from_numpy({**tree, "final_norm": {}}, bf, "cpu")
+    # a bf16 MoE tree keeps its router float32 (the reference draws it so whatever param_dtype is)
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config("qwen3-moe-235b-a22b"), param_dtype="bfloat16",
+                               activation_dtype="bfloat16")
+    tree = jax.tree.map(np.asarray, jtf.init_model(jax.random.PRNGKey(1), jcfg))
+    model = convert.lm_params_from_numpy(tree, _port_cfg(jcfg), "cpu")
+    moe = model.layers[1].moe
+    assert moe.router.dtype == torch.float32 and moe.w_gate.dtype == torch.bfloat16
+    assert ttf.Transformer(_port_cfg(jcfg), device="meta").layers[0].moe.router.dtype == torch.float32
+    np.testing.assert_array_equal(moe.router.numpy(), tree["groups"][0]["moe"]["router"][1])
+    np.testing.assert_array_equal(moe.w_down.float().numpy(), _np(tree["groups"][0]["moe"]["w_down"][1]))
+    logits, _ = ttf.prefill_fn(model, _port_cfg(jcfg), toks)
+    assert logits.dtype == torch.bfloat16 and bool(torch.isfinite(logits.float()).all())
+
+
+@pytest.mark.parametrize("arch", EMBED)
+def test_embeddings_prefill_and_decode_match_jax(models, arch):
+    """A (B, S, d) prompt of embeddings, then two decoded tokens: the prefill and the first step against the JAX
+    package's; both steps against a full forward over the prompt followed by ``embed[tokens]``, in the port and in
+    the JAX package (the reference's global ring holds S + 1 slots, so its own decode stops at one step)."""
+    jcfg, params, cfg, model = models[arch]
+    rng = np.random.default_rng(5)
+    b, s = 2, 32
+    prompt = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab_size, (b, 2)).astype(np.int32)
+    lj, cj = jtf.prefill_fn(params, jcfg, jnp.asarray(prompt))
+    lt, ct = ttf.prefill_fn(model, cfg, T(prompt), cache_len=s + 2)
+    np.testing.assert_allclose(lt.numpy(), _np(lj), atol=ATOL)
+    ldj, _ = jtf.decode_fn(params, jcfg, jnp.asarray(toks[:, :1]), jnp.int32(s), cj)
+    emb = np.asarray(params["embed"])
+    for i in range(2):
+        ldt, ct = ttf.decode_fn(model, cfg, T(toks[:, i:i + 1]).long(), s + i, ct)
+        if i == 0:
+            np.testing.assert_allclose(ldt.numpy(), _np(ldj), atol=ATOL)
+        seq = np.concatenate([prompt, emb[toks[:, :i + 1]]], 1)
+        np.testing.assert_allclose(ldt.numpy(), _np(jtf.prefill_fn(params, jcfg, jnp.asarray(seq))[0]), atol=ATOL)
+        np.testing.assert_allclose(ldt.numpy(), ttf.prefill_fn(model, cfg, T(seq))[0].numpy(), atol=ATOL)
 
 
 # ---------------------------------------------------------------------------

@@ -230,6 +230,25 @@ Run from the root of a checkout:  python3 chip_smoke.py
             two Adam steps each; lm.moe.grad (one qwen3-moe block, 0 routing
             flips) and lm.embed.grad (musicgen, depth 2): float32 gradients,
             card against CPU; lm.arch.total against its 120 s budget.
+18. launch  the launch tools (repro_torch.launch).  launch.card: gemma2-2b at
+            full width, bf16, at world 1: a 4 x 2048 prefill and a 2 x 2048
+            Adam step (as lm.serve and lm.train run them) on the card under
+            launch.analysis.measure, against the same steps on meta tensors:
+            FLOPs equal, the launches the meta run counts equal to those the
+            card counts and really makes, the dry-run's peak bytes within 15% of
+            torch.cuda.max_memory_allocated, the measured seconds at least
+            the compute term, and the measured time over each term;
+            launch.dryrun, two spawned processes beside it, each rank 0 of a
+            fake world: gemma2-2b's train_4k, prefill_32k and decode_32k and
+            gp_256k on the (16, 16) mesh, gp_512k on (2, 16, 16), each
+            record's FLOPs, bytes and wire bytes a rank, peak bytes,
+            fits_80gb and roofline terms on H100_SXM; launch.dist: the
+            dry-run of gp_dist_32k on a fake 2 x 2 mesh against dist.predict's
+            rank 0 (collectives by op equal; the launches the dry-run counts
+            equal to the schedule's and to those rank 0 made on the card);
+            launch.total against its 90 s budget.
+            ``--only-launch`` runs env, build, the multi-device phases and
+            these alone.
 
 Every phase prints one JSON line.  The kernels' summary, the nvidia-smi line
 and, last, ``{"ok": true, "device": {...}}`` follow.  Any failed check exits
@@ -3453,6 +3472,7 @@ SHARDED_FLEET_TOL = 1e-5      # the reference's sharded-against-unsharded rule (
 # batch-invariant tile_gemv / tile_trsv kernel (cuBLAS's batched GEMV and triangular solve, which pick another
 # algorithm at another problem count, put sharded fleets 6.1e-5 ... 1.83e-4 off; scripts/batch_invariance.py)
 SHARDED_FLEET_CARD_TOL = SHARDED_FLEET_TOL
+DIST_COUNTS: dict = {}  # dist.predict's rank 0: collectives by op and launches, held against the dry-run (launch.dist)
 MULTI_BUDGET_S = 60.0         # the multi-device phases' share of the script's wall time that was planned
 SHARDED_WAVES = 2
 
@@ -3652,6 +3672,7 @@ def predict_job(rank, world, x, y, xt):
     from repro_torch.core.kernels_math import SEKernelParams
     from repro_torch.dist import collectives as coll
     from repro_torch.kernels import ops
+    from repro_torch.launch import analysis
 
     mesh = _dist_mesh()
     m, n, nt = GP_DIST_32K.tile_size, GP_DIST_32K.n_train, GP_DIST_32K.n_test
@@ -3668,8 +3689,10 @@ def predict_job(rank, world, x, y, xt):
     coll.reset_stats()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    (mean, var), seconds = timed_between_barriers(lambda: fn(*chunks))
+    with coll.recording() as calls:
+        (mean, var), seconds = timed_between_barriers(lambda: fn(*chunks))
     out = dict(seconds=seconds, collective_host_s=coll.STATS["seconds"], collectives=coll.STATS["calls"],
+               collectives_by_op=analysis.collective_stats(calls).as_record(),
                collective_bytes_sent=coll.STATS["bytes"], launches=ops.launch_counts(),
                peak_memory_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
                grid=[coll.linear_index(mesh, ("data",)), coll.linear_index(mesh, ("model",))])
@@ -3803,6 +3826,7 @@ def report_predict(ranks, x, y, xt, yt, dev):
          launches=[r["launches"] for r in ranks], schedule_launches=want,
          peak_memory_gib=[r["peak_memory_gib"] for r in ranks],
          note="4 ranks share one H100 over gloo (host-staged collectives): the algorithm, not multi-GPU scaling")
+    DIST_COUNTS.update(collectives=ranks[0]["collectives_by_op"], launches=got[0], schedule=want[0])
     check(got == want, f"dist.predict: launches {got} differ from the schedule's {want}")
     check(same and bool(torch.isfinite(mean).all() and torch.isfinite(var).all()), "dist.predict: ranks disagree")
     check(res["mean_err"] <= mean_bound and res["var_err"] <= var_bound, f"dist.predict outside the rule: {res}")
@@ -5240,6 +5264,196 @@ def phase_lm_arch(dev):
 RANK_JOBS = {"dist": dist_job, "fleet_sharded": fleet_sharded_job, "lm_mesh": lm_mesh_job}
 
 
+# ---------------------------------------------------------------------------
+# The launch tools: the dry-run on fake production worlds, its count held against the card
+# ---------------------------------------------------------------------------
+
+LAUNCH_BUDGET_S = 90.0        # the launch phases' share of the script's wall time
+LAUNCH_PEAK_RTOL = 0.15       # the dry-run's peak bytes against torch.cuda.max_memory_allocated
+LAUNCH_PREFILL = (4, 2048)    # launch.card: gemma2-2b's prefill as lm.serve runs it (B, S)
+LAUNCH_TRAIN = (2, 2048)      # and an Adam step as lm.train runs it
+LAUNCH_JOIN_S = 600.0         # a dry-run process that outlives this fails the phase
+
+
+def launch_dryrun_job(multi: bool, out_dir: str) -> None:
+    """A spawned process, rank 0 of a fake world: the (2, 16, 16) mesh's gp_512k (``multi``), or the (16, 16)
+    mesh's gemma2-2b train_4k, prefill_32k and decode_32k and gp_256k, then gp_dist_32k on a fake 2 x 2 mesh (the
+    cell dist.predict runs on the card), whose counts go to ``dist22.out``.  Records go to ``out_dir``."""
+    import os
+
+    sys.path.insert(0, str(SRC))
+    sys.stdout = open(os.devnull, "w")  # the cells' progress lines; the parent reports the records
+    from repro_torch import configs
+    from repro_torch.configs import gp_msd
+    from repro_torch.launch import analysis, dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+
+    if multi:
+        dryrun.run_gp_cell(gp_msd.GP_DIST_512K, True, out_dir, probes=False, force=True)
+        return
+    for shape in configs.shapes_for(LM_ARCH):
+        dryrun.run_lm_cell(LM_ARCH, shape, False, out_dir, probes=False, force=True)
+    dryrun.run_gp_cell(gp_msd.GP_DIST_256K, False, out_dir, probes=False, force=True)
+    mesh = make_test_mesh(DIST_GRID, ("data", "model"), device_type="cpu")
+    fn, *args = dryrun.gp_predict(gp_msd.GP_DIST_32K, mesh, ("data",), ("model",), d_feat=N_FEATURES)
+    with analysis.measure() as m:
+        fn(*args)
+    with open(os.path.join(out_dir, "dist22.out"), "w") as f:
+        json.dump({"collectives": m.collectives.as_record(), "launches": m.launches}, f)
+
+
+def card_vs_meta(name, fn, real_calls, meta_args, base, hw):
+    """One step on the card against the same step on meta tensors: ``real_calls`` are three argument tuples (a
+    warm call, the timed call whose peak memory is read, the counted call).  Returns the phase's fields."""
+    from repro_torch.launch import analysis
+
+    with analysis.measure(resident=meta_args) as meta:
+        fn(*meta_args)
+    fn(*real_calls[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, seconds = wall_s(lambda: fn(*real_calls[1]))
+    peak = torch.cuda.max_memory_allocated() - base
+    with analysis.measure(resident=real_calls[2]) as card:
+        fn(*real_calls[2])
+        torch.cuda.synchronize()
+    cost = analysis.cost_summary(meta)
+    terms = {"compute_s": hw.compute_seconds(cost["flops"], "bfloat16"), "memory_s": hw.memory_seconds(cost["bytes"]),
+             "collective_s": 0.0}
+    out = dict(flops_meta=meta.flops, flops_card=card.flops, launches_meta=meta.launches, launches_card=card.launches,
+               launched_card=card.launched,
+               bytes_meta=meta.bytes, bytes_card=card.bytes, peak_bytes_estimate=meta.peak_bytes,
+               max_memory_allocated=peak, peak_ratio=meta.peak_bytes / peak, seconds=seconds, **terms,
+               dominant=max(terms, key=terms.get),
+               measured_over={k: seconds / v for k, v in terms.items() if v},
+               meta_run_s=meta.seconds)
+    check(meta.flops == card.flops, f"launch.card.{name}: FLOPs on the card {card.flops} != the meta run's "
+          f"{meta.flops}")
+    check(meta.launches == card.launches == card.launched and not meta.launched,
+          f"launch.card.{name}: launches counted on meta {meta.launches}, counted on the card {card.launches}, "
+          f"launched on the card {card.launched}, launched on meta {meta.launched}")
+    check(abs(meta.peak_bytes / peak - 1) <= LAUNCH_PEAK_RTOL, f"launch.card.{name}: peak estimate "
+          f"{meta.peak_bytes} against max_memory_allocated {peak}: off by more than {LAUNCH_PEAK_RTOL}")
+    check(seconds >= terms["compute_s"], f"launch.card.{name}: {seconds} s is under the compute term "
+          f"{terms['compute_s']} s")
+    return out
+
+
+def phase_launch_card(dev, smi):
+    """launch.card: gemma2-2b at full width, bf16, on the card at world 1 (a 4 x 2048 prefill, a 2 x 2048 Adam step,
+    as lm.serve and lm.train run them) against the dry-run's count of the same step on meta tensors."""
+    from repro_torch import configs
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import H100_SXM
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import Adam, cosine_warmup
+    from repro_torch.train import make_train_step, serve_step
+
+    cfg = configs.get_config(LM_ARCH)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    model = tf.init_model(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    meta_model = specs.params_shape(cfg)
+    rng = np.random.default_rng(SEED)
+    b, s = LAUNCH_PREFILL
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(dev) for _ in range(3)]
+    prefill, _ = serve_step.make_prefill_step(cfg)
+
+    def run_prefill(m, x):
+        prefill(m, x)  # the logits and caches are dropped at once
+
+    fields = {"prefill": card_vs_meta("prefill", run_prefill, [(model, x) for x in prompts],
+                                      (meta_model, torch.empty_like(prompts[0], device="meta")), base, H100_SXM)}
+    opt = Adam(learning_rate=cosine_warmup(3e-4, 1, 100))
+    step, _ = make_train_step(cfg, opt)
+    state = opt.init(model)
+    batches = lm_batch(cfg, *LAUNCH_TRAIN, SEED, dev, 3)
+
+    def run_step(m, st, x, y):
+        step(m, st, x, y)
+
+    meta_batch = tuple(torch.empty_like(t, device="meta") for t in batches[0])
+    fields["train"] = card_vs_meta("train", run_step, [(model, state, *bt) for bt in batches],
+                                   (meta_model, opt.init(meta_model), *meta_batch), base, H100_SXM)
+    del model, state, batches, prompts
+    torch.cuda.empty_cache()
+    emit("launch.card", arch=LM_ARCH, config="src/repro/configs/gemma2_2b.py, full width, bf16, seeded, world 1",
+         prefill_shape=[b, s], train_shape=list(LAUNCH_TRAIN), optimizer="Adam(cosine_warmup(3e-4, 1, 100))", card=smi,
+         hardware="H100_SXM: 989 TFLOP/s bf16, 3.35 TB/s, 50 GB/s a GPU (published peaks)", **fields,
+         rule=f"FLOPs equal; the launches counted on meta, counted on the card and launched on the card equal; the peak estimate within {LAUNCH_PEAK_RTOL} of max_memory_allocated "
+         "(less the bytes held before the model); the measured seconds at least the compute term; no bar on the "
+         "memory term (unfused bytes, which the 50 MB L2 can beat)")
+
+
+def phase_launch(dev):
+    """launch.dryrun (two spawned processes, a fake world each) beside launch.card on the card; launch.dist: the
+    dry-run's gp_dist_32k on a fake 2 x 2 mesh against dist.predict's rank 0; launch.total against its budget."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    from repro_torch.core import distributed as dgp
+    from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import H100_SXM
+
+    t0 = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    out_dir = tempfile.mkdtemp(prefix="dryrun_")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=launch_dryrun_job, args=(multi, out_dir)) for multi in (False, True)]
+    for p in procs:
+        p.start()
+    try:
+        phase_launch_card(dev, smi)
+        for p in procs:
+            p.join(timeout=max(1.0, LAUNCH_JOIN_S - (time.perf_counter() - t0)))
+            if p.is_alive():
+                p.kill()
+                p.join()
+        t_dry = time.perf_counter() - t0
+        check(all(p.exitcode == 0 for p in procs), f"launch.dryrun: exit codes {[p.exitcode for p in procs]}")
+        records = roofline.load_records(out_dir)
+        rows = []
+        for rec in records:
+            row = roofline.derive(rec, H100_SXM)
+            full = rec.get("full", {})
+            rows.append(dict(cell=row["cell"], mesh=row["mesh"], ok=rec["ok"], error=rec.get("error"),
+                             devices=rec.get("devices"), flops_per_rank=full.get("cost", {}).get("flops"),
+                             bytes_per_rank=full.get("cost", {}).get("bytes"),
+                             wire_bytes_per_rank=full.get("collectives", {}).get("total_wire_bytes"),
+                             peak_bytes=full.get("memory", {}).get("peak_bytes"), fits_80gb=rec.get("fits_80gb"),
+                             compute_s=row["compute_s"], memory_s=row["memory_s"], collective_s=row["collective_s"],
+                             dominant=row["dominant"], launches=full.get("cost", {}).get("launches"),
+                             meta_run_s=rec.get("times", {}).get("meta_run_s")))
+        emit("launch.dryrun", cells=rows, seconds=t_dry, card=smi,
+             note="rank 0 of a fake world of 256 ((16, 16)) or 512 ((2, 16, 16)) ranks on meta tensors; terms on "
+             "H100_SXM's published peaks (bf16 LM, FP32 GP), bytes unfused")
+        check(len(rows) == 5 and all(r["ok"] for r in rows), f"launch.dryrun: {[(r['cell'], r['error']) for r in rows]}")
+        with open(Path(out_dir) / "dist22.out") as f:
+            dry = json.load(f)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    from repro_torch.configs.gp_msd import GP_DIST_32K
+
+    want = DIST_COUNTS.get("collectives")
+    sched = dgp.schedule_launches(GP_DIST_32K.m_tiles, *DIST_GRID, 0, 0, predict=True)
+    emit("launch.dist", dryrun=dry, card_rank0=DIST_COUNTS, schedule=sched,
+         note="gp_dist_32k on a 2 x 2 mesh: the dry-run (fake world, meta tensors) against dist.predict's rank 0 on "
+         "the card; calls and bytes by op equal, the dry-run's counted launches equal to the schedule's and to rank 0's "
+         "launches on the card")
+    check(want is not None and dry["collectives"]["ops"] == want["ops"]
+          and dry["collectives"]["operand_bytes"] == want["operand_bytes"]
+          and dry["collectives"]["wire_bytes"] == want["wire_bytes"],
+          f"launch.dist: collectives {dry['collectives']} != dist.predict's {want}")
+    check(dry["launches"] == sched == {k: DIST_COUNTS.get("launches", {}).get(k) for k in sched},
+          f"launch.dist: launches {dry['launches']} / {DIST_COUNTS.get('launches')} != the schedule's {sched}")
+    seconds = time.perf_counter() - t0
+    emit("launch.total", seconds=seconds, budget_s=LAUNCH_BUDGET_S, card=smi,
+         note="launch.card on the card beside the two dry-run processes, then launch.dist")
+    check(seconds <= LAUNCH_BUDGET_S, f"the launch phases took {seconds} s of {LAUNCH_BUDGET_S}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA card")
@@ -5258,6 +5472,10 @@ def main() -> None:
     launches_dist, errs_dist = phase_multi(dev)
     if sys.argv[1:] == ["--only-multi"]:  # a quicker run of the multi-device phases alone; no contract line
         emit("total", seconds=time.perf_counter() - t_start, note="--only-multi")
+        return
+    if sys.argv[1:] == ["--only-launch"]:  # the launch tools' phases after the multi-device ones; no contract line
+        phase_launch(dev)
+        emit("total", seconds=time.perf_counter() - t_start, note="--only-launch")
         return
     x_train, y_train, x_test, y_test = make_data(N_TRAIN, N_TEST, N_FEATURES, SEED)
     emit("data", n_train=N_TRAIN, n_test=N_TEST, features=N_FEATURES, tile_size=TILE, seed=SEED,
@@ -5368,6 +5586,8 @@ def main() -> None:
     launches_rec = phase_lm_recurrent(dev)
     # the MoE feed-forward (qwen3-moe, arctic) and the embeddings input (llava, musicgen) at full width
     launches_arch = phase_lm_arch(dev)
+    # the launch tools: the dry-run of production cells on fake worlds, its count held against the card
+    phase_launch(dev)
 
     # launches: each kernel's count on the path it came with (main, update, lowrank, lm)
     path_of = {name: "main" for name in MAIN_KERNELS}

@@ -145,6 +145,15 @@ class ShapeConfig:
         return self.seq_len * self.global_batch
 
 
+# the production shape cells of the launch tools (the JAX package's ``configs/base.py``)
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
 @dataclasses.dataclass(frozen=True)
 class GPShapeConfig:
     """Problem sizes of the paper's own (GP) cells: a copy of the JAX package's ``GPShapeConfig``."""

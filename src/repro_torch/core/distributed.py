@@ -243,6 +243,23 @@ def _predict_mean(xt_chunks, x_chunks, alpha, params, nt_valid: int, n_valid: in
     return torch.einsum("ikab,kb->ia", tiles.view(mt, mm, m, m), alpha)
 
 
+def _var_step(j: int, b: torch.Tensor, local: torch.Tensor, *, mesh, m_tiles: int, row_axes, col_axes, p: int,
+              q: int) -> None:
+    """One row of the matrix forward solve L V = K_{X,X̂}, in place on the rank's right-hand sides b (M, Mt/Q, m, m):
+    column j of L broadcast (active rows only), V_j solved, B_i -= L_ij V_j for the rows below."""
+    pc = coll.linear_index(mesh, col_axes)
+    ip0 = j // p
+    base = ip0 * p
+    col = local[ip0:, j // q] if pc == j % q else torch.zeros_like(local[ip0:, 0])
+    col = coll.psum(col, mesh, col_axes)
+    panel = _panel_from_gather(coll.gather_axes(col, mesh, row_axes))  # rows base ... of column j
+    vj = torch.linalg.solve_triangular(panel[j - base], b[j], upper=False)  # (mtq, m, m)
+    b[j] = vj
+    if j + 1 < m_tiles:
+        lij = panel[j + 1 - base:m_tiles - base]
+        b[j + 1:] -= torch.einsum("iab,qbc->iqac", lij, vj)
+
+
 def _variances(local, x_chunks, xt_chunks, params, n_valid: int, nt_valid: int, *, mesh, m_tiles, row_axes,
                col_axes, p, q, table) -> torch.Tensor:
     """diag(K_** - V^T V) with L V = K_{X,X̂}, V split over the process columns.
@@ -266,16 +283,7 @@ def _variances(local, x_chunks, xt_chunks, params, n_valid: int, nt_valid: int, 
                       nt_valid, params, symmetric=False, kernel=_SE, table=table)
     b = b.view(m_tiles, mtq, m, m)
     for j in range(m_tiles):
-        ip0 = j // p
-        base = ip0 * p
-        col = local[ip0:, j // q] if pc == j % q else torch.zeros_like(local[ip0:, 0])
-        col = coll.psum(col, mesh, col_axes)
-        panel = _panel_from_gather(coll.gather_axes(col, mesh, row_axes))  # rows base ... of column j
-        vj = torch.linalg.solve_triangular(panel[j - base], b[j], upper=False)  # (mtq, m, m)
-        b[j] = vj
-        if j + 1 < m_tiles:  # B_i -= L_ij V_j for the rows below
-            lij = panel[j + 1 - base:m_tiles - base]
-            b[j + 1:] -= torch.einsum("iab,qbc->iqac", lij, vj)
+        _var_step(j, b, local, mesh=mesh, m_tiles=m_tiles, row_axes=row_axes, col_axes=col_axes, p=p, q=q)
     w_diag = torch.einsum("iqab,iqab->qb", b, b)                                   # (mtq, m)
     gj = t0 * m + torch.arange(mtq, device=dev)[:, None] * m + torch.arange(m, device=dev)[None, :]
     prior = torch.as_tensor(params.vertical, dtype=w_diag.dtype, device=dev)
@@ -327,6 +335,45 @@ def distributed_gp_predict_fn(mesh, *, m_tiles: int, tile_size: int, n_valid: in
         if not variances:
             return mean
         return mean, _variances(local, x_chunks, xt_chunks, params, n_valid, n_test_valid, table=table, **grid)
+
+    return fn
+
+
+def cholesky_step_probe_fn(mesh, *, m_tiles: int, row_axes: Tuple[str, ...] = ("data",),
+                           col_axes: Tuple[str, ...] = ("model",), update_dtype=None):
+    """``fn(local, j) -> local after step j``: one factorization step alone, on a copy of the rank's block.
+
+    The launch tools' per-step breakdown.  The port's steps shrink with j
+    (active slices), so step 0 is the widest: its cost times M bounds the
+    factorization from above (the reference's masked steps cost the same at
+    every j).
+    """
+    p, q = _check_grid(mesh, m_tiles, row_axes, col_axes, "cholesky_step_probe_fn")
+    row_axes, col_axes = tuple(row_axes), tuple(col_axes)
+
+    def fn(local: torch.Tensor, j: int) -> torch.Tensor:
+        local = local.clone()
+        _chol_step(int(j), local, mesh=mesh, m_tiles=m_tiles, row_axes=row_axes, col_axes=col_axes, p=p, q=q,
+                   update_dtype=update_dtype)
+        return local
+
+    return fn
+
+
+def variance_step_probe_fn(mesh, *, m_tiles: int, row_axes: Tuple[str, ...] = ("data",),
+                           col_axes: Tuple[str, ...] = ("model",)):
+    """``fn(local, b, j) -> b after step j``: one row of the variances' matrix forward solve alone.
+
+    ``local`` is the rank's factored block, ``b`` its (M, Mt/Q, m, m)
+    right-hand sides (a copy is solved).
+    """
+    p, q = _check_grid(mesh, m_tiles, row_axes, col_axes, "variance_step_probe_fn")
+    row_axes, col_axes = tuple(row_axes), tuple(col_axes)
+
+    def fn(local: torch.Tensor, b: torch.Tensor, j: int) -> torch.Tensor:
+        b = b.clone()
+        _var_step(int(j), b, local, mesh=mesh, m_tiles=m_tiles, row_axes=row_axes, col_axes=col_axes, p=p, q=q)
+        return b
 
     return fn
 

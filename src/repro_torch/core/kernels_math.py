@@ -864,9 +864,34 @@ def descriptor_table(kernel, params, d: int, dtype: torch.dtype, device) -> Desc
     return Descriptor(tuple(launches), tuple(t for t, _ in groups), p)
 
 
+def cov_launch_count(kernel, params) -> int:
+    """The cov_tiles kernel's launches for one call (:func:`descriptor_table`'s): one, or one per (term, distance)
+    where the terms mix distances."""
+    terms = normal_form(kernel, params)
+    if len({distance_key(f) for _, fs in terms for f in fs}) <= 1:
+        return 1
+    return sum(len(dict.fromkeys(distance_key(f) for f in fs)) for _, fs in terms)
+
+
 # ---------------------------------------------------------------------------
-# Plain tile assembly
+# Dense SE block and plain tile assembly
 # ---------------------------------------------------------------------------
+
+
+def se_kernel(x1: torch.Tensor, x2: torch.Tensor, params, *, diag_offset: Optional[int] = None) -> torch.Tensor:
+    """Dense SE covariance block between x1 (n1, D) and x2 (n2, D).
+
+    With ``diag_offset`` set, the entry (i, j) with ``i + diag_offset == j``
+    gets the ``+ sigma^2`` noise term: the block lies on the global diagonal
+    at that column offset (``diag_offset=0`` for the full training matrix).
+    """
+    k = params.vertical * torch.exp(-0.5 / params.lengthscale * sq_dists(x1, x2))
+    if diag_offset is not None:
+        i = torch.arange(x1.shape[0], device=k.device)[:, None]
+        j = torch.arange(x2.shape[0], device=k.device)[None, :]
+        noise = torch.as_tensor(params.noise, dtype=k.dtype, device=k.device)
+        k = k + torch.where(i + diag_offset == j, noise, torch.zeros((), dtype=k.dtype, device=k.device))
+    return k
 
 
 def _diag_value(kernel: Kernel, params, dtype, device) -> torch.Tensor:

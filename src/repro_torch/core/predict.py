@@ -245,28 +245,34 @@ def predict_from_state(
     *,
     full_cov: bool = False,
     n_streams: Optional[int] = None,
+    dtype=None,
 ):
     """Prediction given a (possibly cached) :class:`PosteriorState`.
 
     Hyperparameters and kernel come from the state (alpha and the factor
-    are only valid for them), and so do the device and the dtype.
+    are only valid for them), and so does the device.  The test points are
+    padded in ``dtype`` (``None``: the state's storage type); the tail runs
+    in the promotion of it and the state's type, the state's tensors cast
+    up, as the reference's arrays promote.
     """
     params, kernel, m = state.params, state.kernel, state.m
     dev = state.device
     obs.inc("predict.warm_tail")
     nh = x_test.shape[0]
-    xtc = tiling.pad_features(
-        torch.as_tensor(x_test, device=dev), m, dtype=state.x_chunks.dtype
-    )
+    store = state.x_chunks.dtype
+    dtype = store if dtype is None else dtype
+    work = torch.promote_types(dtype, store)
+    xtc = tiling.pad_features(torch.as_tensor(x_test, device=dev), m, dtype=dtype).to(work)
+    x_chunks, alpha = state.x_chunks.to(work), state.alpha.to(work)
     table = _table(params, kernel, xtc)
-    kstar = assemble_cross_tiles(xtc, state.x_chunks, params, nh, state.n, kernel=kernel, table=table)
-    mean = triangular.tiled_matvec(kstar, state.alpha).reshape(-1)[:nh]
+    kstar = assemble_cross_tiles(xtc, x_chunks, params, nh, state.n, kernel=kernel, table=table)
+    mean = triangular.tiled_matvec(kstar, alpha).reshape(-1)[:nh]
     if not full_cov:
         return mean
     # L V = K_{X,X̂}: the right-hand-side tiles are the transposed K_* grid.
     b_tiles = kstar.permute(1, 0, 3, 2)
     v = triangular.forward_substitution_matrix(
-        state.lpacked, b_tiles, n_streams=n_streams, device=dev
+        state.lpacked.to(work), b_tiles, n_streams=n_streams, device=dev
     )
     w = triangular.tiled_gram(v)                                  # (Q, Q, m, m)
     prior = assemble_prior_tiles(xtc, params, nh, kernel=kernel, table=table)

@@ -58,6 +58,8 @@ class CholeskyUpdateError(RuntimeError):
 
 
 def _check(t: torch.Tensor, what: str) -> None:
+    """Raise :class:`CholeskyUpdateError` if ``t`` holds a non-finite value: the updates' one read to the host
+    (their ``check_finite=False`` skips it, and with it the wait for the device)."""
     if not bool(torch.isfinite(t).all()):
         obs.health_event("nan_guard_trip", what=what)
         raise CholeskyUpdateError(
@@ -138,6 +140,7 @@ def extend_state(
     update_dtype=None,
     batch_dispatch: str = "flat",
     mesh=None,
+    check_finite: bool = True,
 ):
     """Absorb new observations into a cached posterior in O(n^2 b).
 
@@ -199,7 +202,8 @@ def extend_state(
         consumed += take
 
     alpha = triangular.backward_substitution(lpacked, beta, n_streams=n_streams, device=dev)
-    _check(alpha, "append")
+    if check_finite:
+        _check(alpha, "append")
     return pred.PosteriorState(
         lpacked=lpacked, alpha=alpha, x_chunks=xc, n=n, m=m,
         params=state.params, beta=beta, y_chunks=yc, kernel=state.kernel,
@@ -216,6 +220,7 @@ def extend_state_ragged(
     update_dtype=None,
     batch_dispatch: str = "flat",
     mesh=None,
+    check_finite: bool = True,
 ):
     """Absorb per-problem arrival counts into a ragged bucket's stacked state.
 
@@ -309,7 +314,8 @@ def extend_state_ragged(
         )
 
     alpha = triangular.backward_substitution(lpacked, beta, n_streams=n_streams, device=dev)
-    _check(alpha, "ragged append")
+    if check_finite:
+        _check(alpha, "ragged append")
     return pred.PosteriorState(
         lpacked=lpacked, alpha=alpha, x_chunks=xc, n=state.n, m=m, params=state.params,
         beta=beta, y_chunks=yc, n_valid=nv_dev, kernel=state.kernel,
@@ -323,6 +329,7 @@ def shrink_state(
     n_streams: Optional[int] = None,
     batch_dispatch: str = "flat",
     mesh=None,
+    check_finite: bool = True,
 ):
     """Evict the k oldest observations from a cached posterior in O(n^2 k).
 
@@ -362,7 +369,8 @@ def shrink_state(
     yc = yc.narrow(axis, t, m_tiles - t).clone()
     beta = triangular.forward_substitution(lpacked, yc, n_streams=n_streams, device=dev)
     alpha = triangular.backward_substitution(lpacked, beta, n_streams=n_streams, device=dev)
-    _check(alpha, "evict")
+    if check_finite:
+        _check(alpha, "evict")
     return pred.PosteriorState(
         lpacked=lpacked, alpha=alpha, x_chunks=xc, n=state.n - k, m=m,
         params=state.params, beta=beta, y_chunks=yc, kernel=state.kernel,
@@ -375,6 +383,7 @@ def downdate_factor(
     *,
     n_streams: Optional[int] = None,
     device="cuda",
+    check_finite: bool = True,
 ) -> torch.Tensor:
     """True rank-b downdate: chol(L L^T - W W^T) via hyperbolic rotations.
 
@@ -386,7 +395,8 @@ def downdate_factor(
     new_packed, _ = executor.run_rank_update(
         lpacked, w, sign=-1.0, n_streams=n_streams, device=device
     )
-    _check(new_packed, "downdate")
+    if check_finite:
+        _check(new_packed, "downdate")
     return new_packed
 
 
@@ -396,11 +406,13 @@ def update_factor(
     *,
     n_streams: Optional[int] = None,
     device="cuda",
+    check_finite: bool = True,
 ) -> torch.Tensor:
     """Positive rank-b update: chol(L L^T + W W^T) (always PD in exact
     arithmetic; NaN-checked for numerical failures)."""
     new_packed, _ = executor.run_rank_update(
         lpacked, w, sign=1.0, n_streams=n_streams, device=device
     )
-    _check(new_packed, "update")
+    if check_finite:
+        _check(new_packed, "update")
     return new_packed

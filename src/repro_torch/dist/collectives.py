@@ -15,14 +15,19 @@ the list form of ``all_gather``.
 
 :data:`STATS` counts the calls, the bytes each rank sends and the host
 seconds spent inside the calls (a call waits for the device work queued
-before it, so on the card this includes that wait).
+before it, so on the card this includes that wait).  Inside
+:func:`recording` each call also appends ``(op, group size, result
+bytes)`` to the list it yields, ``op`` ``"all-reduce"`` or
+``"all-gather"`` (the launch tools' wire model reads them,
+``launch/analysis.py``).  A group of one rank makes no call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -30,10 +35,30 @@ from torch.distributed.device_mesh import DeviceMesh
 
 STATS = {"calls": 0, "bytes": 0, "seconds": 0.0}
 _GROUPS: Dict[Tuple[int, Tuple[str, ...]], tuple] = {}
+_RECORD: Optional[List[Tuple[str, int, int]]] = None
 
 
 def reset_stats() -> None:
     STATS.update(calls=0, bytes=0, seconds=0.0)
+
+
+@contextlib.contextmanager
+def recording():
+    """A list that gets ``(op, group size, result bytes)`` for each collective call inside the block, in order."""
+    global _RECORD
+    before, _RECORD = _RECORD, []
+    try:
+        yield _RECORD
+    finally:
+        _RECORD = before
+
+
+def _count(t0: float, op: str, group: int, sent: int, result: int) -> None:
+    STATS["seconds"] += time.perf_counter() - t0
+    STATS["calls"] += 1
+    STATS["bytes"] += sent
+    if _RECORD is not None:
+        _RECORD.append((op, group, result))
 
 
 def check_mesh(mesh, where: str) -> None:
@@ -103,12 +128,11 @@ def psum(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str]) -> torch.Tensor
     out = x.contiguous().clone()
     if axes_size(mesh, axes) == 1:
         return out
-    group, _ = _group(mesh, axes)
+    group, order = _group(mesh, axes)
     t0 = time.perf_counter()
     dist.all_reduce(out, group=group)
-    STATS["seconds"] += time.perf_counter() - t0
-    STATS["calls"] += 1
-    STATS["bytes"] += out.numel() * out.element_size()
+    size = out.numel() * out.element_size()
+    _count(t0, "all-reduce", len(order), size, size)
     return out
 
 
@@ -122,9 +146,8 @@ def gather_axes(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str]) -> torch
     parts = [torch.empty_like(x) for _ in order]
     t0 = time.perf_counter()
     dist.all_gather(parts, x, group=group)
-    STATS["seconds"] += time.perf_counter() - t0
-    STATS["calls"] += 1
-    STATS["bytes"] += x.numel() * x.element_size()
+    size = x.numel() * x.element_size()
+    _count(t0, "all-gather", len(order), size, size * len(order))
     out = [None] * len(order)
     for part, k in zip(parts, order):
         out[k] = part

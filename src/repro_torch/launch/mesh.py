@@ -8,12 +8,17 @@ process groups.  A mesh's device type is the one the ranks run on: ``"cuda"``
 where the rank has a card (rank r on ``cuda:(r % device_count)``), else
 ``"cpu"``; ``device_type`` overrides it.
 
-The production mesh and the hardware model of the JAX package's
-``launch/mesh.py`` are ROADMAP.md queue 1 step 12.
+:func:`make_production_mesh` names the JAX package's production meshes,
+(16, 16) ``("data", "model")`` and (2, 16, 16) with a ``pod`` axis, over a
+world of 256 or 512 ranks (the dry-run builds that world on torch's ``fake``
+backend in one process).  :class:`Hardware` is the roofline's device model,
+and :data:`H100_SXM` (in place of the JAX package's TPU v5e) holds the
+published peaks of one NVIDIA H100 SXM.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Sequence
 
@@ -57,3 +62,48 @@ def make_fleet_mesh(n_devices: Optional[int] = None, *, device_type: Optional[st
     if not 1 <= n_devices <= avail:
         raise ValueError(f"n_devices must be in [1, {avail}] (ranks of the world); got {n_devices}")
     return make_test_mesh((n_devices,), ("data",), device_type=device_type)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: Optional[str] = None) -> DeviceMesh:
+    """(16, 16) ``("data", "model")``, or (2, 16, 16) ``("pod", "data", "model")``, over the world's first ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_test_mesh(shape, axes, device_type=device_type)
+
+
+@dataclasses.dataclass(frozen=True)
+class Hardware:
+    """One device's peaks: the three roofline terms are the work over these rates.
+
+    The compute term takes the peak of the cell's compute type
+    (``peak_flops_bf16`` for bf16, ``peak_flops_fp32`` for float32), since
+    a float32 cell does not run at the tensor cores' bf16 rate.
+    ``link_bandwidth`` is the bytes a second one device puts on the wire of
+    a collective.
+    """
+
+    peak_flops_bf16: float
+    peak_flops_fp32: float
+    hbm_bandwidth: float      # B/s per device
+    link_bandwidth: float     # B/s per device on the wire
+    hbm_bytes: float          # capacity per device
+
+    def peak_flops(self, dtype: str = "bfloat16") -> float:
+        return {"bfloat16": self.peak_flops_bf16, "float32": self.peak_flops_fp32}[dtype]
+
+    def compute_seconds(self, flops_per_device: float, dtype: str = "bfloat16") -> float:
+        return flops_per_device / self.peak_flops(dtype)
+
+    def memory_seconds(self, bytes_per_device: float) -> float:
+        return bytes_per_device / self.hbm_bandwidth
+
+    def collective_seconds(self, wire_bytes_per_device: float) -> float:
+        return wire_bytes_per_device / self.link_bandwidth
+
+
+# One NVIDIA H100 SXM5 80GB at its 700 W limit, published peaks: 989 TFLOP/s bf16 dense on the tensor cores, 67
+# TFLOP/s FP32 on the CUDA cores, 3.35 TB/s HBM3, 80 GB.  The wire rate is one 400 Gb/s NDR InfiniBand port a GPU,
+# 50 GB/s: every axis of both production meshes (16 or 32 ranks) spans more than one 8-GPU NVLink node, so a
+# collective over it crosses the network, not NVLink (450 GB/s a direction).
+H100_SXM = Hardware(peak_flops_bf16=989e12, peak_flops_fp32=67e12, hbm_bandwidth=3.35e12, link_bandwidth=50e9,
+                    hbm_bytes=80e9)

@@ -316,6 +316,12 @@ def loss_fn(params: Transformer, cfg: ModelConfig, inputs: torch.Tensor, labels:
     positions = torch.arange(s, device=inputs.device)[None, :].expand(b, s)
     x = _embed_in(params, cfg, inputs, positions)
     x, _ = _backbone(params, cfg, x, positions, mode="train")
+    return loss_head(params, cfg, x, labels)
+
+
+def loss_head(params: Transformer, cfg: ModelConfig, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """:func:`loss_fn` after the backbone: the mean cross entropy of the final-normed x (B, S, d), chunked."""
+    b, s = labels.shape
     c = cfg.loss_chunk if cfg.loss_chunk and s % cfg.loss_chunk == 0 else s
 
     def chunk_ce(xx, ll):

@@ -126,7 +126,6 @@ def make_train_step(
     o_sh = shard_rules.opt_state_shardings(optimizer.init(meta), meta, mesh)
     in_sh, lab_sh = shard_rules.input_shardings(cfg, shape, mesh)
     dp = shard_rules.spec_axes(in_sh.spec[0])
-    elementwise = isinstance(optimizer, Adam)
 
     def step(params, opt_state, inputs, labels):
         if not donate:
@@ -136,15 +135,29 @@ def make_train_step(
             loss, grads = loss_and_grads(full, cfg, in_sh.block(inputs), lab_sh.block(labels))
         grads = {n: _mean_over(g, mesh, dp) for n, g in grads.items()}
         loss = _mean_over(loss, mesh, dp)
-        if elementwise:
-            norm = global_norm(grads)
-            del full
-            optimizer.update(shard_rules.distribute(grads, p_sh), opt_state, params, grad_norm=norm)
-            return params, opt_state, loss
-        full_params, full_state = optimizer.update(grads, shard_rules.collect(opt_state, o_sh), full)
-        return shard_rules.distribute(full_params, p_sh), shard_rules.distribute(full_state, o_sh), loss
+        if isinstance(optimizer, Adam):
+            full = None  # Adam updates the rank's blocks: the full parameters go first
+        params, opt_state = sharded_update(optimizer, grads, opt_state, params, p_sh, o_sh, full)
+        return params, opt_state, loss
 
     return step, {"params": p_sh, "opt": o_sh, "inputs": in_sh, "labels": lab_sh}
+
+
+def sharded_update(optimizer, grads, opt_state, params, p_sh, o_sh, full=None):
+    """The sharded step's update from the full, averaged ``grads``: (params, opt_state), the rank's blocks.
+
+    Adam updates the rank's blocks in place, clipped by the full gradients'
+    norm; another optimizer gathers its state and updates the full
+    parameters (``full``, or gathered from ``params``) and cuts new blocks.
+    """
+    if isinstance(optimizer, Adam):
+        norm = global_norm(grads)
+        optimizer.update(shard_rules.distribute(grads, p_sh), opt_state, params, grad_norm=norm)
+        return params, opt_state
+    if full is None:
+        full = shard_rules.collect(params, p_sh)
+    full_params, full_state = optimizer.update(grads, shard_rules.collect(opt_state, o_sh), full)
+    return shard_rules.distribute(full_params, p_sh), shard_rules.distribute(full_state, o_sh)
 
 
 def make_compressed_dp_step(

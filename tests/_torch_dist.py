@@ -497,3 +497,193 @@ def _leaves(tree):
     from repro_torch.tree import leaves
 
     return [t for t in leaves(tree) if hasattr(t, "shape")]
+
+
+# ---------------------------------------------------------------------------
+# The launch tools: rank 0's counts of real steps (a gloo world) and of the dry-run's meta steps (a fake world)
+# ---------------------------------------------------------------------------
+
+LAUNCH_ARCH, LAUNCH_B, LAUNCH_S = "olmo-1b", 4, 16
+LAUNCH_GP = dict(n_train=128, n_test=32, tile_size=16, d=3)
+
+
+def launch_shapes():
+    from repro_torch.configs.base import GPShapeConfig, ShapeConfig
+
+    return (ShapeConfig("smoke_train", LAUNCH_S, LAUNCH_B, "train"),
+            GPShapeConfig("gp_launch", LAUNCH_GP["n_train"], LAUNCH_GP["n_test"], LAUNCH_GP["tile_size"]))
+
+
+def _launch_counts(m):
+    """The counts that the meta run and the real run must share, from a ``launch.analysis.Measurement``."""
+    coll = m.collectives
+    return {"flops": m.flops["aten"], "kernel_flops": m.flops["kernels"],
+            "kernel_calls": {k: v["calls"] for k, v in m.kernels.items()}, "launches": dict(m.launches),
+            "launched": dict(m.launched),
+            "collectives": (coll.ops, coll.operand_bytes, coll.wire_bytes)}
+
+
+def launch_gp_data():
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    n, nt, d = LAUNCH_GP["n_train"], LAUNCH_GP["n_test"], LAUNCH_GP["d"]
+    return (rng.standard_normal((n, d)).astype(np.float32), rng.standard_normal(n).astype(np.float32),
+            rng.standard_normal((nt, d)).astype(np.float32))
+
+
+def launch_world(rank, world):
+    """Rank 0's counts of olmo-1b's smoke Adam step and of the small GP cell on a (2, 2) mesh, run on CPU tensors;
+    and the GP probes chained over every step, against the factorization and the variances they break down."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import distributed as dgp
+    from repro_torch.core import tiling
+    from repro_torch.core.kernels_math import SEKernelParams
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch import analysis
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import Adam
+    from repro_torch.train import make_train_step
+
+    mesh = make_test_mesh((2, 2), ("data", "model"))
+    shape, gp_shape = launch_shapes()
+    cfg = configs.get_smoke_config(LAUNCH_ARCH)
+    opt = Adam(learning_rate=1e-3)
+    step, shd = make_train_step(cfg, opt, mesh, shape)
+    model = tf.init_model(cfg, 0, device="cpu")
+    tok, lab, _ = (torch.from_numpy(a) for a in lm_tokens(cfg.vocab_size))
+    blocks = sh.distribute(dict(model.named_parameters()), shd["params"])
+    state = sh.distribute(opt.init(model), shd["opt"])
+    with analysis.measure(resident=(blocks, state)) as m:
+        step(blocks, state, tok, lab)
+    out = {"lm": _launch_counts(m)}
+
+    x, y, xt = launch_gp_data()
+    mt, n, nt = gp_shape.tile_size, gp_shape.n_train, gp_shape.n_test
+    m_tiles = n // mt
+    params = SEKernelParams.paper_defaults()
+    xc, yc, xtc = (tiling.pad_features(torch.from_numpy(x), mt), tiling.pad_vector(torch.from_numpy(y), mt),
+                   tiling.pad_features(torch.from_numpy(xt), mt))
+    fn = dgp.distributed_gp_predict_fn(mesh, m_tiles=m_tiles, tile_size=mt, n_valid=n, n_test_valid=nt,
+                                       params=params)
+    with analysis.measure() as g:
+        mean, var = fn(xc, yc, xtc)
+    out["gp"] = _launch_counts(g)
+
+    # the probes: every step chained, against distributed_cholesky_fn and the variances of the prediction
+    local = dgp.local_covariance(mesh, xc, params, n)
+    chol = dgp.cholesky_step_probe_fn(mesh, m_tiles=m_tiles)
+    chained = local
+    for j in range(m_tiles):
+        chained = chol(chained, j)
+    factor = dgp.distributed_cholesky_fn(mesh, m_tiles=m_tiles)(local)
+    out["chol_probe_bitwise"] = torch.equal(chained, factor)
+    p, q = dgp.grid_shape(mesh)
+    out["factor"] = dgp.collect_blocks(factor, mesh).numpy()  # every rank gathers
+    pc, mtq = coll.linear_index(mesh, ("model",)), xtc.shape[0] // q
+    ti = torch.arange(m_tiles).repeat_interleave(mtq)
+    tc = torch.arange(pc * mtq, (pc + 1) * mtq).repeat(m_tiles)
+    b = ops.cov_tiles(xc.index_select(0, ti), xtc.index_select(0, tc), ti * mt, tc * mt, n, nt, params,
+                      symmetric=False).view(m_tiles, mtq, mt, mt)
+    var_step = dgp.variance_step_probe_fn(mesh, m_tiles=m_tiles)
+    for j in range(m_tiles):
+        b = var_step(factor, b, j)
+    w_diag = torch.einsum("iqab,iqab->qb", b, b)
+    out["var_probe_err"] = float((params.vertical - w_diag - var[pc * mtq:(pc + 1) * mtq]).abs().max())
+    out["grid"] = (p, q)
+    out["var"] = var.numpy()
+    return out
+
+
+def launch_meta():
+    """The dry-run's side, as rank 0 of a fake world of 8 ranks: the same two cells on meta tensors on a (2, 2)
+    mesh of its first four ranks, the LM probes beside the full step, and the bytes a rank holds of each smoke
+    model on a (4, 2) mesh."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch import analysis, dryrun
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim import Adam
+
+    dryrun.init_world(8)
+    mesh = make_test_mesh((2, 2), ("data", "model"), device_type="cpu")
+    shape, gp_shape = launch_shapes()
+    cfg = configs.get_smoke_config(LAUNCH_ARCH)
+    out = {}
+    fn, *args = dryrun.lm_step(cfg, shape, mesh, Adam(learning_rate=1e-3))
+    with analysis.measure() as m:
+        fn(*args)
+    out["lm"] = _launch_counts(m)
+    fn, *args = dryrun.gp_predict(gp_shape, mesh, ("data",), ("model",), d_feat=LAUNCH_GP["d"])
+    with analysis.measure() as g:
+        fn(*args)
+    out["gp"] = _launch_counts(g)
+    # the probes' sum against the full step, each shape kind
+    probes = {}
+    for kind in ("train", "prefill", "decode"):
+        cell = shape.__class__(f"smoke_{kind}", LAUNCH_S, LAUNCH_B, kind)
+        opt = Adam(learning_rate=1e-3) if kind == "train" else None
+        fn, *args = dryrun.lm_step(cfg, cell, mesh, opt)
+        with analysis.measure() as full:
+            fn(*args)
+        parts = {}
+        for name, make in (("cycle", sp.cycle_probe), ("head", sp.head_probe)):
+            pfn, pargs, _, trips = make(cfg, cell, mesh)
+            with analysis.measure() as pm:
+                pfn(*pargs)
+            parts[name] = (analysis.cost_summary(pm)["flops"], pm.collectives.total_wire_bytes, trips)
+        if kind == "train":
+            pfn, pargs, _, trips = sp.optimizer_probe(cfg, opt, mesh)
+            with analysis.measure() as pm:
+                pfn(*pargs)
+            parts["optimizer"] = (analysis.cost_summary(pm)["flops"], pm.collectives.total_wire_bytes, trips)
+        probes[kind] = {"full": (analysis.cost_summary(full)["flops"], full.collectives.total_wire_bytes),
+                        "parts": parts}
+    out["probes"] = probes
+    grid = make_test_mesh((4, 2), ("data", "model"), device_type="cpu")
+    out["bytes"] = {}
+    for arch in configs.ARCH_IDS:
+        model = sp.params_shape(configs.get_smoke_config(arch))
+        blocks = sp.rank_blocks(dict(model.named_parameters()), sh.param_shardings(model, grid))
+        out["bytes"][arch] = sum(t.numel() * t.element_size() for t in blocks.values())
+    out["world"] = torch.distributed.get_world_size()
+    return out
+
+
+def run_in_subprocess(fn_name: str, timeout: float = 300.0):
+    """Start ``fn_name()`` of this module in a fresh interpreter (a world of its own): a handle whose ``result()``
+    waits for it and returns what it returned."""
+    import subprocess
+    import sys
+
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "out.pt")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([os.path.join(here, "..", "src"), here, env.get("PYTHONPATH", "")])
+    code = (f"import torch, _torch_dist; torch.set_num_threads(1); "
+            f"torch.save(_torch_dist.{fn_name}(), {path!r})")
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+    class Handle:
+        def result(self):
+            try:
+                _, err = proc.communicate(timeout=timeout)
+                if proc.returncode != 0:
+                    raise AssertionError(f"{fn_name} failed (rc={proc.returncode}):\n{err[-4000:]}")
+                return torch.load(path, weights_only=False)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                tmp.cleanup()
+
+    return Handle()

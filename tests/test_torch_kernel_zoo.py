@@ -395,3 +395,20 @@ def test_dense_assembly_with_padding_matches_reference(name, rng):
                 rtol=0, atol=1e-5)
     k64 = tkm.assemble_covariance(xc, pt, kernel=kern_t, dtype=torch.float64)
     assert k64.dtype == torch.float64 and tkm.assemble_covariance(xc.double(), pt, kernel=kern_t).dtype == torch.float32
+
+
+@pytest.mark.parametrize("diag_offset", [None, 0, 5, -3])
+def test_se_kernel_matches_reference(diag_offset):
+    """The dense SE block, with the noise on the global diagonal at ``diag_offset``, against the reference's."""
+    rng = np.random.default_rng(7)
+    x1 = rng.standard_normal((12, 3)).astype(np.float32)
+    x2 = rng.standard_normal((9, 3)).astype(np.float32)
+    jp, tp = jkm.SEKernelParams(0.8, 1.3, 0.2), tkm.SEKernelParams(0.8, 1.3, 0.2)
+    want = np.asarray(jkm.se_kernel(jnp.asarray(x1), jnp.asarray(x2), jp, diag_offset=diag_offset))
+    got = tkm.se_kernel(torch.from_numpy(x1), torch.from_numpy(x2), tp, diag_offset=diag_offset)
+    assert got.dtype == torch.float32 and got.shape == (12, 9)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+    if diag_offset is not None:  # the noise lands on i + offset == j only
+        plain = tkm.se_kernel(torch.from_numpy(x1), torch.from_numpy(x2), tp).numpy()
+        i, j = np.nonzero(np.abs(got.numpy() - plain) > 1e-7)
+        assert (i + diag_offset == j).all() and len(i) == sum(0 <= r + diag_offset < 9 for r in range(12))

@@ -172,3 +172,56 @@ def test_default_device_is_cuda_and_never_falls_back(case):
         GaussianProcess(case["x"], case["y"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pred.predict_fused(case["x"], case["y"], case["xt"], SEKernelParams(), M)
+
+
+@pytest.mark.parametrize("full_cov", [False, True])
+def test_predict_from_state_dtype_float64_from_a_float32_state(case, full_cov):
+    """``dtype=torch.float64`` on a float32 state pads the test points in float64 and runs the tail there, the state
+    cast up; ``dtype=None`` follows the state.  The mean against the reference's ``dtype=jnp.float64`` (x64 on) at
+    1e-6: the reference rounds inside its tail to ~1e-7 (8e-8 off a numpy float64 sum).  The reference's full
+    covariance at float64 from a float32 state raises in its triangular solve (float32 factor, float64 right-hand
+    sides), so both results are also held to numpy float64 on the state's own factor, at 1e-10."""
+    import jax
+    import jax.numpy as jnp
+    import scipy.linalg
+
+    from repro.core import SEKernelParams as JaxParams
+    from repro.core import predict as jpred
+    from repro_torch.core import tiling
+
+    s = case["state"]
+    state = convert.posterior_state_from_numpy(
+        s["lpacked"], s["alpha"], s["x_chunks"], s["n"], s["m"], convert.params_from_numpy(*s["params"]),
+        s["beta"], s["y_chunks"], device=CPU,
+    )
+    xt = case["xt"].astype(np.float64) * 1.000001  # test points that float32 cannot hold
+    assert pred.predict_from_state(state, xt, full_cov=full_cov, dtype=None)[0].dtype == torch.float32
+    got = pred.predict_from_state(state, xt, full_cov=full_cov, dtype=torch.float64)
+    got = got if full_cov else (got,)
+    assert all(g.dtype == torch.float64 for g in got)
+    jax.config.update("jax_enable_x64", True)
+    try:
+        jst = jpred.PosteriorState(
+            lpacked=jnp.asarray(s["lpacked"]), alpha=jnp.asarray(s["alpha"]), x_chunks=jnp.asarray(s["x_chunks"]),
+            n=s["n"], m=s["m"], params=JaxParams(*(float(v) for v in s["params"])),
+        )
+        if full_cov:
+            with pytest.raises(TypeError, match="same dtypes"):
+                jpred.predict_from_state(jst, jnp.asarray(xt), full_cov=True, dtype=jnp.float64)
+        want = np.asarray(jpred.predict_from_state(jst, jnp.asarray(xt), dtype=jnp.float64))
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    assert want.dtype == np.float64
+    np.testing.assert_allclose(got[0].numpy(), want, atol=1e-6)
+    lengthscale, vertical = (float(v) for v in s["params"][:2])
+
+    def se(a, b):
+        return vertical * np.exp(-0.5 / lengthscale * ((a[:, None, :] - b[None]) ** 2).sum(-1))
+
+    xc = s["x_chunks"].reshape(-1, s["x_chunks"].shape[-1]).astype(np.float64)
+    np.testing.assert_allclose(got[0].numpy(), se(xt, xc) @ s["alpha"].reshape(-1).astype(np.float64),
+                               rtol=0, atol=1e-10)
+    if full_cov:
+        lower = np.tril(tiling.unpack_lower(torch.from_numpy(s["lpacked"])).double().numpy())
+        v = scipy.linalg.solve_triangular(lower, se(xc, xt), lower=True)
+        np.testing.assert_allclose(got[1].numpy(), se(xt, xt) - v.T @ v, rtol=0, atol=1e-10)

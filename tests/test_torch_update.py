@@ -473,3 +473,51 @@ def test_gp_forget_unaligned_falls_back(rng):
     gp.forget(16)  # aligned, on a warm cache: the rank-update sweep
     assert gp._cache_warm()
     np.testing.assert_allclose(gp.predict(xt).numpy(), _jax_mean(x[26:], y[26:], xt), atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# check_finite: the updates' one host read, and what skipping it returns
+# ---------------------------------------------------------------------------
+
+
+def _non_finite_case(rng, which):
+    """(port call, reference call) of one update entry point on an input that makes its result non-finite."""
+    m = 16
+    if which in ("update", "downdate"):
+        n = 48
+        _, lp = _spd_factor(rng, n, m)
+        w = rng.standard_normal((n // m, m, m)).astype(np.float32) * 0.1
+        w[1, 3, 2] = np.nan
+        port, ref = getattr(tupd, f"{which}_factor"), getattr(jupd, f"{which}_factor")
+        return (lambda **kw: port(T(lp), T(w), device=CPU, **kw),
+                lambda **kw: ref(jnp.asarray(lp), jnp.asarray(w), **kw))
+    x, y = _data(rng, 40)
+    if which == "extend":
+        y[36] = np.nan
+        js = _jax_state(x[:32], y[:32], m)
+        return (lambda **kw: tupd.extend_state(_to_port(js), x[32:], y[32:], **kw),
+                lambda **kw: jupd.extend_state(js, jnp.asarray(x[32:]), jnp.asarray(y[32:]), **kw))
+    y[20] = np.nan  # shrink: a NaN in a kept row's target
+    js = _jax_state(x, y, m)
+    return (lambda **kw: tupd.shrink_state(_to_port(js), 16, **kw),
+            lambda **kw: jupd.shrink_state(js, 16, **kw))
+
+
+def _result_arrays(out):
+    if isinstance(out, (torch.Tensor, jnp.ndarray)):
+        return [np.asarray(out)]
+    return [np.asarray(out.lpacked), np.asarray(out.alpha)]
+
+
+@pytest.mark.parametrize("which", ["extend", "shrink", "update", "downdate"])
+def test_check_finite_raises_or_returns_the_reference_result(rng, which):
+    port, ref = _non_finite_case(rng, which)
+    with pytest.raises(tupd.CholeskyUpdateError, match="non-finite"):
+        port()
+    with pytest.raises(jupd.CholeskyUpdateError):
+        ref()
+    got, want = _result_arrays(port(check_finite=False)), _result_arrays(ref(check_finite=False))
+    assert not all(np.isfinite(a).all() for a in got)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(np.isfinite(a), np.isfinite(b))
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-4, equal_nan=True)

@@ -249,6 +249,33 @@ Run from the root of a checkout:  python3 chip_smoke.py
             launch.total against its 90 s budget.
             ``--only-launch`` runs env, build, the multi-device phases and
             these alone.
+19. examples  the five entry points a user runs (examples_torch/), through
+            their own functions with the arguments their command lines and
+            docstrings give, launches counted by example:
+            examples.gp_system_identification at gp_16k (n 16384, tile 512,
+            n̂ 512) on the MSD data, mean and variance by the GP accuracy
+            rule and the tiled mean against the monolithic one it prints;
+            examples.quickstart and examples.composite_workload at their
+            defaults, the untrained predictions by the same rule and the
+            trained parameters within 2e-2 of the same run on the CPU;
+            examples.serve_gp.{single,fleet,online,ragged} at the sizes of
+            the example's docstring (ragged also with --metrics), p50/p99
+            and req/s, each mode's served predictions of one batch bitwise
+            against a synchronous call on the same state;
+            examples.train_lm: olmo-1b at full width, 3 steps of 8 x 128,
+            losses, median step and peak memory; examples.train_lm.resume:
+            the command line at --size 100m killed (SIGKILL) after its log
+            line at step 10 (checkpoints every 4, run beside the MSD data),
+            rerun: resumed from the last saved step, its losses within 1e-5
+            of an uninterrupted run's; examples.total against its 120 s
+            budget;
+20. train.kinv  K^-1 of gp_16k's first matern52 training step by
+            triangular.kinv_tiles_from_factor (the reference's route) beside
+            torch.cholesky_inverse (the port's): CUDA-event times, each
+            route's error against a float64 cholesky_inverse of the same
+            factor, and the blocked rule's gradient from each, per component
+            against float64 dense autograd (reported; neither must win).
+            ``--only-examples`` runs env, build and phases 19-20 alone.
 
 Every phase prints one JSON line.  The kernels' summary, the nvidia-smi line
 and, last, ``{"ok": true, "device": {...}}`` follow.  Any failed check exits
@@ -5454,6 +5481,289 @@ def phase_launch(dev):
     check(seconds <= LAUNCH_BUDGET_S, f"the launch phases took {seconds} s of {LAUNCH_BUDGET_S}")
 
 
+# ---------------------------------------------------------------------------
+# The examples: the five entry points a user runs (examples_torch/), on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES_BUDGET_S = 120.0     # the examples phases' share of the script's wall time
+EXAMPLES_SYSID = dict(n=N_TRAIN, n_test=512, tile=TILE)  # gp_16k's n and tile; the example's default n_test
+# serve_gp's modes at its docstring's sizes (examples/serve_gp.py:31-34); the ragged run also writes --metrics
+EXAMPLES_SERVE = {"single": dict(), "fleet": dict(fleet=8, n=512), "online": dict(online=True, n=1024, arrive=32),
+                  "ragged": dict(ragged=12, n=512, tile=64)}
+EXAMPLES_LM = dict(arch="olmo-1b", size="full", steps=3, batch=8, seq=128)
+# the resume: train_lm.py at --size 100m killed after its log line at step 10, then the same command again
+EXAMPLES_RESUME = dict(arch="olmo-1b", size="100m", steps=12, ckpt_every=4)
+EXAMPLES_KILL_AT = 10
+EXAMPLES_PARAM_RTOL = 2e-2    # trained hyperparameters, card against CPU (the train phase's parameter rule)
+EXAMPLES_RESUME_RTOL = 1e-5   # PERF.md section 2's resume rule
+
+
+def example_modules():
+    sys.path.insert(0, str(ROOT))
+    from examples_torch import composite_workload, gp_system_identification, quickstart, serve_gp, train_lm
+
+    return quickstart, gp_system_identification, serve_gp, composite_workload, train_lm
+
+
+def start_killed_train_lm(ckpt_dir, dev):
+    """``examples_torch/train_lm.py`` at EXAMPLES_RESUME as a user starts it, killed (SIGKILL) after its log line at
+    step EXAMPLES_KILL_AT; returns (process, watcher thread, the lines it printed)."""
+    import os
+    import signal
+    import threading
+
+    r = EXAMPLES_RESUME
+    cmd = [sys.executable, "-u", str(ROOT / "examples_torch" / "train_lm.py"), "--arch", r["arch"], "--size",
+           r["size"], "--steps", str(r["steps"]), "--ckpt-every", str(r["ckpt_every"]), "--ckpt-dir", ckpt_dir,
+           "--device", str(dev)]
+    env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+
+    def watch():
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if line.startswith(f"[trainer] step {EXAMPLES_KILL_AT}/"):
+                proc.send_signal(signal.SIGKILL)
+                break
+        proc.stdout.close()
+
+    thread = threading.Thread(target=watch, daemon=True)
+    thread.start()
+    return proc, thread, lines
+
+
+def gp_accuracy(phase, mean, var, x_train, y_train, x_test, dev, kernel=None):
+    """PERF.md section 2's GP accuracy rule: (fields, ok) of ``mean``/``var`` against a float64 dense solve, the
+    bound from the float32 dense pipeline's error on the same inputs."""
+    from repro_torch.core import GaussianProcess
+
+    mean_ref, var_ref = dense_reference(x_train, y_train, x_test, dev, kernel=kernel)
+    mono = GaussianProcess(x_train, y_train, pipeline="monolithic", kernel=kernel, device=dev)
+    mean_d, var_d = mono.predict_with_uncertainty(x_test)
+    e, dense, mean_bound, var_bound = accuracy_bounds(mean_ref, var_ref, mean_d, var_d)
+    out = dict(mean_err=e(mean, mean_ref), var_err=e(var, var_ref), mean_bound=mean_bound, var_bound=var_bound,
+               **dense)
+    check(bool(torch.isfinite(mean).all() and torch.isfinite(var).all()), f"{phase}: non-finite predictions")
+    return out, out["mean_err"] <= mean_bound and out["var_err"] <= var_bound
+
+
+def _leaves(params):
+    from repro_torch.core import kernels_math as km
+
+    return [float(v) for v in km.tree_leaves(params)]
+
+
+def phase_examples(dev, smi):
+    """The five examples through their own functions, as their command lines run them; launches by example.
+
+    examples.gp_system_identification at gp_16k on the MSD data, examples.quickstart and
+    examples.composite_workload at their defaults (trained parameters against the same run on the CPU),
+    examples.serve_gp in four modes, examples.train_lm (olmo-1b at full width; a killed and rerun command line
+    at --size 100m against an uninterrupted run), examples.total against EXAMPLES_BUDGET_S.
+    """
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.core import Matern52, Scaled, Sum, White
+    from repro_torch.core import predict as pred
+    from repro_torch.core.gp import ieee_float32_matmul
+    from repro_torch.data.msd import MSDConfig, make_dataset
+    from repro_torch.kernels import ops
+
+    quickstart, sysid, serve_gp, composite, train_lm = example_modules()
+    t0 = time.perf_counter()
+    launches, by_example = dict(NO_LAUNCHES), {}
+
+    def counted(name, fn):
+        ops.reset_launch_counts()
+        out, seconds = wall_s(fn)
+        by_example[name] = ops.launch_counts()
+        for k, v in by_example[name].items():
+            launches[k] = launches.get(k, 0) + v
+        return out, seconds
+
+    tmp = tempfile.mkdtemp(prefix="examples_")
+    try:
+        # the command line to be killed runs while this process makes the MSD data (host work)
+        ckpt = str(Path(tmp) / "ckpt")
+        proc, watcher, child_lines = start_killed_train_lm(ckpt, dev)
+        s = EXAMPLES_SYSID
+        data, t_data = wall_s(lambda: make_dataset(s["n"], s["n_test"], MSDConfig(), seed=0))
+        watcher.join(timeout=300)
+        proc.wait(timeout=60)
+        killed_rc = proc.returncode
+
+        # the paper's use case at gp_16k
+        log = []
+        out, seconds = counted("gp_system_identification", lambda: sysid.run(dev, data=data, log=log.append, **s))
+        acc, ok = gp_accuracy("examples.gp_system_identification", out["mean"], out["var"], *data[:3], dev)
+        mono_bound = acc["mean_bound"] + acc["mean_err_dense_f32"]
+        emit("examples.gp_system_identification", config="gp_16k (src/repro/configs/gp_msd.py:11) on the MSD "
+             "data (repro_torch.data.msd.make_dataset, seed 0)", **s, printed=log, seconds=seconds,
+             data_seconds=t_data, predict_seconds=out["seconds"], r2=out["r2"], coverage=out["coverage"],
+             max_tiled_vs_monolithic=out["max_tiled_vs_monolithic"], tiled_vs_monolithic_bound=mono_bound,
+             launches=by_example["gp_system_identification"], **acc, card=smi, rule=BOUND_RULE)
+        check(ok, f"examples.gp_system_identification: errors {acc} above the rule's bounds")
+        check(out["max_tiled_vs_monolithic"] <= mono_bound, f"examples.gp_system_identification: tiled against "
+              f"monolithic {out['max_tiled_vs_monolithic']} above {mono_bound}")
+        del data, out
+
+        # quickstart and composite_workload at their defaults, trained parameters against the CPU's
+        for name, mod, kernel, cpu_kw in (("quickstart", quickstart, None, dict(n_big=512)),
+                                          ("composite_workload", composite, Sum(Scaled(Matern52()), White()), {})):
+            log = []
+            out, seconds = counted(name, lambda: mod.run(dev, log=log.append))
+            acc, ok = gp_accuracy(f"examples.{name}", out["mean"], out["var"], out["x_train"], out["y_train"],
+                                  out["x_test"], dev, kernel=kernel)
+            cpu, t_cpu = wall_s(lambda: mod.run("cpu", log=[].append, **cpu_kw))
+            got, want = _leaves(out["params"]), _leaves(cpu["params"])
+            extra = {k: out[k] for k in ("warm", "cold", "dispatches", "health", "cache_stats") if k in out}
+            emit(f"examples.{name}", printed=log, seconds=seconds, build_seconds=out["build_s"],
+                 launches=by_example[name], untrained=acc, params=got, params_cpu=want, cpu_seconds=t_cpu,
+                 cpu_run=cpu_kw or "the same defaults", **extra, card=smi,
+                 rule=f"untrained mean and variance: {BOUND_RULE}; trained parameters within rtol "
+                      f"{EXAMPLES_PARAM_RTOL} of the same run on the CPU")
+            check(ok, f"examples.{name}: untrained errors {acc} above the rule's bounds")
+            check(_rel_close(got, want, EXAMPLES_PARAM_RTOL), f"examples.{name}: trained params {got} against the "
+                  f"CPU's {want}")
+            del out, cpu
+
+        # serve_gp in its four modes; each mode's served predictions of one batch against a synchronous call
+        metrics = str(Path(tmp) / "metrics.jsonl")
+        for mode, kw in EXAMPLES_SERVE.items():
+            log = []
+            kw = dict(kw, metrics=metrics) if mode == "ragged" else kw
+            out, seconds = counted(f"serve_gp.{mode}", lambda: serve_gp.run(dev, log=log.append, **kw))
+            if mode == "single":
+                same = torch.equal(out["served"], out["gp"].predict(out["probe"]))
+            elif mode == "fleet":
+                same = torch.equal(out["served"], out["fleet"].predict(out["probe"]))
+            elif mode == "online":
+                gp = out["gp"]
+                with ieee_float32_matmul(dev):
+                    same = torch.equal(gp.predict(out["probe"]), pred.predict_from_state(gp.posterior(), out["probe"]))
+            else:
+                probes = [out["probe"][i] for i in sorted(out["probe"])]
+                again = out["fleet"].predict_each(probes)
+                same = all(torch.equal(out["served"][i], again[i].cpu()) for i in sorted(out["probe"]))
+            fields = {k: v for k, v in out.items() if isinstance(v, (int, float, str, list, dict))
+                      and k not in ("latencies_s", "probe", "served", "sizes")}
+            if mode == "ragged":
+                with open(metrics) as f:
+                    fields["metrics_lines"] = sum(1 for _ in f)
+            emit(f"examples.serve_gp.{mode}", args=kw, printed=log, seconds=seconds, **fields,
+                 launches=by_example[f"serve_gp.{mode}"], bitwise_vs_synchronous=same, card=smi,
+                 note="latencies on the host clock, each batch ending in torch.cuda.synchronize(); the first batch "
+                      "dropped, as the example drops it")
+            check(same, f"examples.serve_gp.{mode}: served predictions differ from a synchronous call on the state")
+            if mode == "ragged":
+                check(fields["metrics_lines"] > 0, "examples.serve_gp.ragged: no telemetry written")
+            del out
+            torch.cuda.empty_cache()
+
+        # train_lm: olmo-1b at full width, then the killed command line rerun against an uninterrupted run
+        log = []
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        lm = EXAMPLES_LM
+        out, seconds = counted("train_lm", lambda: train_lm.run(lm["arch"], lm["size"], device=dev, log=log.append,
+                                                                **{k: lm[k] for k in ("steps", "batch", "seq")}))
+        peak = torch.cuda.max_memory_allocated() - base
+        losses, median = out["losses"], out["median_step_s"]
+        del out
+        torch.cuda.empty_cache()
+        emit("examples.train_lm", args=lm, printed=log, seconds=seconds, losses=losses, median_step_s=median,
+             peak_memory_gib=peak / 2**30, launches=by_example["train_lm"], card=smi)
+        check(len(losses) == lm["steps"] and all(math.isfinite(v) for v in losses),
+              f"examples.train_lm: losses {losses}")
+        saved = CheckpointManager(ckpt).latest_step()
+        r = EXAMPLES_RESUME
+        kw = dict(steps=r["steps"], device=dev, log=[].append)
+        again, t_again = wall_s(lambda: train_lm.run(r["arch"], r["size"], ckpt_dir=ckpt,
+                                                     ckpt_every=r["ckpt_every"], **kw))
+        whole, t_whole = wall_s(lambda: train_lm.run(r["arch"], r["size"], **kw))
+        k = r["steps"] - (saved or 0)
+        got, want = again["losses"][:k], whole["losses"][saved or 0:]
+        rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+        emit("examples.train_lm.resume", args=dict(r, ckpt_dir="<tmp>"), killed_at_log_of_step=EXAMPLES_KILL_AT,
+             killed_returncode=killed_rc, killed_printed=child_lines, last_saved=saved,
+             resumed_from=again["resumed_from"], resumed_losses=got, uninterrupted_losses=want, rel_diff=rel,
+             bitwise=got == want, seconds={"rerun": t_again, "uninterrupted": t_whole}, card=smi,
+             rule=f"resumed from the last saved step; its losses within {EXAMPLES_RESUME_RTOL} relative of the "
+                  "uninterrupted run's at the same steps")
+        check(killed_rc == -9 and saved is not None, f"examples.train_lm.resume: the command line ended with "
+              f"{killed_rc}, last checkpoint {saved}: {child_lines[-5:]}")
+        check(again["resumed_from"] == saved, f"examples.train_lm.resume: resumed from {again['resumed_from']}, "
+              f"not {saved}")
+        check(len(got) == k and all(v <= EXAMPLES_RESUME_RTOL for v in rel),
+              f"examples.train_lm.resume: resumed losses {got} against {want}")
+        del again, whole
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    emit("examples.total", seconds=seconds, budget_s=EXAMPLES_BUDGET_S, launches=launches, by_example=by_example,
+         card=smi, note="the examples' functions with their default or documented arguments, the checks' CPU runs "
+         "and float64 references included")
+    check(seconds <= EXAMPLES_BUDGET_S, f"the examples took {seconds} s of {EXAMPLES_BUDGET_S}")
+    return launches
+
+
+def phase_train_kinv(x_train, y_train, dev, smi):
+    """train.kinv: K^-1 of gp_16k's first matern52 training step (paper-default params) by the reference's route,
+    ``triangular.kinv_tiles_from_factor`` (a tiled matrix solve on identity tiles, then the tiled gram), beside the
+    port's ``torch.cholesky_inverse`` of the unpacked factor: each route's time, its error against a float64
+    ``cholesky_inverse`` of the same factor, and the gradient the blocked rule takes from it, each component
+    against float64 dense autograd.  Neither route is chosen here."""
+    from repro_torch.core import mll, tiling, triangular
+    from repro_torch.core import kernels_math as km
+    from repro_torch.kernels import ops
+
+    kern = km.Matern52()
+    p0 = km.SEKernelParams.paper_defaults()
+    cfg = mll._Config(TILE, None, None, torch.float32, kern, dev)
+    x, y = (torch.as_tensor(a, device=dev) for a in (x_train, y_train))
+    n = y.shape[0]
+    torch.cuda.empty_cache()
+    _, (lpacked, alpha_c) = mll._nlml_forward(cfg, x, y, p0)
+    routes = {
+        "kinv_tiles_from_factor": lambda: tiling.untile_dense(triangular.kinv_tiles_from_factor(lpacked))[:n, :n],
+        "cholesky_inverse": lambda: torch.cholesky_inverse(tiling.unpack_lower(lpacked)[:n, :n]),
+    }
+    k64 = torch.cholesky_inverse(tiling.unpack_lower(lpacked).double()[:n, :n])
+    names = ["lengthscale", "vertical", "noise"]
+    (v64, g64), (vd, gd) = [value_and_grads(lambda p, d_: mll.negative_log_marginal_likelihood(
+        x_train, y_train, p, dtype=d_, kernel=kern, device=dev), p0, dt, dev) for dt in (torch.float64, torch.float32)]
+    torch.cuda.empty_cache()
+    res = {}
+    for name, fn in routes.items():
+        ops.reset_launch_counts()
+        kinv = fn()
+        launched = ops.launch_counts()
+        ms = cuda_ms(fn, reps=3)
+        err = max_err(kinv, k64)
+        g = mll._nlml_dense_grads(kern, mll._cast(p0, torch.float32, dev), x, alpha_c.reshape(-1)[:n], kinv)[2]
+        g = [float(v) for v in km.tree_leaves(g)]
+        del kinv
+        torch.cuda.empty_cache()
+        errs, bnd, ok = grad_rule(g, g64, gd, 1e-3)
+        res[name] = dict(ms=ms, max_abs_err_vs_float64=err, max_abs_float64=float(k64.abs().max()), grad=g,
+                         grad_abs_err=errs, grad_rel_err=[e / abs(b) for e, b in zip(errs, g64)], grad_bound=bnd,
+                         meets_grad_rule=ok, launches=launched)
+        check(math.isfinite(err) and all(math.isfinite(v) for v in g), f"train.kinv: {name} is not finite")
+    del k64
+    torch.cuda.empty_cache()
+    emit("train.kinv", config="gp_16k", kernel="matern52", params=dict(zip(names, _leaves(p0))), n=n, tile=TILE,
+         routes=res, grad_float64_dense=dict(zip(names, g64)), grad_float32_dense=dict(zip(names, gd)),
+         vertical_rel_err={k: r["grad_rel_err"][1] for k, r in res.items()}, card=smi,
+         rule=GRAD_RULE.format("1e-3") + "; reported for both routes, neither required to win",
+         note="ms: CUDA events over 3 calls after one warm call, unpacking or untiling included; the gradient is "
+              "mll._nlml_dense_grads with each route's K^-1; the training backward takes cholesky_inverse")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA card")
@@ -5467,6 +5777,12 @@ def main() -> None:
     t_start = time.perf_counter()
     smi = phase_env()
     phase_build()
+    if sys.argv[1:] == ["--only-examples"]:  # the examples and train.kinv alone; no contract line
+        phase_examples(dev, smi)
+        x_train, y_train, _, _ = make_data(N_TRAIN, 1, N_FEATURES, SEED)
+        phase_train_kinv(x_train, y_train, dev, smi)
+        emit("total", seconds=time.perf_counter() - t_start, note="--only-examples")
+        return
     # multi-device first, while this process holds nothing on the card: gp_dist_32k's block-cyclic Cholesky and
     # prediction on a 2 x 2 grid of ranks, then sharded fleets
     launches_dist, errs_dist = phase_multi(dev)
@@ -5588,6 +5904,9 @@ def main() -> None:
     launches_arch = phase_lm_arch(dev)
     # the launch tools: the dry-run of production cells on fake worlds, its count held against the card
     phase_launch(dev)
+    # the examples: the five entry points a user runs, then K^-1 of a training step by both routes at gp_16k
+    launches_examples = phase_examples(dev, smi)
+    phase_train_kinv(x_train, y_train, dev, smi)
 
     # launches: each kernel's count on the path it came with (main, update, lowrank, lm)
     path_of = {name: "main" for name in MAIN_KERNELS}
@@ -5600,7 +5919,7 @@ def main() -> None:
                "zoo": launches_zoo, "train": launches_train, "train_lowrank": launches_train_lowrank,
                "fleet": launches_fleet, "fleet_ragged": launches_ragged,
                "fleet_ragged_lowrank": launches_ragged_lowrank,
-               "dist": {k: launches_dist.get(k, 0) for k in NO_LAUNCHES}}
+               "dist": {k: launches_dist.get(k, 0) for k in NO_LAUNCHES}, "examples": launches_examples}
     kernels = [
         {"name": name, "launches": by_path[path_of[name]][name], **row,
          "launches_by_path": {path: counts[name] for path, counts in by_path.items()},

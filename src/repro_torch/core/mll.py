@@ -105,11 +105,12 @@ def nlml_from_state(state, y, *, dtype=None, n_valid=None) -> torch.Tensor:
 # Backward (vjp="custom"): the closed form dNLML/dK = 0.5 (K^{-1} - alpha
 # alpha^T) =: S.  The O(n^3) piece is K^{-1} = L^{-T} L^{-1}, from the tiled
 # factor unpacked, by torch.cholesky_inverse.  The reference takes it by one
-# tiled matrix solve on identity tiles and a tiled gram; in float32 that
-# route's rounding is coherent enough to move the vertical scale's component
-# by ~1e-3 of its size at n = 16384 (on an H100: 9.5e-4, against 2.9e-6 for
-# cholesky_inverse, which also took 0.21 s against 0.35).  The O(n^2)
-# contraction of S with dK/dtheta is the kernel's kfree_vjp, and
+# tiled matrix solve on identity tiles and a tiled gram
+# (triangular.kinv_tiles_from_factor); in float32 that route's rounding is
+# coherent enough to move the vertical scale's component by ~1e-3 of its
+# size at n = 16384 (chip_smoke.py's train.kinv on an H100: 9.4e-4, against
+# 2.7e-6 for cholesky_inverse, which also takes 0.21 s against 0.35).  The
+# O(n^2) contraction of S with dK/dtheta is the kernel's kfree_vjp, and
 # dK/dsigma^2 = I adds tr(S) to the noise leaf; dNLML/dy = alpha.  The
 # padded block of K is a constant identity, so everything is taken on the
 # unpadded n x n region.

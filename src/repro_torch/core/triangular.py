@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import executor, tiling
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
 
@@ -75,6 +76,38 @@ def tiled_gram(v_tiles: torch.Tensor) -> torch.Tensor:
     B problems' grams are taken as :func:`executor.matrix_product` takes them.
     """
     return executor.matrix_product("ipab,iqac->pqbc", v_tiles, v_tiles, v_tiles.ndim == 5)
+
+
+def identity_tiles(m_tiles: int, m: int, dtype=torch.float32, *, device="cuda") -> torch.Tensor:
+    """Identity matrix as an (M, M, m, m) tile grid (matrix-solve RHS layout)."""
+    dev = resolve_device(device)
+    eye = torch.eye(m, dtype=dtype, device=dev)
+    block_diag = torch.eye(m_tiles, dtype=dtype, device=dev)[:, :, None, None]
+    return block_diag * eye[None, None]
+
+
+def kinv_tiles_from_factor(
+    lpacked: torch.Tensor, *, n_streams: Optional[int] = None, device=None
+) -> torch.Tensor:
+    """K^{-1} tile grid ((B,) M, M, m, m) from the packed Cholesky factor ((B,) T, m, m).
+
+    The reference's blocked reverse-mode building block: ``L Z = I`` by the
+    tiled matrix solve on identity tiles, then ``K^{-1} = Z^T Z`` by the
+    tiled gram.  As in the reference, the matrix solve's diagonal tiles go
+    through a triangular solve and its updates and the gram through matrix
+    products (:func:`executor.run_solve`): no tile kernel.  Identity padding
+    makes the padded diagonal block of K^{-1} identity, which callers slice
+    away.  ``device`` defaults to the factor's.  The port's training
+    backward takes ``torch.cholesky_inverse`` instead (:mod:`.mll`).
+    """
+    dev = lpacked.device if device is None else resolve_device(device)
+    m_tiles = executor.m_tiles_of_packed(lpacked)
+    m = lpacked.shape[-1]
+    eye = identity_tiles(m_tiles, m, lpacked.dtype, device=dev)
+    if lpacked.ndim == 4:  # problem-batched factor: one RHS per problem
+        eye = eye.expand((lpacked.shape[0],) + eye.shape).contiguous()
+    z = forward_substitution_matrix(lpacked, eye, n_streams=n_streams, device=dev)
+    return tiled_gram(z)
 
 
 def packed_matvec(

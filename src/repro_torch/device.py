@@ -21,3 +21,13 @@ def resolve_device(device="cuda") -> torch.device:
         )
     return dev
 
+
+
+def synchronize(device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the CPU).
+
+    A host clock read after it times the card's work, not the launches.
+    """
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

@@ -209,8 +209,9 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:\.|\s|$)", re.M)
 
 def test_port_imports_neither_jax_nor_repro():
     root = Path(__file__).resolve().parents[1]
-    files = sorted((root / "src" / "repro_torch").rglob("*.py")) + [root / "chip_smoke.py"]
-    assert len(files) > 15
+    files = (sorted((root / "src" / "repro_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+             + sorted((root / "examples_torch").glob("*.py")))
+    assert len(files) > 15 and sum(f.parent.name == "examples_torch" for f in files) == 5
     offenders = {
         str(f.relative_to(root)): _IMPORT.findall(f.read_text())
         for f in files
@@ -229,12 +230,15 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for name in names:
     importlib.import_module(name)
 runpy.run_path(sys.argv[1] + "/chip_smoke.py", run_name="chip_smoke")
+sys.path.insert(0, sys.argv[1])
+for name in ("quickstart", "gp_system_identification", "serve_gp", "composite_workload", "train_lm"):
+    importlib.import_module("examples_torch." + name)
 print(len(names))
 """
 
 
 def test_port_imports_with_jax_and_repro_blocked():
-    """Every module of the port, and chip_smoke.py, imports in a fresh
+    """Every module of the port, chip_smoke.py and the examples import in a fresh
     interpreter in which ``jax`` and ``repro`` cannot be imported."""
     root = Path(__file__).resolve().parents[1]
     out = subprocess.run(

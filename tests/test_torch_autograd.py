@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch.core import gp as tgp
 from repro_torch.core import kernels_math as tkm
 from repro_torch.core import lowrank

@@ -22,6 +22,7 @@ import torch
 from repro.core import gp as jgp
 from repro.core import kernels_math as jkm
 from repro.core import mll as jmll
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch import convert
 from repro_torch.core import GaussianProcess, GPBatch, SEKernelParams
 from repro_torch.core import executor as tex

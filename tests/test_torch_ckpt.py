@@ -22,6 +22,7 @@ from repro.models import transformer as jtf
 from repro.optim import Adafactor as JAdafactor
 from repro.optim import Adam as JAdam
 from repro.train.train_step import make_train_step as jmake_train_step
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch import configs, convert
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.optim import Adafactor, Adam

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from _torch_dist import World, distributed_world
 from repro.core import distributed as jdist
 from repro.core import predict as jpred

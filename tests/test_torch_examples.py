@@ -22,7 +22,7 @@ same numpy inputs go through the JAX package:
   relative; the command line killed after a checkpoint and rerun resumes
   from the last saved step, with the uninterrupted run's losses within
   1e-5 relative (PERF.md's resume rule; one thread a process, beside the
-  other test workers).
+  other test workers: ``_torch_threads``).
 
 Without a card every example's default ``device="cuda"`` raises.
 """
@@ -64,6 +64,7 @@ from repro.train.trainer import Trainer as JTrainer
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+from _torch_threads import one_torch_thread  # noqa: F401, E402
 import repro_torch.obs as obs  # noqa: E402
 from examples_torch import composite_workload, gp_system_identification, quickstart, serve_gp, train_lm  # noqa: E402
 from repro_torch import convert  # noqa: E402
@@ -304,13 +305,8 @@ def test_train_lm_killed_and_rerun_resumes_as_an_uninterrupted_run(tmp_path):
     saved = CheckpointManager(ck).latest_step()
     assert saved in (4, 8)
     kw = dict(steps=12, batch=2, seq=16, device=CPU, **QUIET)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        again = train_lm.run("qwen1.5-0.5b", "smoke", ckpt_dir=ck, ckpt_every=4, **kw)
-        whole = train_lm.run("qwen1.5-0.5b", "smoke", **kw)
-    finally:
-        torch.set_num_threads(threads)
+    again = train_lm.run("qwen1.5-0.5b", "smoke", ckpt_dir=ck, ckpt_every=4, **kw)
+    whole = train_lm.run("qwen1.5-0.5b", "smoke", **kw)
     assert again["resumed_from"] == saved and again["steps"] == saved + 12
     np.testing.assert_allclose(again["losses"][: 12 - saved], whole["losses"][saved:], rtol=LOSS_RTOL)
 

@@ -14,6 +14,7 @@ import torch
 from repro.core import executor as jex
 from repro.core import kernels_math as jkm
 from repro.core import tiling as jtil
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch.core import cholesky as tchol
 from repro_torch.core import executor as tex
 from repro_torch.core import kernels_math as tkm

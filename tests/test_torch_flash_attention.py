@@ -16,6 +16,7 @@ import torch
 from repro import configs
 from repro.kernels.flash_attention import flash_attention, flash_attention_single
 from repro.models.attention import _causal_mask, _scores_softmax_out
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 

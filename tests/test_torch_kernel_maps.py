@@ -37,6 +37,7 @@ import torch
 
 from repro.kernels import trsm_tile as jtrsm
 from repro.kernels.flash_attention import flash_attention as pallas_flash_attention
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch.kernels import carry_update, flash_attention, lrgemm_tile, ops, trsm_tile
 
 CSRC = Path(flash_attention.__file__).resolve().parent / "csrc"

@@ -21,6 +21,7 @@ import torch
 from repro.core import kernels_math as jkm
 from repro.core import predict as jpred
 from repro.kernels import cov_assembly as jcov
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch import convert
 from repro_torch.core import GaussianProcess
 from repro_torch.core import kernels_math as tkm

@@ -19,6 +19,7 @@ from repro.kernels import lrgemm_tile as jlrg
 from repro.kernels import potrf_tile as jpotrf
 from repro.kernels import trailing_update as jtrail
 from repro.kernels import trsm_tile as jtrsm
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch.core import kernels_math as tkm
 from repro_torch.core import executor as tex
 from repro_torch.kernels import cov_assembly, lrgemm_tile, ops, potrf_tile, trailing_update, trsm_tile

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from _subproc import run_with_devices
+from _torch_threads import one_torch_thread  # noqa: F401
 from _torch_dist import World, launch_gp_data, launch_shapes, launch_world, run_in_subprocess
 from repro import configs as jconfigs
 from repro.core.kernels_math import SEKernelParams as JSE

@@ -51,6 +51,8 @@ import pytest
 import torch
 
 from _subproc import run_with_devices
+import _jax_ref
+from _torch_threads import one_torch_thread  # noqa: F401
 from _torch_dist import LM_ARCH, LM_DECODE_STEPS, LM_LR, LM_S, World, lm_mesh_world, lm_tokens
 from repro import configs as jconfigs
 from repro.dist import sharding as jsharding
@@ -117,18 +119,20 @@ def _jax_reference(tree, tmp):
         out = {}
         jopt = JAdam(learning_rate=LM_LR)
         jp, jo, jl = jmake_train_step(jcfg, jopt, donate=False)[0](params, jopt.init(params), tok, lab)
-        jg = jax.grad(jtf.loss_fn)(params, jcfg, jnp.asarray(tok), jnp.asarray(lab))
+        jg = _jax_ref.jit(jax.grad(jtf.loss_fn), static_argnums=1)(params, jcfg, jnp.asarray(tok), jnp.asarray(lab))
         out["grads"] = _port_tree(jg, cfg)
         out["adam"] = dict(params=_port_tree(jp, cfg), m=_port_tree(jo["m"], cfg), loss=float(jl))
         # Adafactor reads whole leaves: the reference optimizer on the port's per-layer tree
         flat = {n: jnp.asarray(t.numpy()) for n, t in _port_tree(tree, cfg).items()}
         jopt = JAdafactor(learning_rate=LM_LR, min_dim_size_to_factor=16)
-        new, state = jopt.update({n: jnp.asarray(t.numpy()) for n, t in out["grads"].items()}, jopt.init(flat), flat)
+        grads = {n: jnp.asarray(t.numpy()) for n, t in out["grads"].items()}
+        new, state = _jax_ref.jit(jopt.update)(grads, jopt.init(flat), flat)
         out["adafactor"] = dict(params={n: torch.from_numpy(np.array(p)) for n, p in new.items()},
                                 v={n: {k: torch.from_numpy(np.array(t)) for k, t in v.items()}
                                    for n, v in state["v"].items()})
         seq = np.concatenate([tok, dec], axis=1)
-        out["serve"] = [np.asarray(jtf.prefill_fn(params, jcfg, jnp.asarray(seq[:, :LM_S + i]))[0])
+        prefill = _jax_ref.jit(jtf.prefill_fn, static_argnums=1)
+        out["serve"] = [np.asarray(prefill(params, jcfg, jnp.asarray(seq[:, :LM_S + i]))[0])
                         for i in range(LM_DECODE_STEPS + 1)]
         assert "COMPRESSED_OK" in sub.result()
     with open(path + ".out", "rb") as f:

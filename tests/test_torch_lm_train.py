@@ -42,6 +42,8 @@ from repro.models import transformer as jtf
 from repro.optim import Adafactor as JAdafactor
 from repro.optim import Adam as JAdam
 from repro.train.train_step import make_train_step as jmake_train_step
+import _jax_ref
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch import configs, convert
 from repro_torch.data import synthetic
 from repro_torch.kernels import ops
@@ -56,7 +58,7 @@ PORTED = DENSE + ("recurrentgemma-2b", "mamba2-1.3b", "qwen3-moe-235b-a22b", "ar
                   "musicgen-large")
 B, S = 2, 32
 # the JAX package's loss and gradients, compiled: eager, the recurrent kinds' scans compile op by op
-_jax_value_and_grad = jax.jit(jax.value_and_grad(jtf.loss_fn), static_argnums=1)
+_jax_value_and_grad = _jax_ref.jit(jax.value_and_grad(jtf.loss_fn), static_argnums=1)
 
 
 def _cfgs(arch, chunk=0):
@@ -91,7 +93,7 @@ def _hold_step(got, want, grad, before, bound):
 @pytest.fixture(scope="module")
 def models():
     """arch -> (JAX params), built once."""
-    init = jax.jit(jtf.init_model, static_argnums=1)
+    init = _jax_ref.jit(jtf.init_model, static_argnums=1)
     return {arch: init(jax.random.PRNGKey(0), jconfigs.get_smoke_config(arch)) for arch in PORTED}
 
 
@@ -139,7 +141,8 @@ def test_adam_step_matches_jax(models, arch):
     model, state, loss = step(model, opt.init(model), torch.from_numpy(tok), torch.from_numpy(lab))
     assert sh is None and int(state["step"]) == 1
     assert abs(float(loss) - float(jl)) <= 1e-5 * abs(float(jl))
-    want, grads = _port_tree(jp, cfg), _port_tree(jax.grad(jtf.loss_fn)(params, jcfg, jnp.asarray(tok), jnp.asarray(lab)), cfg)
+    _, jg = _jax_value_and_grad(params, jcfg, jnp.asarray(tok), jnp.asarray(lab))
+    want, grads = _port_tree(jp, cfg), _port_tree(jg, cfg)
     for name, p in model.named_parameters():
         _hold_step(p, want[name], grads[name], params_before[name], 1e-3 * (1 + 0.1 * params_before[name].abs()))
     want_m = _port_tree(jo["m"], cfg)
@@ -157,7 +160,7 @@ def test_adafactor_step_matches_jax(models, arch):
     jflat = {n: jnp.asarray(t.numpy()) for n, t in _port_tree(params, cfg).items()}
     jgrads = {n: jnp.asarray(t.numpy()) for n, t in _port_tree(jg, cfg).items()}
     jopt = JAdafactor(learning_rate=1e-2, min_dim_size_to_factor=16)
-    jnew, jstate = jopt.update(jgrads, jopt.init(jflat), jflat)
+    jnew, jstate = _jax_ref.jit(jopt.update)(jgrads, jopt.init(jflat), jflat)
     opt = Adafactor(learning_rate=1e-2, min_dim_size_to_factor=16)
     model = convert.lm_params_from_numpy(jax.tree.map(np.asarray, params), cfg, "cpu")
     state = opt.init(model)

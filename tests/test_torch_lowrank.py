@@ -26,6 +26,7 @@ from repro.core import executor as jex
 from repro.core import lowrank as jlr
 from repro.core import scheduler as jsch
 from repro.core.kernels_math import SEKernelParams as JaxParams
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch import convert
 from repro_torch.core import GaussianProcess, SEKernelParams
 from repro_torch.core import executor as tex

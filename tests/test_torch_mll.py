@@ -18,6 +18,8 @@ import torch
 from repro.core import kernels_math as jkm
 from repro.core import mll as jmll
 from repro.core.gp import GaussianProcess as JGP
+import _jax_ref
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch.core import GaussianProcess, cholesky, lowrank, predict
 from repro_torch.core import kernels_math as tkm
 from repro_torch.core import mll
@@ -36,7 +38,7 @@ def _grad_close(got, want):
 
 
 def _jax_value_and_grad(fn, raw):
-    v, g = jax.value_and_grad(fn)(raw)
+    v, g = _jax_ref.jit(jax.value_and_grad(fn))(raw)  # eager, the tiled program's backward compiles op by op
     return float(v), np.asarray(g)
 
 

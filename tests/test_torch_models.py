@@ -28,6 +28,8 @@ from repro import configs as jconfigs
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models import transformer as jtf
+import _jax_ref
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch import configs, convert
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as tattn
@@ -42,6 +44,11 @@ EMBED = ("llava-next-34b", "musicgen-large")
 PORTED = DENSE + ("recurrentgemma-2b", "mamba2-1.3b") + MOE + EMBED  # the recurrent kinds: tests/test_torch_recurrent.py
 # leaves that ``ModelConfig.param_count`` leaves out: norms, the RG-LRU's conv bias, Mamba-2's conv and per-head vectors
 UNCOUNTED = ("norm", "rec.conv_b", "ssm.conv_w", "ssm.conv_b", "ssm.a_log", "ssm.d_skip", "ssm.dt_bias")
+# the reference's forwards compiled once a shape: eager, every call compiles its ops one by one
+_prefill = _jax_ref.jit(jtf.prefill_fn, static_argnums=1)
+_decode = _jax_ref.jit(jtf.decode_fn, static_argnums=1)
+_attend_full = _jax_ref.jit(jattn.attend_full, static_argnums=3, static_argnames="local")
+_attend_decode = _jax_ref.jit(jattn.attend_decode, static_argnums=4, static_argnames="local")
 
 
 def T(a):
@@ -212,7 +219,7 @@ def test_attend_full(rng, name, local):
     b, s = 2, 40  # S > the gemma2 smoke window of 16
     x = rng.standard_normal((b, s, jcfg.d_model)).astype(np.float32)
     pos = np.broadcast_to(np.arange(s, dtype=np.int32)[None], (b, s))
-    y_j, (k_j, v_j) = jattn.attend_full(jp, jnp.asarray(x), jnp.asarray(pos), jcfg, local=local)
+    y_j, (k_j, v_j) = _attend_full(jp, jnp.asarray(x), jnp.asarray(pos), jcfg, local=local)
     y_t, (k_t, v_t) = tattn.attend_full(mod, T(x), T(pos).long(), _port_cfg(jcfg), local=local)
     np.testing.assert_allclose(y_t.numpy(), _np(y_j), atol=ATOL)
     np.testing.assert_allclose(k_t.numpy(), _np(k_j), atol=ATOL)
@@ -228,8 +235,8 @@ def test_attend_decode(rng, name, local, w, pos):
     b, kv, hd = 2, jcfg.n_kv_heads, jcfg.head_dim_
     x = rng.standard_normal((b, 1, jcfg.d_model)).astype(np.float32)
     ck, cv = (rng.standard_normal((b, w, kv, hd)).astype(np.float32) for _ in range(2))
-    y_j, c_j = jattn.attend_decode(jp, jnp.asarray(x), jnp.int32(pos), {"k": jnp.asarray(ck), "v": jnp.asarray(cv)},
-                                   jcfg, local=local)
+    y_j, c_j = _attend_decode(jp, jnp.asarray(x), jnp.int32(pos), {"k": jnp.asarray(ck), "v": jnp.asarray(cv)},
+                              jcfg, local=local)
     cache = {"k": T(ck), "v": T(cv)}
     y_t, c_t = tattn.attend_decode(mod, T(x), pos, cache, _port_cfg(jcfg), local=local)
     assert c_t is cache
@@ -267,7 +274,7 @@ def test_prefill_and_decode_match_jax(models, arch):
     rng = np.random.default_rng(3)
     b, s = 2, 32
     toks = rng.integers(0, cfg.vocab_size, (b, s + 2)).astype(np.int32)
-    lj, cj = jtf.prefill_fn(params, jcfg, jnp.asarray(toks[:, :s]))
+    lj, cj = _prefill(params, jcfg, jnp.asarray(toks[:, :s]))
     (prefill, _), (decode, _) = serve_step.make_prefill_step(cfg), serve_step.make_decode_step(cfg)
     lt, ct = prefill(model, T(toks[:, :s]).long())
     assert lt.shape == (b, cfg.vocab_size) and len(ct) == cfg.n_layers
@@ -277,7 +284,7 @@ def test_prefill_and_decode_match_jax(models, arch):
         assert ct[l]["k"].shape == ref["k"].shape
         np.testing.assert_allclose(ct[l]["k"].numpy(), ref["k"], atol=ATOL)
         np.testing.assert_allclose(ct[l]["v"].numpy(), ref["v"], atol=ATOL)
-    ldj, cj = jtf.decode_fn(params, jcfg, jnp.asarray(toks[:, s:s + 1]), jnp.int32(s), cj)
+    ldj, cj = _decode(params, jcfg, jnp.asarray(toks[:, s:s + 1]), jnp.int32(s), cj)
     ldt, ct2 = decode(model, T(toks[:, s:s + 1]).long(), s, ct)
     assert ct2 is ct  # updated in place
     np.testing.assert_allclose(ldt.numpy(), _np(ldj), atol=ATOL)
@@ -323,17 +330,17 @@ def test_embeddings_prefill_and_decode_match_jax(models, arch):
     b, s = 2, 32
     prompt = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
     toks = rng.integers(0, cfg.vocab_size, (b, 2)).astype(np.int32)
-    lj, cj = jtf.prefill_fn(params, jcfg, jnp.asarray(prompt))
+    lj, cj = _prefill(params, jcfg, jnp.asarray(prompt))
     lt, ct = ttf.prefill_fn(model, cfg, T(prompt), cache_len=s + 2)
     np.testing.assert_allclose(lt.numpy(), _np(lj), atol=ATOL)
-    ldj, _ = jtf.decode_fn(params, jcfg, jnp.asarray(toks[:, :1]), jnp.int32(s), cj)
+    ldj, _ = _decode(params, jcfg, jnp.asarray(toks[:, :1]), jnp.int32(s), cj)
     emb = np.asarray(params["embed"])
     for i in range(2):
         ldt, ct = ttf.decode_fn(model, cfg, T(toks[:, i:i + 1]).long(), s + i, ct)
         if i == 0:
             np.testing.assert_allclose(ldt.numpy(), _np(ldj), atol=ATOL)
         seq = np.concatenate([prompt, emb[toks[:, :i + 1]]], 1)
-        np.testing.assert_allclose(ldt.numpy(), _np(jtf.prefill_fn(params, jcfg, jnp.asarray(seq))[0]), atol=ATOL)
+        np.testing.assert_allclose(ldt.numpy(), _np(_prefill(params, jcfg, jnp.asarray(seq))[0]), atol=ATOL)
         np.testing.assert_allclose(ldt.numpy(), ttf.prefill_fn(model, cfg, T(seq))[0].numpy(), atol=ATOL)
 
 
@@ -349,13 +356,13 @@ def _greedy_against_full_forward(models, arch, s, n_steps):
     rng = np.random.default_rng(4)
     toks = rng.integers(0, cfg.vocab_size, (2, s + n_steps)).astype(np.int32)
     _, ct = ttf.prefill_fn(model, cfg, T(toks[:, :s]).long(), cache_len=s + n_steps)
-    _, cj = jtf.prefill_fn(params, jcfg, jnp.asarray(toks[:, :s]))
+    _, cj = _prefill(params, jcfg, jnp.asarray(toks[:, :s]))
     port, ref = [], []
     for i in range(n_steps):
         pos = s + i
-        full, _ = jtf.prefill_fn(params, jcfg, jnp.asarray(toks[:, :pos + 1]))
+        full, _ = _prefill(params, jcfg, jnp.asarray(toks[:, :pos + 1]))
         lt, ct = ttf.decode_fn(model, cfg, T(toks[:, pos:pos + 1]).long(), pos, ct)
-        lj, cj = jtf.decode_fn(params, jcfg, jnp.asarray(toks[:, pos:pos + 1]), jnp.int32(pos), cj)
+        lj, cj = _decode(params, jcfg, jnp.asarray(toks[:, pos:pos + 1]), jnp.int32(pos), cj)
         port.append(float(np.abs(lt.numpy() - _np(full)).max()))
         ref.append(float(np.abs(_np(lj) - _np(full)).max()))
     return port, ref

@@ -24,12 +24,16 @@ import torch
 from repro import configs as jconfigs
 from repro.models import moe as jmoe
 from repro.models import transformer as jtf
+import _jax_ref
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch import configs
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttf
 
 ATOL = 2e-5
 ARCHS = ("qwen3-moe-235b-a22b", "arctic-480b")
+# the reference's MoE compiled once a shape: eager, every call compiles its ops one by one
+_apply_moe = _jax_ref.jit(jmoe.apply_moe, static_argnums=2)
 
 
 def T(a):
@@ -68,7 +72,7 @@ def test_apply_moe_matches_jax(arch, cf):
     """Three groups of 64 tokens; capacity factor 0.5 drops about a third of the choices."""
     jcfg, p, cfg, mod = _pair(arch, capacity_factor=cf)
     x = _x((2, 96, cfg.d_model))
-    want = np.asarray(jmoe.apply_moe(p, jnp.asarray(x), jcfg))
+    want = np.asarray(_apply_moe(p, jnp.asarray(x), jcfg))
     with tmoe.recording() as rec:
         got = tmoe.apply_moe(mod, T(x), cfg)
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
@@ -122,16 +126,16 @@ def test_dense_residual_is_the_references():
     without = tmoe.apply_moe(mod, T(x), dataclasses.replace(cfg, dense_residual=False))
     from repro.models.layers import apply_mlp
 
-    want = np.asarray(apply_mlp(p["dense"], jnp.asarray(x), jcfg.mlp))
+    want = np.asarray(_jax_ref.jit(apply_mlp, static_argnums=2)(p["dense"], jnp.asarray(x), jcfg.mlp))
     np.testing.assert_allclose((with_res - without).numpy(), want, atol=ATOL, rtol=0)
-    np.testing.assert_allclose(with_res.numpy(), np.asarray(jmoe.apply_moe(p, jnp.asarray(x), jcfg)), atol=ATOL)
+    np.testing.assert_allclose(with_res.numpy(), np.asarray(_apply_moe(p, jnp.asarray(x), jcfg)), atol=ATOL)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_load_balance_loss_matches_jax(arch):
     jcfg, p, cfg, mod = _pair(arch)
     x = _x((2, 32, cfg.d_model), seed=3)
-    want = float(jmoe.aux_load_balance_loss(p, jnp.asarray(x), jcfg))
+    want = float(_jax_ref.jit(jmoe.aux_load_balance_loss, static_argnums=2)(p, jnp.asarray(x), jcfg))
     got = float(tmoe.aux_load_balance_loss(mod, T(x), cfg))
     assert abs(got - want) <= 1e-6  # a balanced router scores 1 (ROADMAP.md §3 item 4)
 
@@ -155,7 +159,7 @@ def test_single_group_fallback(b, s):
         "qwen3-moe-235b-a22b")) == 40
     with tmoe.recording() as rec:
         got = tmoe.apply_moe(mod, T(x), cfg)
-    np.testing.assert_allclose(got.numpy(), np.asarray(jmoe.apply_moe(p, jnp.asarray(x), jcfg)), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(_apply_moe(p, jnp.asarray(x), jcfg)), atol=ATOL, rtol=0)
     assert rec[0]["expert"].shape[0] == b * s and not bool(rec[0]["kept"].all())
 
 
@@ -173,7 +177,7 @@ def test_block_gradients_match_jax(arch):
     def f(params, xx):
         return jnp.sum(jtf.apply_block(params, "global", xx, jnp.asarray(pos), jcfg, mode="train")[0] * cot)
 
-    jg, jgx = jax.jit(jax.grad(f, argnums=(0, 1)))(jp, jnp.asarray(x))  # eager, the block compiles op by op
+    jg, jgx = _jax_ref.jit(jax.grad(f, argnums=(0, 1)))(jp, jnp.asarray(x))  # eager, the block compiles op by op
     named = dict(blk.named_parameters())
     for t in named.values():
         t.requires_grad_(True)

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import repro.obs as jobs
+from _torch_threads import one_torch_thread  # noqa: F401
 import repro_torch.obs as obs
 from repro.core import GaussianProcess as JGP
 from repro.core.kernels_math import SEKernelParams as JParams

@@ -20,6 +20,7 @@ from repro.optim import cosine_warmup as jcosine_warmup
 from repro.optim.adam import global_norm as jglobal_norm
 from repro.optim.compression import compress as jcompress
 from repro.optim.compression import compress_with_feedback as jcompress_with_feedback
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch.optim import Adafactor, Adam, cosine_warmup, global_norm
 from repro_torch.optim.compression import compress, compress_with_feedback, decompress
 from repro_torch.tree import leaves_with_paths, map_tree

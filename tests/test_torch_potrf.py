@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from repro.kernels import potrf_tile as jpotrf
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch.kernels import potrf_tile
 
 CU_SOURCE = Path(potrf_tile.__file__).resolve().parent / "csrc" / "potrf_tile.cu"

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro.core import GaussianProcess as JaxGP
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch import convert
 from repro_torch.core import GaussianProcess, SEKernelParams
 from repro_torch.core import predict as pred

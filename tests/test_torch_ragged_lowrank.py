@@ -25,6 +25,7 @@ import torch
 from repro.core import gp as jgp
 from repro.core import kernels_math as jkm
 from repro.core import lowrank as jlr
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch import convert
 from repro_torch.core import GaussianProcess, GPFleet, SEKernelParams
 from repro_torch.core import executor as tex

@@ -12,8 +12,8 @@ where the reference's own decode fails on its short conv state (ROADMAP.md
 Float32 on the CPU, parameters carried by ``convert``, inputs drawn with
 numpy.  Tolerance: ``ATOL`` = 1e-4, as ``tests/test_torch_models.py``
 (float32 sums in another order; the measured gaps are ~2e-6).  The JAX
-functions run under ``jax.jit``: eager, the reference's scans compile op by
-op.
+functions run under ``jax.jit`` (``_jax_ref.jit``): eager, the reference's
+scans compile op by op.
 """
 
 import dataclasses
@@ -30,6 +30,8 @@ from repro.models import rglru as jrg
 from repro.models import transformer as jtf
 from repro.optim import Adafactor as JAdafactor
 from repro.optim import Adam as JAdam
+import _jax_ref
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch import configs, convert
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as tlayers
@@ -42,9 +44,9 @@ from repro_torch.train import serve_step
 ATOL = 1e-4
 RECURRENT = ("recurrentgemma-2b", "mamba2-1.3b")
 
-_init = jax.jit(jtf.init_model, static_argnums=1)
-_prefill = jax.jit(jtf.prefill_fn, static_argnums=1)
-_decode = jax.jit(jtf.decode_fn, static_argnums=1)
+_init = _jax_ref.jit(jtf.init_model, static_argnums=1)
+_prefill = _jax_ref.jit(jtf.prefill_fn, static_argnums=1)
+_decode = _jax_ref.jit(jtf.decode_fn, static_argnums=1)
 
 
 def T(a):
@@ -91,7 +93,8 @@ def test_linear_scan(rng, a_shape, tail):
     a = rng.uniform(0.3, 1.0, a_shape).astype(np.float32)
     b = rng.standard_normal(a_shape + tail).astype(np.float32)
     got = tlayers.linear_scan(T(a), T(b)).numpy()
-    _, want = jax.jit(lambda a, b: jax.lax.associative_scan(_combine, (a, b), axis=1))(jnp.asarray(a), jnp.asarray(b))
+    scan = _jax_ref.jit(lambda a, b: jax.lax.associative_scan(_combine, (a, b), axis=1))
+    _, want = scan(jnp.asarray(a), jnp.asarray(b))
     np.testing.assert_allclose(got, _np(want), atol=1e-5)
     h, loop = np.zeros((a_shape[0],) + a_shape[2:] + tail, np.float64), []
     for t in range(a_shape[1]):
@@ -131,7 +134,7 @@ def _hold_state(got, want):
 def test_rglru_seq(rng):
     jcfg, jp, mod = _rglru_pair(rng)
     x = rng.standard_normal((2, 19, jcfg.d_model)).astype(np.float32)
-    y_j, s_j = jax.jit(jrg.apply_rglru_seq, static_argnums=2)(jp, jnp.asarray(x), jcfg)
+    y_j, s_j = _jax_ref.jit(jrg.apply_rglru_seq, static_argnums=2)(jp, jnp.asarray(x), jcfg)
     y_t, s_t = trg.apply_rglru_seq(mod, T(x), configs.get_smoke_config("recurrentgemma-2b"))
     np.testing.assert_allclose(y_t.numpy(), _np(y_j), atol=ATOL)
     _hold_state(s_t, s_j)
@@ -143,7 +146,8 @@ def test_rglru_step(rng):
     x = rng.standard_normal((2, 1, jcfg.d_model)).astype(np.float32)
     h = rng.standard_normal((2, cfg.rnn_width_)).astype(np.float32)
     conv = rng.standard_normal((2, cfg.conv_width - 1, cfg.rnn_width_)).astype(np.float32)
-    y_j, s_j = jrg.apply_rglru_step(jp, jnp.asarray(x), {"h": jnp.asarray(h), "conv": jnp.asarray(conv)}, jcfg)
+    state_j = {"h": jnp.asarray(h), "conv": jnp.asarray(conv)}
+    y_j, s_j = _jax_ref.jit(jrg.apply_rglru_step, static_argnums=3)(jp, jnp.asarray(x), state_j, jcfg)
     state = {"h": T(h), "conv": T(conv)}
     y_t, s_t = trg.apply_rglru_step(mod, T(x), state, cfg)
     assert s_t is state  # updated in place
@@ -156,7 +160,7 @@ def test_mamba2_seq(rng, s):
     """S = 32 is 4 chunks of 8; at S = 37 the port pads a fifth chunk and the reference takes 37 chunks of one."""
     jcfg, jp, mod = _mamba2_pair(rng)
     x = rng.standard_normal((2, s, jcfg.d_model)).astype(np.float32)
-    y_j, s_j = jax.jit(jm2.apply_mamba2_seq, static_argnums=2)(jp, jnp.asarray(x), jcfg)
+    y_j, s_j = _jax_ref.jit(jm2.apply_mamba2_seq, static_argnums=2)(jp, jnp.asarray(x), jcfg)
     y_t, s_t = tm2.apply_mamba2_seq(mod, T(x), configs.get_smoke_config("mamba2-1.3b"))
     np.testing.assert_allclose(y_t.numpy(), _np(y_j), atol=ATOL)
     _hold_state(s_t, s_j)
@@ -169,7 +173,8 @@ def test_mamba2_step(rng):
     x = rng.standard_normal((2, 1, jcfg.d_model)).astype(np.float32)
     hs = rng.standard_normal((2, h, n, pd)).astype(np.float32)
     conv = rng.standard_normal((2, cfg.conv_width - 1, d_in + 2 * n)).astype(np.float32)
-    y_j, s_j = jm2.apply_mamba2_step(jp, jnp.asarray(x), {"h": jnp.asarray(hs), "conv": jnp.asarray(conv)}, jcfg)
+    state_j = {"h": jnp.asarray(hs), "conv": jnp.asarray(conv)}
+    y_j, s_j = _jax_ref.jit(jm2.apply_mamba2_step, static_argnums=3)(jp, jnp.asarray(x), state_j, jcfg)
     state = {"h": T(hs), "conv": T(conv)}
     y_t, s_t = tm2.apply_mamba2_step(mod, T(x), state, cfg)
     assert s_t is state
@@ -274,7 +279,7 @@ def test_optimizer_state_converts(models, arch, opt):
     jopt = JAdam(learning_rate=1e-3) if opt == "adam" else JAdafactor(learning_rate=1e-3, min_dim_size_to_factor=4)
     port_opt = Adam(learning_rate=1e-3) if opt == "adam" else Adafactor(learning_rate=1e-3, min_dim_size_to_factor=4)
     grads = jax.tree.map(lambda p: jnp.full(p.shape, 0.01, jnp.float32), params)
-    _, jstate = jax.jit(jopt.update)(grads, jopt.init(params), params)
+    _, jstate = _jax_ref.jit(jopt.update)(grads, jopt.init(params), params)
     state = convert.lm_opt_state_from_numpy(jax.tree.map(np.asarray, jstate), model, port_opt)
     moments = state["m"] if opt == "adam" else state["v"]
     names = [n for n in moments if ".rec." in n or ".ssm." in n]

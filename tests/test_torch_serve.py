@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 import repro_torch.obs as obs
 from repro.core import GaussianProcess as JGP
 from repro.core.kernels_math import SEKernelParams as JParams

@@ -26,6 +26,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import pytest
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from _torch_dist import (World, batch_data, fleet_data, fleet_lowrank_options, serve_case,
                          sharded_fleet_world, _np)
 

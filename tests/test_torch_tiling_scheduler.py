@@ -19,6 +19,7 @@ import torch
 from repro.core import executor as jex
 from repro.core import scheduler as jsch
 from repro.core import tiling as jtil
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch.core import executor as tex
 from repro_torch.core import scheduler as tsch
 from repro_torch.core import tiling as ttil

@@ -16,6 +16,7 @@ import time
 import numpy as np
 
 from _subproc import SRC
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SCRIPT = r"""
 import sys, torch
@@ -109,17 +110,12 @@ def test_resumed_losses_equal_an_uninterrupted_run(tmp_path):
         return Trainer(step_fn, model, opt.init(model), data_fn, ckpt_dir=ckpt, ckpt_every=3, log_every=0,
                        log_fn=lambda msg: None)
 
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)  # a few small steps: one thread, beside the other test workers
-    try:
-        whole = trainer(0).run(6).losses
-        ck = str(tmp_path / "ck")
-        first = trainer(0, ck).run(3).losses
-        again = trainer(1, ck)  # other weights: the checkpoint replaces them
-        assert again.report.resumed_from == 3 and first == whole[:3]
-        np.testing.assert_array_equal(again.run(3).losses, whole[3:])
-    finally:
-        torch.set_num_threads(threads)
+    whole = trainer(0).run(6).losses
+    ck = str(tmp_path / "ck")
+    first = trainer(0, ck).run(3).losses
+    again = trainer(1, ck)  # other weights: the checkpoint replaces them
+    assert again.report.resumed_from == 3 and first == whole[:3]
+    np.testing.assert_array_equal(again.run(3).losses, whole[3:])
 
 
 def test_straggler_detection():

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro.core import triangular as jtri
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch.core import tiling, triangular
 
 N, M = 50, 16  # padded to 64: four tile rows, the last one part padding

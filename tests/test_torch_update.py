@@ -24,6 +24,7 @@ from repro.core import scheduler as jsch
 from repro.core import tiling as jtil
 from repro.core import update as jupd
 from repro.kernels import downdate_tile as jdown
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch import convert
 from repro_torch.core import GaussianProcess
 from repro_torch.core import executor as tex

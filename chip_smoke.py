@@ -37,7 +37,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 3. kernel   one phase per kernel (kernel.tile_gemv and kernel.tile_trsv: the
             fleets' batch-invariant matvec and diagonal-tile solve at
             fleet.batch's launches, bitwise at half their width, beside one
-            batched cuBLAS call): its wrapper against its plain PyTorch
+            batched cuBLAS call, timed by device time under the profiler;
+            also the GEMV_B route (tiles read transposed) and the transposed
+            solve, and kernel.tile_vector.extra: ptxas registers and spills
+            (0 in float32), CTAs per SM, the solve's plans and its
+            dependent-chain floor): its wrapper against its plain PyTorch
             version on its path's own tiles (gp_16k, m = 512, D = 16,
             float32), plus float64 and ragged-edge cases; times the kernel,
             the plain version and one PyTorch call of the same function;
@@ -392,6 +396,24 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time a call of ``fn`` in ms: its CUDA kernels' time under ``torch.profiler`` over ``reps``
+    calls.  For launches shorter than their host-side cost, where CUDA events around back-to-back calls (cuda_ms)
+    time the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(total > 0, "device_ms: the profiler saw no device time")
+    return total / reps / 1e3
 
 
 def wall_s(fn):
@@ -4554,11 +4576,44 @@ def finish_lm_mesh(world, ckpt, beside):
     torch.cuda.empty_cache()
 
 
+# tile_trsv's dependent chain, read off csrc/tile_gemv_trsv.cu, in SM cycles (Hopper latencies: FFMA 4, a shared-
+# memory load ~30, a distributed-shared-memory store landing on its mbarrier ~200, a DRAM load ~800, an IEEE
+# division ~40).  A block's step: x_k's st.async landing and seen by try_wait (200); the update's 32-term dot
+# product (a load, 8 dependent FMAs a partial, 2 adds: 70); the subtraction (4); r's exchange through shared
+# memory (30); the inverse's dot product (70).  The first block adds its diagonal block's staging (one DRAM load)
+# and inversion (32 rows of 8 dependent FMAs, 2 adds and a division: 32 x 80).
+TRSV_CHAIN_CYCLES = {"step": 200 + 70 + 4 + 30 + 70, "first_block": 800 + 32 * 80}
+
+
+def trsv_chain_floor(m: int, clock_mhz: float) -> dict:
+    """The least time of tile_trsv's dependent chain at m (one system; the systems of a launch run side by side)."""
+    nb = -(-m // 32)
+    cycles = nb * TRSV_CHAIN_CYCLES["step"] + TRSV_CHAIN_CYCLES["first_block"]
+    return {"ms": cycles / (clock_mhz * 1e3), "cycles": cycles, "blocks": nb, "cycles_per_block": TRSV_CHAIN_CYCLES["step"],
+            "first_block_cycles": TRSV_CHAIN_CYCLES["first_block"], "sm_clock_mhz": clock_mhz}
+
+
+def tile_vector_label(name: str):
+    """'float32/gemv_rows/vector' for gemv_rows_kernel<float, true>, 'float64/trsv_upper/streaming' for
+    trsv_cluster_kernel<double, true, false>."""
+    k = re.search(r"gemv_(rows|cols)_kernelI([fd])Lb([01])E", name)
+    if k:
+        return f"{_TYPES[k.group(2)]}/gemv_{k.group(1)}/{'vector' if k.group(3) == '1' else 'scalar'}"
+    k = re.search(r"trsv_cluster_kernelI([fd])Lb([01])ELb([01])E", name)
+    if k:
+        return (f"{_TYPES[k.group(1)]}/trsv_{'upper' if k.group(2) == '1' else 'lower'}/"
+                f"{'resident' if k.group(3) == '1' else 'streaming'}")
+    return None
+
+
 def tile_vector_phase(dev):
     """kernel.tile_gemv and kernel.tile_trsv: the fleet's batch-invariant matvec and solve at fleet.batch's
-    launches, against their plain versions (one problem at a time), beside one batched cuBLAS call, and the
-    bitwise width invariance they exist for (16 problems against their first 8)."""
-    from repro_torch.kernels import ops, tile_gemv_trsv as tv
+    launches (XGEMV; a forward solve), against their plain versions (one problem at a time), beside one batched
+    cuBLAS call, and the bitwise width invariance they exist for (16 problems against their first 8); the same
+    for the GEMV_B route (fleet.batch's widest backward-sweep launch, tiles read transposed) and the transposed
+    solve (kernel.tile_gemv.gemv_b, kernel.tile_trsv.transposed); then ptxas, CTAs per SM and the solve's plan and
+    dependent-chain floor (kernel.tile_vector.extra)."""
+    from repro_torch.kernels import _build, ops, tile_gemv_trsv as tv
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     b, q_tiles, m_tiles, m = FLEET_B, FLEET_NT // TILE, FLEET_N // TILE, TILE
@@ -4566,45 +4621,91 @@ def tile_vector_phase(dev):
     rows = torch.randn(b, q_tiles, m_tiles, m, m, device=dev, generator=gen) / m
     alpha = torch.randn(b, m_tiles, m, device=dev, generator=gen)
     xb = alpha[:, None].expand(-1, q_tiles, -1, -1)
-    # TRSV: a forward-solve level's launch, one diagonal tile a problem
+    # GEMV_B: the backward sweep's widest level, M - 1 packed tiles a problem read transposed (stride_a = 1)
+    packed = torch.randn(b, m_tiles - 1, m, m, device=dev, generator=gen) / m
+    cols, xc = packed.mT[:, :, None], torch.randn(b, m_tiles - 1, 1, m, device=dev, generator=gen)
+    # TRSV: a forward-solve level's launch, one diagonal tile a problem (and the backward sweep's, transposed)
     a = torch.randn(b, 1, m, m, device=dev, generator=gen) / m**0.5
     low = torch.linalg.cholesky(a @ a.mT + torch.eye(m, device=dev)).contiguous()
     rhs = torch.randn(b, 1, m, device=dev, generator=gen)
+    gemv_bytes = {"xgemv": (rows.numel() + alpha.numel() + b * q_tiles * m) * 4,
+                  "gemv_b": (packed.numel() + xc.numel() + b * (m_tiles - 1) * m) * 4}
+    trsv_bytes = (b * (m * (m + 1) // 2) + 2 * b * m) * 4
+
+    def solve_lib(l, r, transpose):
+        if transpose:
+            return torch.linalg.solve_triangular(l.mT, r[..., None], upper=True)[..., 0]
+        return torch.linalg.solve_triangular(l, r[..., None], upper=False)[..., 0]
+
+    def gemv_case(aa, xx, nbytes):
+        return dict(kern=lambda k=b: ops.tile_gemv(aa[:k], xx[:k]), plain=lambda: tv.tile_gemv_plain(aa, xx),
+                    lib=lambda k=b: torch.einsum("zgqab,zgqb->zga", aa[:k], xx[:k]), nbytes=nbytes,
+                    nops=2 * aa.numel(), shape=list(aa.shape), variant=tv.gemv_variant(aa, xx),
+                    library_call="torch.einsum over the B problems (cuBLAS batched GEMV)")
+
+    def trsv_case(transpose):
+        return dict(kern=lambda k=b: ops.tile_trsv(low[:k], rhs[:k], transpose),
+                    plain=lambda: tv.tile_trsv_plain(low, rhs, transpose),
+                    lib=lambda k=b: solve_lib(low[:k], rhs[:k], transpose), nbytes=trsv_bytes, nops=b * m * m,
+                    shape=list(low.shape),
+                    library_call="torch.linalg.solve_triangular over the B problems")
+
+    cases = {"tile_gemv": gemv_case(rows, xb, gemv_bytes["xgemv"]),
+             "tile_gemv.gemv_b": gemv_case(cols, xc, gemv_bytes["gemv_b"]),
+             "tile_trsv": trsv_case(False), "tile_trsv.transposed": trsv_case(True)}
+    clock = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True).stdout.split()[0])
+    floor = trsv_chain_floor(m, clock)
     out = {}
-    for name, kern, plain, lib, nbytes, nops in (
-            ("tile_gemv", lambda: ops.tile_gemv(rows, xb), lambda: tv.tile_gemv_plain(rows, xb),
-             lambda: torch.einsum("zgqab,zgqb->zga", rows, xb), (rows.numel() + alpha.numel() + b * q_tiles * m) * 4,
-             2 * rows.numel()),
-            ("tile_trsv", lambda: ops.tile_trsv(low, rhs, False), lambda: tv.tile_trsv_plain(low, rhs, False),
-             lambda: torch.linalg.solve_triangular(low, rhs[..., None], upper=False)[..., 0],
-             (b * (m * (m + 1) // 2) + 2 * b * m) * 4, b * m * m)):
-        got, want = kern(), plain()
+    for name, c in cases.items():
+        got, want = c["kern"](), c["plain"]()
         err = max_err(got, want)
         tol = 1e-4 * max(1.0, float(want.abs().max()))
-        half = {"tile_gemv": lambda: ops.tile_gemv(rows[: b // 2], xb[: b // 2]),
-                "tile_trsv": lambda: ops.tile_trsv(low[: b // 2], rhs[: b // 2], False)}[name]()
-        lib_half = {"tile_gemv": lambda: torch.einsum("zgqab,zgqb->zga", rows[: b // 2], xb[: b // 2]),
-                    "tile_trsv": lambda: torch.linalg.solve_triangular(low[: b // 2], rhs[: b // 2, ..., None],
-                                                                       upper=False)[..., 0]}[name]()
-        bnd = bound_ms(nbytes, nops)
+        half, lib_half = c["kern"](b // 2), c["lib"](b // 2)
+        bnd = bound_ms(c["nbytes"], c["nops"])
+        kernel = name.split(".")[0]
         row = dict(route="cuda", source="src/repro_torch/kernels/csrc/tile_gemv_trsv.cu",
                    replaces="none: a port-only kernel; the reference leaves the fleet's "
-                   + ("GEMV/XGEMV steps" if name == "tile_gemv" else "TRSV steps")
-                   + " to XLA (src/repro/core/executor.py:" + ("275)" if name == "tile_gemv" else "271)"),
-                   max_abs_err=err, ms=cuda_ms(kern, 20), plain_ms=cuda_ms(plain, 5), bound_ms=bnd[0],
-                   bound_by=bnd[1], library_ms=cuda_ms(lib, 20))
-        emit(f"kernel.{name}", shape=list(rows.shape if name == "tile_gemv" else low.shape), tol=tol,
-             bitwise_16_vs_8=torch.equal(got[: b // 2], half), library_bitwise_16_vs_8=torch.equal(lib()[: b // 2],
-                                                                                                   lib_half),
-             library_call=("torch.einsum over the B problems (cuBLAS batched GEMV)" if name == "tile_gemv"
-                           else "torch.linalg.solve_triangular over the B problems"),
+                   + ("GEMV/XGEMV steps" if kernel == "tile_gemv" else "TRSV steps")
+                   + " to XLA (src/repro/core/executor.py:" + ("275)" if kernel == "tile_gemv" else "271)"),
+                   max_abs_err=err, ms=device_ms(c["kern"], 20), plain_ms=cuda_ms(c["plain"], 5), bound_ms=bnd[0],
+                   bound_by=bnd[1], library_ms=device_ms(c["lib"], 20), events_ms=cuda_ms(c["kern"], 20),
+                   library_events_ms=cuda_ms(c["lib"], 20),
+                   ms_note="ms and library_ms: device time a call (device_ms, torch.profiler); events_ms: CUDA "
+                           "events around 20 back-to-back calls, which the host's launch cost paces")
+        if kernel == "tile_trsv":
+            row.update(chain_floor_ms=floor["ms"], bound_note="bytes bound beside the dependent chain's floor "
+                       "(kernel.tile_vector.extra: trsv_chain_floor)")
+        else:
+            row.update(tb_per_s=c["nbytes"] / row["ms"] / 1e9, variant=c["variant"])
+        emit(f"kernel.{name}", shape=c["shape"], tol=tol, bitwise_16_vs_8=torch.equal(got[: b // 2], half),
+             library_bitwise_16_vs_8=torch.equal(c["lib"]()[: b // 2], lib_half), library_call=c["library_call"],
              **row)
         check(err <= tol, f"{name} disagrees with its plain version: {err} > {tol}")
         check(torch.equal(got[: b // 2], half), f"{name}: a problem's result changed with the launch's width")
         out[name] = row
-    del rows, alpha, xb, a, low, rhs
+    del rows, alpha, xb, packed, cols, xc, a, low, rhs
     torch.cuda.empty_cache()
-    return out
+    lib = _build.load("tile_gemv_trsv")
+    ptxas = ptxas_report("tile_gemv_trsv", tile_vector_label)
+    mma = sass_mma_counts("tile_gemv_trsv", tile_vector_label)
+    ctas = {f"{t}/{v}": lib.tile_gemv_ctas_per_sm(i, int(t == "float64")) for t in ("float32", "float64")
+            for i, v in enumerate(tv.GEMV_VARIANTS)}
+    for t in ("float32", "float64"):
+        for tr in (0, 1):
+            key = f"{t}/trsv_{'upper' if tr else 'lower'}/m{m}"
+            ctas[key] = lib.tile_trsv_occupancy(m, int(t == "float64"), tr, 0)
+            ctas[key + "/clusters_on_the_card"] = lib.tile_trsv_occupancy(m, int(t == "float64"), tr, 1)
+    plans = {f"{t}/m{mm}": tv.trsv_plan(mm, getattr(torch, t)) for t in ("float32", "float64")
+             for mm in (32, 128, 512, 1024)}
+    emit("kernel.tile_vector.extra", ptxas=ptxas, sass_hmma_count=mma, ctas_per_sm=ctas, trsv_plans=plans,
+         trsv_chain_floor=floor, trsv_chain_cycles=TRSV_CHAIN_CYCLES,
+         note="ctas_per_sm: CTAs of a variant an SM holds; a solve launch is one cluster a system")
+    check_build_quality("tile_gemv_trsv", ptxas, mma)
+    check(len(ptxas) == 16, f"tile_gemv_trsv: expected 16 instantiations in the ptxas report: {sorted(ptxas)}")
+    trsv, gemv = out.pop("tile_trsv"), out.pop("tile_gemv")
+    trsv["transposed"], gemv["gemv_b"] = out.pop("tile_trsv.transposed"), out.pop("tile_gemv.gemv_b")
+    return {"tile_gemv": gemv, "tile_trsv": trsv}
 
 
 # ---------------------------------------------------------------------------

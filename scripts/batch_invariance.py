@@ -7,7 +7,8 @@ fleet's only where each problem's arithmetic is independent of B.  The
 port takes a fleet's tile matvecs and diagonal-tile solves (the executor's
 GEMV, GEMV_B, XGEMV and TRSV steps, the solves' products, the warm tails'
 matvecs and the append's row solve) through ``ops.tile_gemv`` and
-``ops.tile_trsv``, whose CUDA kernel works on one (problem, tile) a CTA.
+``ops.tile_trsv``, whose CUDA kernels fix every problem's arithmetic by
+the tile's shape and strides alone (``csrc/tile_gemv_trsv.cu``).
 From the root of a checkout, on a card:
 
     python3 scripts/batch_invariance.py

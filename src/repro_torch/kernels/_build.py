@@ -143,6 +143,10 @@ _QUERIES = (
     ("trsm_depth", [_I, _I, _I], _I),
     ("trsm_max_m", [_I], _I),
     ("trsm_strip", [_L, _I, _I, _I], _I),
+    ("tile_gemv_variant", [_P, _P, _I, _I, _P, _P, _I], _I),
+    ("tile_gemv_ctas_per_sm", [_I, _I], _I),
+    ("tile_trsv_plan", [_I, _I, _I], _I),
+    ("tile_trsv_occupancy", [_I, _I, _I, _I], _I),
 )
 
 

@@ -796,3 +796,137 @@ def test_lowrank_fleet_nlml_does_not_depend_on_the_problem_count(cuda):
 
     for a, b in zip(run(8), run(4)):
         assert torch.equal(a, b)
+
+
+# tile_gemv / tile_trsv (csrc/tile_gemv_trsv.cu): tile sizes that reach every variant and load width (m = 77 and
+# 129 are not multiples of a 16-byte vector; 1024 takes the solve's streaming variant), Z in {1, 3, 16}
+TILE_VECTOR_MS = (16, 77, 100, 128, 129, 512, 1024)
+
+
+def _gemv_operands(gen, z, g, q, m, n, dtype, cuda, transposed, offset=0, broadcast=False):
+    """a (Z, G, Q, m, n) on the card (transposed: a column-major view), x (Z, G, Q, n) (broadcast: stride 0 over
+    G); ``offset`` elements in front of a's storage move its base off 16 bytes (a sliced operand)."""
+    shape = (z, g, q, n, m) if transposed else (z, g, q, m, n)
+    base = torch.randn(shape, generator=gen, dtype=dtype) / n**0.5
+    store = torch.empty(base.numel() + offset, dtype=dtype, device=cuda)
+    a = store[offset:].view(shape)
+    a.copy_(base)
+    if transposed:
+        a = a.mT
+    x = torch.randn(z, 1 if broadcast else g, q, n, generator=gen, dtype=dtype).to(cuda)
+    return a, (x.expand(-1, g, -1, -1) if broadcast else x)
+
+
+def _gemv_expected_variant(a, x):
+    from _tile_vector_maps import gemv_variant
+
+    return gemv_variant(a.data_ptr(), x.data_ptr(), a.shape[3], a.shape[4], a.stride(), x.stride(), a.element_size())
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", TILE_VECTOR_MS)
+def test_tile_gemv_matches_plain(cuda, m, dtype, transposed):
+    """tile_gemv against its plain version at 1e-4 x scale (kernel.tile_gemv's tolerance), on every route and load
+    width: Z = 1 aligned, Z = 3 with n % 4 != 0 and a broadcast x, Z = 16 with a base off 16 bytes, whose result
+    is bitwise the aligned copy's (the load width changes how elements are fetched, not the sums)."""
+    from repro_torch.kernels import tile_gemv_trsv as tv
+
+    gen = torch.Generator().manual_seed(m)
+    cases = ((1, 2, 2, m, 0, False), (3, 2, 1, m + 3, 0, True), (16, 1, 2, m, 1, False))
+    for z, g, q, n, offset, broadcast in cases:
+        a, x = _gemv_operands(gen, z, g, q, m, n, dtype, cuda, transposed, offset, broadcast)
+        assert tv.gemv_variant(a, x) == _gemv_expected_variant(a, x)
+        ops.reset_launch_counts()
+        got = ops.tile_gemv(a, x)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["tile_gemv"] == 1
+        want = tv.tile_gemv_plain(a, x)
+        assert (got - want).abs().max() <= 1e-4 * max(1.0, float(want.abs().max()))
+        if offset:
+            aligned = a.mT.clone().mT if transposed else a.clone()
+            assert tv.gemv_variant(a, x).endswith("scalar")
+            assert tv.gemv_variant(aligned, x) == _gemv_expected_variant(aligned, x)
+            assert tv.gemv_variant(aligned, x).endswith("vector") or m % 4
+            assert torch.equal(ops.tile_gemv(aligned, x), got)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", TILE_VECTOR_MS)
+def test_tile_trsv_matches_plain(cuda, m, dtype, transpose):
+    """tile_trsv against its plain version, L with garbage above its diagonal (never read), Z in {1, 3, 16}; a base
+    off 16 bytes (cp.async of single elements) gives the aligned copy's bits.  Tolerance 1e-4 x scale (the
+    kernel's), 1e-3 x scale for a float32 solve at m >= 512; the plan is the mirror's (tests/_tile_vector_maps)."""
+    from _tile_vector_maps import trsv_plan as mirror
+    from repro_torch.kernels import tile_gemv_trsv as tv
+
+    assert tv.trsv_plan(m, dtype) == mirror(m, torch.empty(0, dtype=dtype).element_size())
+    tol = 1e-3 if dtype == torch.float32 and m >= 512 else 1e-4
+    gen = torch.Generator().manual_seed(m + 1)
+    for z, g, offset in ((1, 1, 0), (3, 2, 0), (16, 1, 1)):
+        a = torch.randn(z, g, m, m, generator=gen, dtype=torch.float64) / m**0.5
+        low = torch.linalg.cholesky(a @ a.mT + torch.eye(m, dtype=torch.float64)).to(dtype)
+        low = low + torch.triu(torch.randn(z, g, m, m, generator=gen, dtype=dtype), 1)
+        store = torch.empty(low.numel() + offset, dtype=dtype, device=cuda)
+        l = store[offset:].view(low.shape)
+        l.copy_(low)
+        r = torch.randn(z, g, m, generator=gen, dtype=dtype).to(cuda)
+        ops.reset_launch_counts()
+        got = ops.tile_trsv(l, r, transpose)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["tile_trsv"] == 1
+        want = tv.tile_trsv_plain(l, r, transpose)
+        assert (got - want).abs().max() <= tol * max(1.0, float(want.abs().max()))
+        if offset:
+            assert torch.equal(ops.tile_trsv(l.clone(), r, transpose), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tile_trsv_streams_more_blocks_than_warps(cuda, dtype):
+    """m = 2080: 65 blocks on a cluster of 8, so rank 0 owns 9 and its warp 0 solves two blocks, in the chain's
+    order (the streaming variant); both directions against the plain version at the kernel's tolerance (1e-3 x
+    scale in float32 at this m, 1e-4 x scale in float64)."""
+    from repro_torch.kernels import tile_gemv_trsv as tv
+
+    m = 2080
+    assert tv.trsv_plan(m, dtype)["variant"] == "streaming"
+    gen = torch.Generator().manual_seed(13)
+    a = torch.randn(2, 1, m, m, generator=gen, dtype=torch.float64) / m**0.5
+    low = torch.linalg.cholesky(a @ a.mT + torch.eye(m, dtype=torch.float64)).to(dtype).to(cuda)
+    r = torch.randn(2, 1, m, generator=gen, dtype=dtype).to(cuda)
+    tol = 1e-3 if dtype == torch.float32 else 1e-4
+    for transpose in (False, True):
+        got, want = ops.tile_trsv(low, r, transpose), tv.tile_trsv_plain(low, r, transpose)
+        assert (got - want).abs().max() <= tol * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tile_kernels_do_not_depend_on_the_launch_width(cuda, dtype):
+    """A problem's result bitwise the same with Z problems in the launch and with Z/2, and in a slice that starts
+    elsewhere (a rank's share of a sharded fleet): both GEMV routes, both solve directions and variants."""
+    gen = torch.Generator().manual_seed(11)
+    for transposed in (False, True):
+        a, x = _gemv_operands(gen, 16, 2, 2, 512, 512, dtype, cuda, transposed)
+        whole = ops.tile_gemv(a, x)
+        assert torch.equal(whole[:8], ops.tile_gemv(a[:8], x[:8]))
+        assert torch.equal(whole[5:], ops.tile_gemv(a[5:], x[5:]))
+    for m in (512, 1024):
+        a = torch.randn(16, 1, m, m, generator=gen, dtype=torch.float64) / m**0.5
+        low = torch.linalg.cholesky(a @ a.mT + torch.eye(m, dtype=torch.float64)).to(dtype).to(cuda)
+        r = torch.randn(16, 1, m, generator=gen, dtype=dtype).to(cuda)
+        for transpose in (False, True):
+            whole = ops.tile_trsv(low, r, transpose)
+            assert torch.equal(whole[:8], ops.tile_trsv(low[:8], r[:8], transpose))
+            assert torch.equal(whole[5:], ops.tile_trsv(low[5:], r[5:], transpose))
+
+
+def test_tile_trsv_past_its_sizes_raises(cuda):
+    """No variant takes m past the streaming variant's barriers: the plan and the launch raise, nothing falls back."""
+    from repro_torch.kernels import tile_gemv_trsv as tv
+
+    with pytest.raises(ValueError):
+        tv.trsv_plan(77856, torch.float64)
+    l, r = torch.empty(1, 1, 1, 1, device=cuda), torch.empty(1, 1, 1, device=cuda)
+    with pytest.raises(ValueError):
+        tv.tile_trsv_cuda(l.expand(1, 1, 479264, 479264), r.expand(1, 1, 479264), False)

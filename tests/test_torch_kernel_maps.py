@@ -20,7 +20,13 @@ from their shapes, and checks it:
   reference;
 * ``csrc/cov_assembly.cu``: the CTA and thread -> output map (every element
   written once), the feature staging, and the ``ex2`` form of the exponential;
-* ``csrc/lrgemm_tile.cu``: the block -> (task, rows) map.
+* ``csrc/lrgemm_tile.cu``: the block -> (task, rows) map;
+* ``csrc/tile_gemv_trsv.cu`` (mirrored in ``tests/_tile_vector_maps.py``): the
+  GEMV's (q, b) -> (lane, accumulator) map and its warps' column slices, with
+  float32 renditions of both routes (width-invariant, near the einsum); the
+  solve's plan (cluster size and variant from (m, dtype) alone), its row
+  ownership over the cluster, and its blocked rendition against
+  ``solve_triangular``.
 
 ``tests/test_torch_gpu.py`` holds the kernels themselves against their
 plain versions on the card.
@@ -37,6 +43,7 @@ import torch
 
 from repro.kernels import trsm_tile as jtrsm
 from repro.kernels.flash_attention import flash_attention as pallas_flash_attention
+import _tile_vector_maps as tvm
 from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch.kernels import carry_update, flash_attention, lrgemm_tile, ops, trsm_tile
 
@@ -550,3 +557,98 @@ def test_lrgemm_blocks_cover_every_row_once_in_memory_order(g, m):
         seen += [(task, r) for r in range(rb * warps, min(rb * warps + warps, m))]
     assert seen == [(task, r) for task in range(g) for r in range(m)]  # with a = arange: addresses ascend
     assert "8 warps" in lrgemm_tile.__doc__
+
+
+# ---------------------------------------------------------------------------
+# tile_gemv and tile_trsv (csrc/tile_gemv_trsv.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("q,n,itemsize", [(1, 512, 4), (8, 512, 4), (2, 77, 4), (3, 100, 8), (1, 16, 8), (7, 129, 4)])
+def test_tile_gemv_row_map_takes_every_element_once(q, n, itemsize):
+    """Each (q, b) of a tile row goes to one (lane, step, accumulator); a lane's chunks run in (q, b) order."""
+    lane, step, acc = tvm.gemv_rows_map(q, n, itemsize)
+    keys = list(zip(lane.ravel().tolist(), step.ravel().tolist(), acc.ravel().tolist()))
+    assert len(set(keys)) == q * n
+    assert lane.min() >= 0 and lane.max() < 32 and acc.max() < tvm.vec(itemsize)
+    order = np.argsort(step.ravel() * 32 + lane.ravel(), kind="stable")  # the kernel's t, chunk by chunk
+    assert np.all(np.diff(order) > 0)
+
+
+@pytest.mark.parametrize("q,n", [(1, 512), (7, 1), (2, 77), (1, 5), (3, 129), (8, 512)])
+def test_tile_gemv_column_slices_cover_every_column_once(q, n):
+    slices = tvm.gemv_cols_slices(q, n)
+    assert len(slices) == source_int("kGemvThreads", "tile_gemv_trsv") // 32
+    assert [k for start, stop in slices for k in range(start, stop)] == list(range(q * n))
+
+
+@pytest.mark.parametrize("route", ["rows", "cols"])
+@pytest.mark.parametrize("shape", [(4, 2, 2, 64, 100), (4, 1, 3, 77, 33), (2, 3, 1, 33, 512), (4, 1, 1, 16, 5)])
+def test_tile_gemv_rendition_is_width_invariant_and_near_the_einsum(rng, route, shape):
+    """The float32 rendition of a route: Z problems and their first Z/2 bitwise alike, within 1e-5 x scale of a
+    float64 einsum and of the port's plain version."""
+    from repro_torch.kernels import tile_gemv_trsv
+
+    z, g, q, m, n = shape
+    a = (rng.standard_normal(shape) / np.sqrt(n)).astype(np.float32)
+    x = rng.standard_normal((z, 1, q, n)).astype(np.float32)  # broadcast over g, as the XGEMV's alpha
+    rendition = tvm.gemv_rows_rendition if route == "rows" else tvm.gemv_cols_rendition
+    whole = rendition(a, x)
+    assert whole.dtype == np.float32 and whole.shape == (z, g, m)
+    assert np.array_equal(whole[: z // 2], rendition(a[: z // 2], x[: z // 2]))
+    want = np.einsum("zgqab,zgqb->zga", a.astype(np.float64), np.broadcast_to(x, (z, g, q, n)).astype(np.float64))
+    scale = max(1.0, float(np.abs(want).max()))
+    assert np.abs(whole - want).max() <= 1e-5 * scale
+    plain = tile_gemv_trsv.tile_gemv_plain(torch.from_numpy(a), torch.from_numpy(x).expand(z, g, q, n))
+    assert np.abs(whole - plain.numpy()).max() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("m", [16, 77, 512, 1024])
+def test_tile_trsv_cluster_owns_every_row_once(m, itemsize, transpose):
+    """Row block i goes to rank i % C, each (rank, warp, turn) one block, a warp's blocks in the chain's order."""
+    nb = -(-m // 32)
+    cluster = tvm.trsv_plan(m, itemsize)["cluster"]
+    owners = tvm.trsv_owners(m, itemsize, transpose)
+    assert sorted(owners) == list(range(nb))
+    assert sorted(r for i in owners for r in range(32 * i, min(m, 32 * i + 32))) == list(range(m))
+    assert len(set(owners.values())) == nb and all(rank == i % cluster for i, (rank, _, _) in owners.items())
+    by_warp = {}
+    for i, (rank, warp, turn) in owners.items():
+        by_warp.setdefault((rank, warp), []).append((turn, i))
+    for blocks in by_warp.values():
+        chain = [i for _, i in sorted(blocks)]
+        assert chain == sorted(chain, reverse=transpose)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("m", [16, 77, 100, 512])
+def test_tile_trsv_rendition_matches_solve_triangular(rng, m, dtype, transpose):
+    """The blocked rendition (inverted diagonal blocks, four partials) against a float64 solve, at the kernel's
+    tolerance: 1e-4 x scale, 1e-3 x scale for float32 at m >= 512; L's upper triangle holds garbage it never reads."""
+    a = rng.standard_normal((m, m)) / np.sqrt(m)
+    low = np.linalg.cholesky(a @ a.T + np.eye(m)).astype(dtype) + np.triu(rng.standard_normal((m, m)), 1).astype(dtype)
+    r = rng.standard_normal(m).astype(dtype)
+    got = tvm.trsv_rendition(low, r, transpose)
+    lo = torch.from_numpy(np.tril(low).astype(np.float64))
+    want = torch.linalg.solve_triangular(lo.mT if transpose else lo, torch.from_numpy(r.astype(np.float64))[:, None],
+                                         upper=transpose)[:, 0].numpy()
+    tol = 1e-3 if dtype == np.float32 and m >= 512 else 1e-4
+    assert got.dtype == dtype
+    assert np.abs(got - want).max() <= tol * max(1.0, float(np.abs(want).max()))
+
+
+def test_tile_trsv_plan_is_a_function_of_m_and_dtype():
+    """The launcher takes its plan from (m, sizeof(T)) alone; the variants' ranges are the source's note."""
+    text = tvm.SOURCE.read_text()
+    assert "inline TrsvPlan trsv_plan(int m, int elem) {" in text
+    assert "const TrsvPlan pl = trsv_plan(m, sizeof(T));" in text
+    note = " ".join(line.strip("/ ") for line in text.splitlines() if line.startswith("//"))
+    assert "(m up to 768 in float32, 512 in float64)" in note and "479232 (float32) and 77824 (float64)" in note
+    for itemsize, last_resident, last in ((4, 768, 479232), (8, 512, 77824)):
+        plan = {m: tvm.trsv_plan(m, itemsize) for m in (*range(1, last_resident + 2, 7), last_resident + 1)}
+        assert all(p["variant"] == ("resident" if m <= last_resident else "streaming") for m, p in plan.items())
+        assert all(p["cluster"] == min(8, -(-m // 32)) for m, p in plan.items())
+        assert tvm.trsv_plan(last, itemsize)["variant"] == "streaming" and tvm.trsv_plan(last + 1, itemsize) is None
